@@ -1,0 +1,122 @@
+"""Build and bind the port's hand-written CUDA kernels (`csrc/*.cu`).
+
+At first use the sources are compiled by `nvcc` for `sm_90a` into ONE shared
+library with a plain C interface, under `_build/` (git-ignored), named by a
+hash of the sources and flags so a changed source never loads a stale build.
+The library is bound with `ctypes`: no PyTorch headers are compiled, so a
+cold build takes seconds rather than the minutes of
+`torch.utils.cpp_extension.load`.
+
+Each C entry point launches on the stream it is given and returns the
+`cudaError_t` of the launch; the wrappers in `ops/sparse/` raise on a
+non-zero value. `LAUNCHES` counts the launches of each kernel (the wrappers
+add one per launch), so a run can show which kernels its path went through.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+CSRC_DIR = os.path.join(_HERE, "csrc")
+BUILD_DIR = os.path.join(_HERE, "_build")
+SOURCES = ("search.cu", "gather_gemm.cu", "gather_max.cu")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+)
+
+# kernel name -> launches since the last `reset_launches()`
+LAUNCHES = {"searchsorted": 0, "gather_gemm": 0, "gather_max": 0}
+
+_lock = threading.Lock()
+_lib = None
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def find_nvcc():
+    """Path of `nvcc`: on PATH, else under $CUDA_HOME / $CUDA_PATH, else the
+    toolkit's default install prefix. None when there is none."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"),
+                 "/usr/local/cuda"):
+        if root and os.path.isfile(os.path.join(root, "bin", "nvcc")):
+            return os.path.join(root, "bin", "nvcc")
+    return None
+
+
+def build():
+    """Compile the kernels if this exact source set is not built yet.
+
+    Returns (path of the shared library, compiler log; empty when the
+    library was already built). Raises RuntimeError when there is no `nvcc`
+    or the build fails."""
+    nvcc = find_nvcc()
+    if nvcc is None:
+        raise RuntimeError(
+            "cannot build the CUDA kernels: no nvcc on PATH, $CUDA_HOME or "
+            "$CUDA_PATH")
+    srcs = [os.path.join(CSRC_DIR, s) for s in SOURCES]
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in srcs:
+        with open(path, "rb") as f:
+            h.update(f.read())
+    lib_path = os.path.join(BUILD_DIR, f"libfcaf3d_kernels_{h.hexdigest()[:16]}.so")
+    if os.path.isfile(lib_path):
+        return lib_path, ""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{lib_path}.{os.getpid()}.tmp"
+    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, *srcs],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed with exit code {proc.returncode}:\n{proc.stderr}")
+    os.replace(tmp, lib_path)  # atomic: a concurrent loader sees all or nothing
+    return lib_path, proc.stdout + proc.stderr
+
+
+def _bind(lib):
+    p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    lib.fcaf3d_searchsorted.argtypes = [p, p, p, i64, i64, i64, i, p]
+    lib.fcaf3d_searchsorted.restype = i
+    lib.fcaf3d_gather_gemm.argtypes = [
+        p, p, p, p, p, p, p, p, i64, i64, i64, i64, i64, i64, i64, i64, i, i, p]
+    lib.fcaf3d_gather_gemm.restype = i
+    lib.fcaf3d_gather_max.argtypes = [
+        p, p, p, i64, i64, i64, i64, i64, i, ctypes.c_float, p]
+    lib.fcaf3d_gather_max.restype = i
+
+
+def load():
+    """The bound kernel library, built on first call. Raises RuntimeError
+    when it cannot be built."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            path, _ = build()
+            lib = ctypes.CDLL(path)
+            _bind(lib)
+            _lib = lib
+    return _lib
+
+
+def check(err: int, kernel: str) -> None:
+    """Raise if a launch returned a non-zero cudaError_t."""
+    if err != 0:
+        raise RuntimeError(f"{kernel} kernel launch failed: cudaError_t {err}")
+
+
+def stream_ptr(device) -> int:
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream

@@ -1,0 +1,63 @@
+"""Fixed-shape BEV NMS (port of the axis-aligned path of
+`fcaf3d_tpu/core/nms.py`): a static [K, K] IoU matrix and a greedy
+suppression loop over score-sorted candidates, batched over any leading
+dims (the classes of `fcaf3d_get_bboxes`)."""
+from __future__ import annotations
+
+import torch
+
+
+def _greedy_suppress(iou: torch.Tensor, order_valid: torch.Tensor,
+                     iou_thr: float) -> torch.Tensor:
+    """Greedy NMS given [..., K, K] IoU between score-sorted candidates.
+
+    Args:
+        order_valid: [..., K] bool; False rows are padding (never kept).
+
+    Returns:
+        keep [..., K] bool over the sorted candidates.
+    """
+    k = iou.shape[-1]
+    suppr = (iou > iou_thr) & ~torch.eye(k, dtype=torch.bool,
+                                         device=iou.device)
+    alive = order_valid.clone()
+    for i in range(k):  # candidate i, if still alive, kills what it overlaps
+        alive &= ~(suppr[..., i, :] & alive[..., i:i + 1])
+    return alive
+
+
+def nms_bev(boxes7: torch.Tensor, scores: torch.Tensor, iou_thr: float,
+            valid=None, rotated: bool = True) -> torch.Tensor:
+    """BEV NMS on 7-DoF boxes (x, y, z, dx, dy, dz, yaw), pcdet semantics.
+
+    Args:
+        boxes7: [..., K, 7] candidates (only x, y, dx, dy are read).
+        scores: [..., K].
+        valid: optional [..., K] bool candidate mask.
+        rotated: must be False: the axis-aligned overlap of
+            `pcdet_nms_normal_gpu` (yaw ignored). Rotated IoU is not ported.
+
+    Returns:
+        keep [..., K] bool in the original candidate order.
+    """
+    if rotated:
+        raise NotImplementedError("rotated BEV NMS is not ported yet")
+    if valid is None:
+        valid = torch.ones_like(scores, dtype=torch.bool)
+    masked = torch.where(valid, scores, -torch.inf)
+    order = torch.argsort(-masked, dim=-1, stable=True)
+    sboxes = torch.take_along_dim(boxes7, order[..., None], dim=-2)
+    svalid = torch.gather(valid, -1, order)
+
+    lo = sboxes[..., 0:2] - sboxes[..., 3:5] * 0.5
+    hi = sboxes[..., 0:2] + sboxes[..., 3:5] * 0.5
+    inter = torch.clamp(
+        torch.minimum(hi[..., :, None, :], hi[..., None, :, :])
+        - torch.maximum(lo[..., :, None, :], lo[..., None, :, :]), min=0.0)
+    inter_a = inter[..., 0] * inter[..., 1]
+    area = sboxes[..., 3] * sboxes[..., 4]
+    union = area[..., :, None] + area[..., None, :] - inter_a
+    iou = inter_a / torch.clamp_min(union, 1e-8)
+
+    keep_sorted = _greedy_suppress(iou, svalid, iou_thr)
+    return torch.zeros_like(keep_sorted).scatter(-1, order, keep_sorted)

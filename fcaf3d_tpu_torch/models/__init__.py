@@ -1,0 +1,7 @@
+from .detector import FCAF3D, infer_config  # noqa: F401
+from .fcaf3d_head import (  # noqa: F401
+    Detections,
+    FcafTestConfig,
+    HeadLevelOutput,
+    fcaf3d_get_bboxes,
+)

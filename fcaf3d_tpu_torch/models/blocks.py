@@ -1,0 +1,153 @@
+"""Sparse building blocks, inference only (port of `fcaf3d_tpu/models/blocks.py`).
+
+Module and parameter names follow the JAX package's flax names, so a flax
+variable tree `a/b/c` is the state_dict entry `a.b.c` (`params.py`).
+Parameters stay f32; convs cast their kernel to the activations' dtype.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from ..ops.sparse.conv import ConvEpilogue, sparse_conv, sparse_max_pool
+from ..ops.sparse.neck_ops import gen_children
+from ..ops.sparse.tensor import SparseTensor
+
+
+class SparseConv(nn.Module):
+    """MinkowskiConvolution equivalent; `kernel` is [K, Cin, Cout]."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: int = 3, stride: int = 1, use_bias: bool = False,
+                 out_budget: Optional[int] = None, device=None):
+        super().__init__()
+        self.kernel_size = kernel_size
+        self.stride = stride
+        self.out_budget = out_budget
+        self.kernel = nn.Parameter(torch.zeros(
+            kernel_size ** 3, in_channels, out_channels, device=device))
+        self.bias = (nn.Parameter(torch.zeros(out_channels, device=device))
+                     if use_bias else None)
+
+    def forward(self, st: SparseTensor, plan=None,
+                epilogue: Optional[ConvEpilogue] = None) -> SparseTensor:
+        dtype = st.feats.dtype
+        bias = None if self.bias is None else self.bias.to(dtype)
+        return sparse_conv(st, self.kernel.to(dtype), self.kernel_size,
+                           stride=self.stride, bias=bias,
+                           out_budget=self.out_budget, plan=plan,
+                           epilogue=epilogue)
+
+
+class SparseGenerativeTranspose(nn.Module):
+    """MinkowskiGenerativeConvolutionTranspose(kernel=2, stride=2), in the
+    parent-major raw form of the prune-early neck: returns (coords, keys,
+    feats) without building a SparseTensor."""
+
+    def __init__(self, in_channels: int, out_channels: int, device=None):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.zeros(8, in_channels, out_channels,
+                                               device=device))
+
+    def forward(self, st: SparseTensor):
+        return gen_children(st, self.kernel.to(st.feats.dtype))
+
+
+class SparseBatchNorm(nn.Module):
+    """Masked BatchNorm with running statistics (eval), eps 1e-5."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5, device=None):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(num_features, device=device))
+        self.bias = nn.Parameter(torch.zeros(num_features, device=device))
+        self.register_buffer("mean", torch.zeros(num_features, device=device))
+        self.register_buffer("var", torch.ones(num_features, device=device))
+
+    def affine(self):
+        """Folded f32 `(inv, shift)` with `bn(x) == x * inv + shift`, for
+        the producing conv's epilogue."""
+        inv = self.scale / torch.sqrt(self.var + self.eps)
+        return inv, self.bias - self.mean * inv
+
+    def forward(self, st: SparseTensor) -> SparseTensor:
+        inv = self.scale / torch.sqrt(self.var + self.eps)
+        out = (st.feats.float() - self.mean) * inv + self.bias
+        out = torch.where(st.valid[..., None], out, 0.0).to(st.feats.dtype)
+        return st.with_feats(out)
+
+
+class SparseInstanceNorm(nn.Module):
+    """Per-sample masked InstanceNorm (stem of the backbone)."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5, device=None):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(num_features, device=device))
+        self.bias = nn.Parameter(torch.zeros(num_features, device=device))
+
+    def forward(self, st: SparseTensor) -> SparseTensor:
+        feats32 = st.feats.float()
+        mask = st.valid[..., None].float()
+        count = torch.clamp_min(mask.sum(dim=1, keepdim=True), 1.0)
+        mean = (feats32 * mask).sum(dim=1, keepdim=True) / count
+        var = (((feats32 - mean) ** 2) * mask).sum(dim=1, keepdim=True) / count
+        out = (feats32 - mean) / torch.sqrt(var + self.eps) * self.scale \
+            + self.bias
+        out = torch.where(st.valid[..., None], out, 0.0).to(st.feats.dtype)
+        return st.with_feats(out)
+
+
+def sparse_relu(st: SparseTensor) -> SparseTensor:
+    return st.with_feats(torch.clamp_min(st.feats, 0.0))
+
+
+def sparse_elu(st: SparseTensor) -> SparseTensor:
+    """ELU with expm1 (the fused epilogue's ELU is exp(min(x, 0)) - 1)."""
+    out = torch.where(st.feats > 0, st.feats, torch.expm1(st.feats))
+    return st.with_feats(torch.where(st.valid[..., None], out, 0.0))
+
+
+def sparse_pool2x2(st: SparseTensor,
+                   out_budget: Optional[int] = None) -> SparseTensor:
+    return sparse_max_pool(st, kernel_size=2, stride=2, out_budget=out_budget)
+
+
+class SparseBasicBlock(nn.Module):
+    """ME `BasicBlock`: conv3(stride)-BN-ReLU-conv3-BN (+skip), ReLU; the
+    skip is conv1(stride)+BN when the stride or width changes. Inference
+    runs every BN, activation and the residual add in the convs' fused
+    epilogues."""
+
+    def __init__(self, inplanes: int, planes: int, stride: int = 1,
+                 out_budget: Optional[int] = None, device=None):
+        super().__init__()
+        self.conv1 = SparseConv(inplanes, planes, 3, stride=stride,
+                                out_budget=out_budget, device=device)
+        self.norm1 = SparseBatchNorm(planes, device=device)
+        self.conv2 = SparseConv(planes, planes, 3, device=device)
+        self.norm2 = SparseBatchNorm(planes, device=device)
+        self.has_ds = stride != 1 or inplanes != planes
+        if self.has_ds:
+            self.downsample_conv = SparseConv(inplanes, planes, 1,
+                                              stride=stride,
+                                              out_budget=out_budget,
+                                              device=device)
+            self.downsample_norm = SparseBatchNorm(planes, device=device)
+
+    def forward(self, st: SparseTensor, plans=None) -> SparseTensor:
+        """`plans` is an optional (conv1, conv2, downsample) triple of
+        precomputed `conv_plan`s."""
+        p1, p2, pds = plans if plans is not None else (None, None, None)
+        inv1, sh1 = self.norm1.affine()
+        inv2, sh2 = self.norm2.affine()
+        out = self.conv1(st, plan=p1, epilogue=ConvEpilogue(inv1, sh1, "relu"))
+        residual = st
+        if self.has_ds:
+            invd, shd = self.downsample_norm.affine()
+            residual = self.downsample_conv(
+                st, plan=pds, epilogue=ConvEpilogue(invd, shd, None))
+        return self.conv2(out, plan=p2, epilogue=ConvEpilogue(
+            inv2, sh2, "relu", add=residual.feats))

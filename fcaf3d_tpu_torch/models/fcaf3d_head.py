@@ -1,0 +1,249 @@
+"""FCAF3D neck + anchor-free head, inference (port of the prune-early
+inference path of `fcaf3d_tpu/models/fcaf3d_head.py`).
+
+- Top-down neck, coarsest level first: generative transpose (k2 s2) of the
+  coarser level, children pruned to the level's budget by the coarser
+  level's interpolated max-class score before any conv, then BN -> ELU ->
+  conv3 (+BN, ELU folded) and a scatter-add of the backbone lateral.
+- Per level: out conv3 (+BN, ELU folded), shared 1x1 head convs
+  (centerness 1, reg n_reg_outs, cls n_classes), exp(scale * reg[:6]).
+- `fcaf3d_get_bboxes`: per-level top `nms_pre`, box decode, per-class
+  top `nms_cap`, axis-aligned BEV NMS.
+"""
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Sequence, Tuple
+
+import torch
+from torch import nn
+
+from ..core.nms import nms_bev
+from ..ops.sparse.conv import ConvEpilogue, build_kernel_map_self
+from ..ops.sparse.neck_ops import (
+    child_prune_scores,
+    compact_select,
+    lateral_child_rows,
+    sort_tensor,
+    threshold_select,
+)
+from ..ops.sparse.tensor import SENTINEL, SparseTensor, lookup
+from .blocks import (
+    SparseBatchNorm,
+    SparseConv,
+    SparseGenerativeTranspose,
+    sparse_elu,
+)
+
+
+class HeadLevelOutput(NamedTuple):
+    centerness: torch.Tensor  # [B, N, 1]
+    bbox_pred: torch.Tensor  # [B, N, n_reg]
+    cls_scores: torch.Tensor  # [B, N, C]
+    points: torch.Tensor  # [B, N, 3] metric
+    valid: torch.Tensor  # [B, N]
+
+
+class Fcaf3DNeckWithHead(nn.Module):
+    """Prune-early neck and head. `neck_budgets[i]` is the post-prune row
+    budget of level i (i < n_levels - 1); the deepest level keeps its
+    backbone map.
+
+    Args:
+        in_channels: backbone widths per level, finest first.
+
+    `forward` returns (per-level `HeadLevelOutput`s, overflow telemetry
+    {"neck_lateral_missed_{i}": [B] int32}: laterals absent from the pruned
+    map, which the reference never loses)."""
+
+    def __init__(self, in_channels: Sequence[int], n_classes: int,
+                 out_channels: int = 128, n_reg_outs: int = 6,
+                 voxel_size: float = 0.01,
+                 neck_budgets: Sequence[int] = (32768, 16384, 4096, 1024),
+                 neck_mode: str = "prune_early", device=None):
+        super().__init__()
+        if neck_mode != "prune_early":
+            raise NotImplementedError(
+                f"neck_mode {neck_mode!r} is not ported; use 'prune_early'")
+        self.n_levels = len(in_channels)
+        self.voxel_size = voxel_size
+        self.neck_budgets = tuple(neck_budgets)
+        for i in range(self.n_levels):
+            c = in_channels[i]
+            self.add_module(f"out_block_{i}_conv", SparseConv(
+                c, out_channels, 3, device=device))
+            self.add_module(f"out_block_{i}_bn",
+                            SparseBatchNorm(out_channels, device=device))
+            self.register_parameter(
+                f"scale_{i}", nn.Parameter(torch.ones((), device=device)))
+            if i > 0:  # up block i: level i -> level i - 1
+                lo = in_channels[i - 1]
+                self.add_module(f"up_block_{i}_tr",
+                                SparseGenerativeTranspose(c, lo, device=device))
+                self.add_module(f"up_block_{i}_bn1",
+                                SparseBatchNorm(lo, device=device))
+                self.add_module(f"up_block_{i}_conv",
+                                SparseConv(lo, lo, 3, device=device))
+                self.add_module(f"up_block_{i}_bn2",
+                                SparseBatchNorm(lo, device=device))
+        self.centerness_conv = SparseConv(out_channels, 1, 1, device=device)
+        self.reg_conv = SparseConv(out_channels, n_reg_outs, 1, device=device)
+        self.cls_conv = SparseConv(out_channels, n_classes, 1, use_bias=True,
+                                   device=device)
+
+    def _up_level_pruned(self, i, parent, parent_kmap, scores_st, lateral):
+        """Generate level i's children from `parent`, prune them by the
+        interpolated coarse scores (force-keeping lateral-backed children),
+        sort, run the up-block convs on the pruned map and scatter-add the
+        lateral. Returns (level map, its self kernel map, missed count)."""
+        budget = self.neck_budgets[i]
+        b, p = parent.keys.shape
+        coords, keys, feats = getattr(self, f"up_block_{i + 1}_tr")(parent)
+
+        cs = child_prune_scores(scores_st.feats.float(), parent_kmap)
+        lat_rows = lateral_child_rows(parent, lateral)  # [B, L] in [0, 8P]
+        # dump row 8P takes every unmatched lateral; real rows are unique
+        must = torch.zeros((b, 8 * p + 1), dtype=torch.bool, device=keys.device)
+        must.scatter_(1, lat_rows.long(), lateral.valid)
+        keep = threshold_select(cs, keys != SENTINEL, budget,
+                                must_keep=must[:, :8 * p])
+        c2, k2, f2, _ = compact_select(coords, keys, feats, keep, budget)
+        x = sort_tensor(SparseTensor(coords=c2, feats=f2, keys=k2,
+                                     shift=parent.shift,
+                                     stride=parent.stride // 2,
+                                     is_sorted=False))
+        kmap = build_kernel_map_self(x.keys, x.coords, x.stride)
+        plan = (x.coords, x.keys, kmap, None)
+
+        x = getattr(self, f"up_block_{i + 1}_bn1")(x)
+        x = sparse_elu(x)
+        inv, sh = getattr(self, f"up_block_{i + 1}_bn2").affine()
+        x = getattr(self, f"up_block_{i + 1}_conv")(
+            x, plan=plan, epilogue=ConvEpilogue(inv, sh, "elu"))
+
+        # every lateral voxel is in the pruned map (must_keep at every
+        # level), so the reference's union-add is a scatter-add
+        lrow = lookup(x.keys, lateral.keys)  # [B, L] in [0, budget]
+        c = x.num_channels
+        fpad = torch.zeros((b, budget + 1, c), dtype=x.feats.dtype,
+                           device=x.feats.device)
+        fpad.scatter_add_(1, lrow.long()[..., None].expand(-1, -1, c),
+                          lateral.feats.to(x.feats.dtype))
+        x = x.with_feats(x.feats + fpad[:, :budget])
+        missed = ((lrow >= budget) & lateral.valid).sum(dim=1).int()
+        return x, kmap, missed
+
+    def forward(self, inputs: Tuple[SparseTensor, ...]):
+        n = len(inputs)
+        outs = [None] * n
+        overflow: Dict[str, torch.Tensor] = {}
+        x = inputs[-1]
+        scores_st = None
+        kmap = None
+        for i in range(n - 1, -1, -1):
+            if i < n - 1:
+                x, kmap, missed = self._up_level_pruned(
+                    i, x, kmap, scores_st, inputs[i])
+                overflow[f"neck_lateral_missed_{i}"] = missed
+            else:
+                kmap = build_kernel_map_self(x.keys, x.coords, x.stride)
+            plan = (x.coords, x.keys, kmap, None)
+            inv, sh = getattr(self, f"out_block_{i}_bn").affine()
+            out = getattr(self, f"out_block_{i}_conv")(
+                x, plan=plan, epilogue=ConvEpilogue(inv, sh, "elu"))
+
+            # head outputs leave the (possibly bf16) conv path in f32
+            ctr_feats = self.centerness_conv(out).feats.float()
+            cls_feats = self.cls_conv(out).feats.float()
+            reg_feats = self.reg_conv(out).feats.float()
+            scale = getattr(self, f"scale_{i}")
+            reg_dist = torch.exp(reg_feats[..., :6] * scale)
+            bbox_pred = torch.cat([reg_dist, reg_feats[..., 6:]], dim=-1)
+            bbox_pred = torch.where(out.valid[..., None], bbox_pred, 0.0)
+
+            # prune score = max class logit; padding rows are unreachable by
+            # key lookup, so they contribute zero
+            scores_st = out.with_feats(cls_feats.amax(dim=-1, keepdim=True))
+            outs[i] = HeadLevelOutput(
+                centerness=ctr_feats, bbox_pred=bbox_pred,
+                cls_scores=cls_feats, points=out.positions(self.voxel_size),
+                valid=out.valid)
+        return tuple(outs), overflow
+
+
+def bbox_pred_to_bbox(points: torch.Tensor,
+                      bbox_pred: torch.Tensor) -> torch.Tensor:
+    """Decode 6 distance outputs to gravity-centred axis-aligned boxes
+    [..., 6] = (x, y, z, w, l, h). The yaw parametrizations (7/8 outputs)
+    are not ported yet."""
+    if bbox_pred.shape[-1] != 6:
+        raise NotImplementedError("only the 6-output (axis-aligned) decode "
+                                  "is ported")
+    x = points[..., 0] + (bbox_pred[..., 1] - bbox_pred[..., 0]) / 2
+    y = points[..., 1] + (bbox_pred[..., 3] - bbox_pred[..., 2]) / 2
+    z = points[..., 2] + (bbox_pred[..., 5] - bbox_pred[..., 4]) / 2
+    return torch.stack([
+        x, y, z,
+        bbox_pred[..., 0] + bbox_pred[..., 1],
+        bbox_pred[..., 2] + bbox_pred[..., 3],
+        bbox_pred[..., 4] + bbox_pred[..., 5],
+    ], dim=-1)
+
+
+class FcafTestConfig(NamedTuple):
+    nms_pre: int = 1000
+    iou_thr: float = 0.5
+    score_thr: float = 0.01
+    nms_cap: int = 256  # per-class candidate cap fed to the NMS matrix
+    with_yaw: bool = False  # rotated boxes: not ported yet
+
+
+class Detections(NamedTuple):
+    boxes: torch.Tensor  # [B, D, 7] bottom-centred box7
+    scores: torch.Tensor  # [B, D]
+    labels: torch.Tensor  # [B, D] int32
+    valid: torch.Tensor  # [B, D] bool
+
+
+def _take(x: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """x [B, N, ...] rows at ids [B, k]."""
+    return torch.take_along_dim(x, ids[(...,) + (None,) * (x.dim() - 2)],
+                                dim=1)
+
+
+def fcaf3d_get_bboxes(outs: Tuple[HeadLevelOutput, ...],
+                      cfg: FcafTestConfig) -> Detections:
+    """Batched inference post-processing with static shapes: per level the
+    top `nms_pre` rows by max class score, decoded; per class the top
+    `nms_cap` candidates, axis-aligned BEV NMS. Every sort is stable, so
+    ties (padding rows all score 0) resolve by row order."""
+    if cfg.with_yaw:
+        raise NotImplementedError("rotated boxes are not ported yet")
+    cand_boxes, cand_scores = [], []
+    for o in outs:
+        score = torch.sigmoid(o.cls_scores) * torch.sigmoid(o.centerness)
+        score = torch.where(o.valid[..., None], score, 0.0)
+        max_score = score.amax(dim=-1)
+        k = min(cfg.nms_pre, max_score.shape[1])
+        ids = torch.argsort(-max_score, dim=1, stable=True)[:, :k]
+        boxes = bbox_pred_to_bbox(_take(o.points, ids), _take(o.bbox_pred, ids))
+        cand_boxes.append(torch.cat([boxes, torch.zeros_like(boxes[..., :1])],
+                                    dim=-1))
+        cand_scores.append(_take(score, ids))
+    boxes = torch.cat(cand_boxes, dim=1)  # [B, Ct, 7] gravity-centred
+    scores = torch.cat(cand_scores, dim=1)  # [B, Ct, C]
+
+    b, ct, n_classes = scores.shape
+    kc = min(cfg.nms_cap, ct)
+    per_class = scores.transpose(1, 2)  # [B, C, Ct]
+    ids = torch.argsort(-per_class, dim=-1, stable=True)[..., :kc]
+    s = torch.gather(per_class, 2, ids)  # [B, C, kc]
+    cb = torch.take_along_dim(boxes[:, None], ids[..., None], dim=2)
+    keep = nms_bev(cb, s, cfg.iou_thr, valid=s > cfg.score_thr, rotated=False)
+    labels = torch.arange(n_classes, dtype=torch.int32, device=scores.device)
+    labels = labels[None, :, None].expand(b, n_classes, kc)
+    flat = cb.reshape(b, n_classes * kc, 7)
+    # gravity-centred -> bottom-centred canonical box7
+    flat = torch.cat([flat[..., :2], flat[..., 2:3] + (-flat[..., 5:6] / 2),
+                      flat[..., 3:]], dim=-1)
+    return Detections(boxes=flat, scores=s.reshape(b, -1),
+                      labels=labels.reshape(b, -1), valid=keep.reshape(b, -1))

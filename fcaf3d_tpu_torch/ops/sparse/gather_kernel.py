@@ -1,0 +1,218 @@
+"""Gather-GEMM and gather-max (port of `fcaf3d_tpu/ops/sparse/gather_kernel.py`).
+
+- `fused_gather_gemm`: out[b, m] = sum_k feats[b, idx[b, m, k]] @ W[k], a
+  miss (idx == N) adding zero, with the optional inference epilogue
+  `act(out * scale + shift [+ add]) * vmask`. Kernel K2 (`csrc/gather_gemm.cu`).
+- `fused_gather_max`: out[b, m] = max_k feats[b, idx[b, m, k]] per channel,
+  a miss being -inf and an all-miss row finfo.min. Kernel K3
+  (`csrc/gather_max.cu`).
+
+Each wrapper runs its kernel on a CUDA tensor and its plain PyTorch version
+(`*_plain`, the same function) on a CPU tensor; there is no fallback from
+one to the other.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ... import _native
+
+_ACTS = {None: 0, "relu": 1, "elu": 2}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+N_CHUNKS = 3  # offset chunks summed in order (the JAX fallback's n_chunks)
+
+
+def _apply_act(x: torch.Tensor, act: Optional[str]) -> torch.Tensor:
+    """Epilogue activation in f32. ELU is exp(min(x, 0)) - 1, as in the
+    TPU kernel's epilogue (`sparse_elu` uses expm1 instead)."""
+    if act == "relu":
+        return torch.clamp_min(x, 0.0)
+    if act == "elu":
+        return torch.where(x > 0, x, torch.exp(torch.clamp_max(x, 0.0)) - 1.0)
+    if act is not None:
+        raise ValueError(f"act must be None, 'relu' or 'elu', got {act!r}")
+    return x
+
+
+def apply_epilogue(out, scale, shift, act, vmask=None, add=None):
+    """`act(out * scale + shift [+ add]) [* vmask]` in f32, cast back."""
+    y = out.float() * scale + shift
+    if add is not None:
+        y = y + add.float()
+    y = _apply_act(y, act)
+    if vmask is not None:
+        y = y * vmask[..., None].float()
+    return y.to(out.dtype)
+
+
+def _check_epilogue(scale, shift, act, vmask, add):
+    if scale is None:
+        if shift is not None or act is not None or vmask is not None \
+                or add is not None:
+            raise ValueError("shift/act/vmask/add need the epilogue's scale")
+        return False
+    if shift is None or vmask is None:
+        raise ValueError("the epilogue needs scale, shift and vmask")
+    if act not in _ACTS:
+        raise ValueError(f"act must be None, 'relu' or 'elu', got {act!r}")
+    return True
+
+
+def chunk_bounds(k: int):
+    """Offsets [lo, hi) of the summation chunks, in order."""
+    bounds = np.linspace(0, k, N_CHUNKS + 1).astype(int)
+    return [(int(lo), int(hi)) for lo, hi in zip(bounds[:-1], bounds[1:])]
+
+
+def gather_rows(feats: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """feats [B, N, C], idx [B, M, Kc] -> [B, M, Kc, C] with miss -> 0."""
+    b, _, c = feats.shape
+    fpad = torch.cat([feats, torch.zeros_like(feats[:, :1])], dim=1)
+    g = torch.take_along_dim(fpad, idx.reshape(b, -1, 1).long(), dim=1)
+    return g.reshape(tuple(idx.shape) + (c,))
+
+
+def fused_gather_gemm_plain(feats, idx, weight, scale=None, shift=None,
+                            act=None, vmask=None, add=None):
+    """Plain PyTorch version of K2, same arguments and result. The offsets
+    are summed in three chunks, each one product over (offset, channel)
+    in the feats dtype, added in order (the JAX package's XLA path)."""
+    has_epi = _check_epilogue(scale, shift, act, vmask, add)
+    b, _, c = feats.shape
+    m = idx.shape[1]
+    e = weight.shape[-1]
+    out = torch.zeros((b, m, e), dtype=feats.dtype, device=feats.device)
+    for lo, hi in chunk_bounds(weight.shape[0]):
+        if lo == hi:
+            continue
+        g = gather_rows(feats, idx[:, :, lo:hi]).reshape(b, m, (hi - lo) * c)
+        out = out + g @ weight[lo:hi].reshape((hi - lo) * c, e)
+    if has_epi:
+        out = apply_epilogue(out, scale, shift, act, vmask, add)
+    return out
+
+
+def _same_device(device, *tensors):
+    return all(t is None or t.device == device for t in tensors)
+
+
+def _fused_gather_gemm_cuda(feats, idx, weight, scale, shift, act, vmask, add,
+                            has_epi):
+    lib = _native.load()
+    dev = feats.device
+    if dev.type != "cuda" or not _same_device(dev, idx, weight, scale, shift,
+                                              vmask, add):
+        raise ValueError("K2 needs every tensor on one CUDA device")
+    if feats.dtype not in _DTYPES or weight.dtype != feats.dtype:
+        raise TypeError("K2 takes float32 or bfloat16 feats and weight of one "
+                        f"dtype, got {feats.dtype} and {weight.dtype}")
+    if idx.dtype != torch.int32:
+        raise TypeError(f"K2 takes an int32 kernel map, got {idx.dtype}")
+    b, n, c = feats.shape
+    if idx.dim() != 3 or idx.shape[0] != b or weight.dim() != 3 \
+            or weight.shape[:2] != (idx.shape[2], c):
+        raise ValueError(f"K2 shapes: feats {tuple(feats.shape)}, idx "
+                         f"{tuple(idx.shape)}, weight {tuple(weight.shape)}")
+    m, k = idx.shape[1:]
+    e = weight.shape[2]
+    if has_epi:
+        if scale.dtype != torch.float32 or shift.dtype != torch.float32 \
+                or scale.shape != (e,) or shift.shape != (e,):
+            raise ValueError("K2 takes float32 scale and shift of shape [E]")
+        if vmask.dtype != torch.bool or vmask.shape != (b, m):
+            raise ValueError("K2 takes a bool vmask of shape [B, M]")
+        if add is not None and (add.dtype != feats.dtype
+                                or add.shape != (b, m, e)):
+            raise ValueError("K2 takes `add` of shape [B, M, E] in the feats "
+                             "dtype")
+    operands = (feats, idx, weight, scale, shift, vmask, add)
+    if not all(t is None or t.is_contiguous() for t in operands):
+        raise ValueError("K2 takes contiguous tensors")
+    out = torch.empty((b, m, e), dtype=feats.dtype, device=dev)
+    (_, k1), (_, k2), _ = chunk_bounds(k)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    err = lib.fcaf3d_gather_gemm(
+        feats.data_ptr(), idx.data_ptr(), weight.data_ptr(), ptr(scale),
+        ptr(shift), ptr(add), ptr(vmask), out.data_ptr(), b, n, m, k, c, e,
+        k1, k2, _DTYPES[feats.dtype], _ACTS[act], _native.stream_ptr(dev))
+    _native.LAUNCHES["gather_gemm"] += 1
+    _native.check(err, "gather_gemm")
+    return out
+
+
+def fused_gather_gemm(feats, idx, weight, scale=None, shift=None, act=None,
+                      vmask=None, add=None):
+    """out[b, m] = sum_k feats[b, idx[b, m, k]] @ weight[k]; a miss row
+    (idx == N) contributes zero.
+
+    Args:
+        feats: [B, N, C]; idx: [B, M, K] int32 in [0, N]; weight: [K, C, E].
+        scale/shift: optional folded-BN affine [E] f32 (inference epilogue).
+        act: None | 'relu' | 'elu' epilogue activation (needs scale).
+        vmask: [B, M] bool row validity (required with scale): padding rows
+            get zero.
+        add: optional [B, M, E] residual added after the affine, before act.
+
+    Raises ValueError when act/vmask/add come without scale (the TPU kernel
+    silently dropped them).
+    """
+    has_epi = _check_epilogue(scale, shift, act, vmask, add)
+    if feats.device.type == "cpu":
+        return fused_gather_gemm_plain(feats, idx, weight, scale, shift, act,
+                                       vmask, add)
+    return _fused_gather_gemm_cuda(feats, idx, weight, scale, shift, act,
+                                   vmask, add, has_epi)
+
+
+def fused_gather_max_plain(feats: torch.Tensor, idx: torch.Tensor):
+    """Plain PyTorch version of K3, same arguments and result."""
+    b, _, c = feats.shape
+    m, k = idx.shape[1:]
+    neg = torch.full((b, 1, c), torch.finfo(feats.dtype).min,
+                     dtype=feats.dtype, device=feats.device)
+    fpad = torch.cat([feats, neg], dim=1)
+    g = torch.take_along_dim(fpad, idx.reshape(b, -1, 1).long(), dim=1)
+    return g.reshape(b, m, k, c).amax(dim=2)
+
+
+def _fused_gather_max_cuda(feats, idx):
+    lib = _native.load()
+    dev = feats.device
+    if dev.type != "cuda" or idx.device != dev:
+        raise ValueError("K3 needs feats and idx on one CUDA device")
+    if feats.dtype not in _DTYPES or idx.dtype != torch.int32:
+        raise TypeError(f"K3 takes float32/bfloat16 feats and an int32 map, "
+                        f"got {feats.dtype} and {idx.dtype}")
+    if feats.dim() != 3 or idx.dim() != 3 or idx.shape[0] != feats.shape[0]:
+        raise ValueError(f"K3 shapes: feats {tuple(feats.shape)}, idx "
+                         f"{tuple(idx.shape)}")
+    if not (feats.is_contiguous() and idx.is_contiguous()):
+        raise ValueError("K3 takes contiguous tensors")
+    b, n, c = feats.shape
+    m, k = idx.shape[1:]
+    out = torch.empty((b, m, c), dtype=feats.dtype, device=dev)
+    err = lib.fcaf3d_gather_max(
+        feats.data_ptr(), idx.data_ptr(), out.data_ptr(), b, n, m, k, c,
+        _DTYPES[feats.dtype], torch.finfo(feats.dtype).min,
+        _native.stream_ptr(dev))
+    _native.LAUNCHES["gather_max"] += 1
+    _native.check(err, "gather_max")
+    return out
+
+
+def fused_gather_max(feats: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """out[b, m] = max_k feats[b, idx[b, m, k]] per channel; a miss
+    (idx == N) is -inf and an all-miss row returns finfo.min (callers mask).
+
+    Args:
+        feats: [B, N, C]; idx: [B, M, K] int32 in [0, N].
+    """
+    if feats.device.type == "cpu":
+        return fused_gather_max_plain(feats, idx)
+    return _fused_gather_max_cuda(feats, idx)
