@@ -8,20 +8,44 @@ and PyTorch built for CUDA:
 Phases (any failure raises and the script exits non-zero):
 
 1. Device: require CUDA; print the card's name and power limit.
-2. Build: compile the CUDA kernels K1-K3 from `fcaf3d_tpu_torch/csrc/`.
+2. Build: compile the CUDA kernels K1-K4 from `fcaf3d_tpu_torch/csrc/`
+   (one nvcc per source, in parallel).
 3. Kernels against their plain PyTorch versions on the card, at the shapes
    of the main path's maps on a real-size scan: K1 exact (with and without
    `with_miss`), K2 in f32 and bf16 with every epilogue, K3 exact. Times
    of each kernel and its plain version (CUDA events).
-4. The slice: `init_detector(fcaf3d_scannet())` in bf16 and
+4. The backward kernels, the same way, on the maps of one scan (batch 1)
+   and of the batch-8 training batch: K4 (weight gradient) at every
+   (C, E, K) of the training path in f32 and bf16, bitwise equal over two
+   runs; K2 as dFeats on a reversed self map and on an inverted k3 s2 map
+   (the inverse map card vs CPU exactly).
+5. Inference: `init_detector(fcaf3d_scannet())` in bf16 and
    `inference_detector` on three 100 000-point scans, with zero overflow
-   and every kernel launched; then one scan in f32 on the card against the
-   plain path on the CPU (voxel keys and backbone kernel maps exactly equal,
-   detections equal within tolerance).
+   and every inference kernel launched; then one scan in f32 on the card
+   against the plain path on the CPU (voxel keys and backbone kernel maps
+   exactly equal, detections equal within tolerance).
+6. Training: `create_train_state` / `make_train_step` at `fcaf3d_scannet`
+   in bf16, batch 8 of crowded synthetic scenes (50 000 raw points each,
+   sampled to 100 000): one warm-up step, five timed steps with finite
+   losses, a live box loss, zero overflow, finite non-zero gradients on
+   every conv kernel and K1-K4 launched; then f32 steps on the card
+   against the CPU plain path: `fcaf3d_tiny` at batch 2 (every gradient
+   element within 1e-3 of its leaf's largest) and `fcaf3d_scannet` at
+   batch 1 (kernel maps and pruned neck maps exactly equal, losses within
+   1e-5, each gradient leaf within 5% in L2 norm).
 
 Output: progress lines, then a JSON line of per-kernel results, the
 `nvidia-smi` name/power-limit line, and last `{"ok": true, "device": ...}`.
+
+Two further modes measure instead of checking (device and build first):
+
+    python3 chip_smoke.py --profile         # stage split and kernel profile
+                                            # of the batch-8 bf16 train step
+    python3 chip_smoke.py --grad-control 3  # f32 ScanNet gradients, seeds
+                                            # 0-2: card vs CPU against CPU vs
+                                            # CPU with colours x (1 + 1e-6)
 """
+import argparse
 import dataclasses
 import json
 import os
@@ -47,6 +71,34 @@ PATH_VARIANT = {(3, 64, 27): "plain sum", (1, 8, 27): "plain sum",
                 (128, 128, 27): "act=relu add=True"}
 # the f32 slice on the card against the CPU plain path
 BOX_ATOL, SCORE_ATOL = 1e-3, 1e-4
+# K4 at every (C, E, K) of the training path, with the map that gives that
+# shape its rows (neck levels: the backbone map of that stride padded to the
+# neck budget, a subset of the pruned neck map)
+K4_SHAPES = (
+    ((3, 64, 27), "s1_k3s2"), ((64, 64, 27), "s8_k3s1"),
+    ((64, 128, 27), "s8_k3s2"), ((128, 128, 27), "s16_k3s1"),
+    ((128, 256, 27), "s16_k3s2"), ((256, 256, 27), "s32_k3s1"),
+    ((256, 512, 27), "s32_k3s2"), ((512, 512, 27), "s64_k3s1"),
+    ((64, 64, 1), "s4_k1s2"), ((64, 128, 1), "s8_k1s2"),
+    ((128, 256, 1), "s16_k1s2"), ((256, 512, 1), "s32_k1s2"),
+    ((64, 64, 27), "neck_s8"), ((128, 128, 27), "neck_s16"),
+    ((256, 256, 27), "neck_s32"), ((64, 128, 27), "neck_s8"),
+    ((128, 128, 27), "neck_s16"), ((256, 128, 27), "neck_s32"),
+    ((512, 128, 27), "s64_k3s1"))
+# K4 tolerance relative to the largest |dW|, both dtypes: both sides sum f32
+# products of the same (bf16-exact) inputs, in another order
+K4_RTOL = 1e-4
+TRAIN_BATCH, TRAIN_STEPS = 8, 5
+TRAIN_BOXES, TRAIN_BOX_POINTS, TRAIN_FLOOR_POINTS = 20, 2400, 2000
+# f32 train steps on the card against the CPU plain path. At fcaf3d_tiny
+# (batch 2) the gate is tight: every gradient element within 1e-3 of its
+# leaf's largest |g|, as the CPU port holds to `jax.grad`. At ScanNet size
+# the deep gradients at random init are chaotic in ReLU flips (on the CPU
+# alone, colours x (1 + 1e-6) move whole leaves by ~1% in L2 norm:
+# `--grad-control`), so that step is a loose sanity gate on each leaf's
+# difference in L2 norm relative to the leaf's norm
+TRAIN_LOSS_RTOL, TINY_GRAD_RTOL, TRAIN_GRAD_RTOL = 1e-5, 1e-3, 5e-2
+TINY_EXTENT = (0.6, 0.6, 0.3)  # scene extent that the tiny budgets hold
 
 
 def log(msg):
@@ -90,9 +142,17 @@ def scan(seed):
     return np.concatenate([xyz, rgb], axis=1)
 
 
-def backbone_maps(points, cfg, device, seed=0):
-    """The voxel keys and every kernel map the backbone builds for one scan,
-    sampled as `inference_detector` samples it. The maps depend only on
+def sample(points, cfg, seed=0):
+    """One scan's points sampled to `cfg.num_points` as `inference_detector`
+    samples them."""
+    rng = np.random.default_rng(seed)
+    return points[rng.choice(len(points), cfg.num_points,
+                             replace=len(points) < cfg.num_points)]
+
+
+def backbone_maps(clouds, cfg, device):
+    """The voxel keys and every kernel map the backbone builds for a batch
+    of sampled clouds [B, N, 6] (xyz + rgb). The maps depend only on
     coordinates, so this replays `MEResNet3D`'s map construction."""
     import torch
 
@@ -100,11 +160,8 @@ def backbone_maps(points, cfg, device, seed=0):
         SparseTensor, build_kernel_map, build_kernel_map_self, conv_plan,
         downsample_coords, kernel_offsets, voxelize)
 
-    rng = np.random.default_rng(seed)
-    pts = points[rng.choice(len(points), cfg.num_points,
-                            replace=len(points) < cfg.num_points)]
-    p = torch.as_tensor(pts[None, :, :3].astype(np.float32), device=device)
-    c = torch.as_tensor(pts[None, :, 3:6].astype(np.float32), device=device)
+    p = torch.as_tensor(clouds[..., :3].astype(np.float32), device=device)
+    c = torch.as_tensor(clouds[..., 3:6].astype(np.float32), device=device)
     valid = torch.ones(p.shape[:2], dtype=torch.bool, device=device)
     st = voxelize(p, c, valid, cfg.voxel_size, cfg.input_budget)
     maps = {"voxel_keys": (st.keys, None)}
@@ -134,6 +191,23 @@ def backbone_maps(points, cfg, device, seed=0):
         maps[f"s{2 * s}_keys"] = (ok, None)
         x = coords_only(oc, ok, 2 * s, st.shift)
     return maps
+
+
+def neck_maps(torch, maps, cfg):
+    """Self maps at the neck levels' shapes: the backbone keys of stride s
+    (which the pruned neck map always keeps) padded to the neck budget."""
+    from fcaf3d_tpu_torch.ops.sparse import (
+        SENTINEL, build_kernel_map_self, decode_coords)
+
+    out = {}
+    for s, budget in zip((8, 16, 32), cfg.neck_budgets):
+        keys = maps[f"s{s}_keys"][0]
+        pad = torch.full((keys.shape[0], budget - keys.shape[1]), SENTINEL,
+                         dtype=keys.dtype, device=keys.device)
+        keys = torch.cat([keys, pad], dim=1)
+        out[f"neck_s{s}"] = (build_kernel_map_self(keys, decode_coords(keys),
+                                                   s), budget)
+    return out
 
 
 def cuda_ms(torch, fn, reps=10):
@@ -265,8 +339,9 @@ def compare_f32(torch, cfg, points, device):
     from fcaf3d_tpu_torch.apis import inference_detector, init_detector
 
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
-    gpu_maps = backbone_maps(points, cfg32, device)
-    cpu_maps = backbone_maps(points, cfg32, "cpu")
+    cloud = sample(points, cfg32)[None]
+    gpu_maps = backbone_maps(cloud, cfg32, device)
+    cpu_maps = backbone_maps(cloud, cfg32, "cpu")
     for name, (m, _) in gpu_maps.items():
         if not torch.equal(m.cpu(), cpu_maps[name][0]):
             raise AssertionError(f"f32 slice: {name} differs card vs CPU")
@@ -324,11 +399,397 @@ def slice_phase(torch, cfg, scans, device):
                         & (dets["labels_3d"] < cfg.n_classes)).all():
             raise AssertionError(f"scan {i}: malformed detections")
     log(f"   launches over {len(scans)} scans: {launches}")
-    missing = [k for k, v in launches.items() if v == 0]
+    # K4 (the weight gradient) belongs to training only
+    missing = [k for k, v in launches.items() if v == 0 and k != "gather_dw"]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{missing}")
     return launches
+
+
+def backward_kernel_phase(torch, cfg, maps_by_batch):
+    """K4 against its plain version at every (C, E, K) of the training path
+    (f32 and bf16, bitwise repeatable), and K2 as dFeats on a reversed self
+    map and on an inverted k3 s2 map, on each batch's maps. The record is
+    K4 at s8 C64 E64 bf16 on the largest batch."""
+    rec = {}
+    k4_err = 0.0
+    for maps in maps_by_batch:
+        maps = {**maps, **neck_maps(torch, maps, cfg)}
+        for (c, e, k), name in K4_SHAPES:
+            for dname in ("float32", "bfloat16"):
+                ms, plain, diff = k4_case(torch, maps[name], c, e, dname,
+                                          f"{name} C={c} E={e} K={k}")
+                if dname == "float32":
+                    k4_err = max(k4_err, diff)
+                if (c, e, k, name, dname) == (64, 64, 27, "s8_k3s1",
+                                              "bfloat16"):
+                    rec["gather_dw"] = {"ms": ms, "plain_ms": plain}
+        dfeats_case(torch, maps["s8_k3s1"], 64, 64, self_map=True)
+        dfeats_case(torch, maps["s8_k3s2"], 64, 128, self_map=False)
+    rec["gather_dw"]["max_abs_err"] = k4_err
+    return rec
+
+
+def k4_case(torch, idx_n, c, e, dname, what):
+    """K4 against its plain version on one map: within K4_RTOL of the
+    largest |dW|, bitwise equal over two runs, and both timed."""
+    from fcaf3d_tpu_torch.ops.sparse import gather_kernel as gk
+
+    idx, n = idx_n
+    b, m, k = idx.shape
+    gen = torch.Generator(device=idx.device).manual_seed(b * m + c + e)
+    dt = getattr(torch, dname)
+    feats = torch.randn(b, n, c, generator=gen, device=idx.device).to(dt)
+    dout = torch.randn(b, m, e, generator=gen, device=idx.device).to(dt)
+    got = gk.fused_gather_dw(feats, idx, dout)
+    again = gk.fused_gather_dw(feats, idx, dout)
+    want = gk.fused_gather_dw_plain(feats, idx, dout)
+    torch.cuda.synchronize()
+    diff = float((got - want).abs().max())
+    tol = K4_RTOL * float(want.abs().max())
+    if not (diff <= tol and torch.isfinite(got).all()):
+        raise AssertionError(f"K4 {what} {dname} B={b}: max abs diff {diff} "
+                             f"> {tol}")
+    if not torch.equal(got, again):
+        raise AssertionError(f"K4 {what} {dname} B={b}: two runs differ")
+    ms = cuda_ms(torch, lambda: gk.fused_gather_dw(feats, idx, dout))
+    plain = cuda_ms(torch, lambda: gk.fused_gather_dw_plain(feats, idx, dout))
+    log(f"   K4 {what} {dname} idx {tuple(idx.shape)} N={n}: ok, bitwise "
+        f"repeatable (max abs diff {diff:.3g}, tol {tol:.3g}); kernel "
+        f"{ms:.4f} ms, plain {plain:.4f} ms")
+    return ms, plain, diff
+
+
+def dfeats_case(torch, idx_n, c, e, self_map):
+    """K2 as dFeats: dout [B, M, E] through the inverse map with W^T, in
+    f32 and bf16; a strided map's inverse is held card vs CPU exactly."""
+    from fcaf3d_tpu_torch.ops.sparse import conv as sconv
+    from fcaf3d_tpu_torch.ops.sparse import gather_kernel as gk
+
+    idx, n = idx_n
+    b, m, k = idx.shape
+    dev = idx.device
+    gen = torch.Generator(device=dev).manual_seed(b * m + c + e)
+    if self_map:
+        rev, how = idx.flip(-1).contiguous(), "reversed self map"
+    else:
+        rev, how = sconv.invert_kernel_map(idx, n), "inverted k3 s2 map"
+        if not torch.equal(rev.cpu(), sconv.invert_kernel_map(idx.cpu(), n)):
+            raise AssertionError(f"inverse map B={b} differs card vs CPU")
+    for dname in ("float32", "bfloat16"):
+        dt = getattr(torch, dname)
+        dout = torch.randn(b, m, e, generator=gen, device=dev).to(dt)
+        wt = (torch.randn(k, e, c, generator=gen, device=dev)
+              / np.sqrt(k * e)).to(dt)
+        got = gk.fused_gather_gemm(dout, rev, wt)
+        want = gk.fused_gather_gemm_plain(dout, rev, wt)
+        torch.cuda.synchronize()
+        ref = want.float()
+        diff = float((got.float() - ref).abs().max())
+        tol = K2_RTOL[dname] * max(float(ref.abs().max()), 1.0)
+        if not (diff <= tol and torch.isfinite(got).all()):
+            raise AssertionError(f"K2 dFeats {how} {dname} B={b}: max abs "
+                                 f"diff {diff} > {tol}")
+        ms = cuda_ms(torch, lambda: gk.fused_gather_gemm(dout, rev, wt))
+        plain = cuda_ms(torch, lambda: gk.fused_gather_gemm_plain(
+            dout, rev, wt))
+        log(f"   K2 dFeats {how} {dname} rev {tuple(rev.shape)} E={e} -> "
+            f"C={c}: ok (max abs diff {diff:.3g}); kernel {ms:.4f} ms, "
+            f"plain {plain:.4f} ms")
+
+
+def train_batch(cfg, batch, seed0):
+    """`batch` crowded synthetic scenes (`data.synth`), each 50 000 raw
+    points sampled to `cfg.num_points` as `inference_detector` samples,
+    with GT boxes padded to `cfg.max_gt_boxes`."""
+    from fcaf3d_tpu_torch.data.synth import crowded_scene, densify
+
+    out = {"points": [], "colors": [], "gt_boxes": [], "gt_labels": [],
+           "gt_valid": []}
+    g = cfg.max_gt_boxes
+    for i in range(batch):
+        rng = np.random.default_rng(seed0 + i)
+        scene = densify(crowded_scene(TRAIN_BOXES, cfg.n_classes, rng,
+                                      extent=5.0),
+                        TRAIN_BOX_POINTS, TRAIN_FLOOR_POINTS, rng)
+        pts = scene["points"]
+        pick = np.random.default_rng(0).choice(
+            len(pts), cfg.num_points, replace=len(pts) < cfg.num_points)
+        out["points"].append(pts[pick, :3])
+        out["colors"].append(pts[pick, 3:6])
+        n = len(scene["gt_boxes"])
+        boxes = np.zeros((g, 7), np.float32)
+        labels = np.zeros(g, np.int32)
+        boxes[:n], labels[:n] = scene["gt_boxes"], scene["gt_labels"]
+        out["gt_boxes"].append(boxes)
+        out["gt_labels"].append(labels)
+        out["gt_valid"].append(np.arange(g) < n)
+    batch_np = {k: np.stack(v) for k, v in out.items()}
+    batch_np["valid"] = np.ones(batch_np["points"].shape[:2], bool)
+    return batch_np
+
+
+def train_phase(torch, cfg, batch, device):
+    """bf16 training at batch 8: a warm-up step, then five timed steps.
+    Returns launches per kernel over the timed steps."""
+    from fcaf3d_tpu_torch import _native
+    from fcaf3d_tpu_torch.train import create_train_state, make_train_step
+
+    model, opt, _ = create_train_state(cfg, seed=0, device=device)
+    step = make_train_step(model, cfg, opt)
+    step(batch)  # warm-up: cuBLAS and the allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _native.reset_launches()
+    times, metrics = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        m = {k: float(v) for k, v in step(batch).items()}
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        metrics.append(m)
+    launches = dict(_native.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    for i, (dt, m) in enumerate(zip(times, metrics)):
+        log(f"   step {i}: {dt * 1e3:.1f} ms wall, " + ", ".join(
+            f"{k} {v:.5g}" for k, v in m.items()))
+        if not all(np.isfinite(v) for v in m.values()):
+            raise AssertionError(f"step {i}: non-finite metrics {m}")
+        if m["loss_bbox"] <= 0 or m["overflow_max"] != 0:
+            raise AssertionError(f"step {i}: loss_bbox {m['loss_bbox']}, "
+                                 f"overflow_max {m['overflow_max']}")
+    n_conv = 0
+    for name, p in model.named_parameters():
+        if name.endswith("kernel"):
+            n_conv += 1
+            if p.grad is None or not torch.isfinite(p.grad).all() \
+                    or not p.grad.abs().max() > 0:
+                raise AssertionError(f"{name}: gradient missing, non-finite "
+                                     "or zero")
+    log(f"   {TRAIN_STEPS} steps at batch {TRAIN_BATCH}: mean "
+        f"{np.mean(times) * 1e3:.1f} ms/step (min {min(times) * 1e3:.1f}); "
+        f"peak memory {peak / 2**30:.2f} GiB; {n_conv} conv kernels with "
+        f"finite non-zero gradients; launches {launches}")
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched in training: {missing}")
+    return launches
+
+
+def head_batch(torch, cfg, extent, b=2, boxes_per_scene=3, seed=0):
+    """B `bench.synth_scene` scans of `extent` for a miniature config, with
+    GT boxes of ~0.2 m around level-0 head locations of the training
+    forward (on the CPU; weights and pruning are the same on the card), so
+    that the assigner finds positives and the box loss is live."""
+    from bench import synth_scene
+    from fcaf3d_tpu_torch.train import create_train_state
+
+    pts, cols = zip(*(synth_scene(np.random.RandomState(seed + s),
+                                  cfg.num_points, extent=extent)
+                      for s in range(b)))
+    batch = {"points": np.stack(pts).astype(np.float32),
+             "colors": np.stack(cols).astype(np.float32),
+             "valid": np.ones((b, cfg.num_points), bool)}
+    model, _, _ = create_train_state(cfg, seed=0)
+    with torch.no_grad():
+        outs, _ = model(*(torch.as_tensor(batch[k])
+                          for k in ("points", "colors", "valid")))
+    g = cfg.max_gt_boxes
+    batch.update(gt_boxes=np.zeros((b, g, 7), np.float32),
+                 gt_labels=np.zeros((b, g), np.int32),
+                 gt_valid=np.zeros((b, g), bool))
+    rng = np.random.default_rng(seed)
+    for i in range(b):
+        heads = outs[0].points[i][outs[0].valid[i]].numpy()
+        for j, h in enumerate(heads[rng.choice(len(heads), boxes_per_scene,
+                                               replace=False)]):
+            dims = rng.uniform(0.18, 0.26, 3).astype(np.float32)
+            batch["gt_boxes"][i, j] = [h[0], h[1], h[2] - dims[2] / 2,
+                                       *dims, 0.0]
+            batch["gt_labels"][i, j] = rng.integers(0, cfg.n_classes)
+            batch["gt_valid"][i, j] = True
+    return batch
+
+
+def step_grads(torch, cfg, batch, dev, seed=0):
+    """Forward in train mode, `fcaf3d_loss` and backward on `dev`: the
+    head-level maps, overflow counts, losses and every parameter's
+    gradient, on the CPU."""
+    from fcaf3d_tpu_torch.models.detector import loss_config
+    from fcaf3d_tpu_torch.models.fcaf3d_head import fcaf3d_loss
+    from fcaf3d_tpu_torch.train import create_train_state
+
+    model, _, _ = create_train_state(cfg, seed=seed, device=dev)
+    t = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    outs, overflow = model(t["points"], t["colors"], t["valid"])
+    losses = fcaf3d_loss(outs, t["gt_boxes"], t["gt_labels"], t["gt_valid"],
+                         loss_config(cfg))
+    sum(losses.values()).backward()
+    return ([(o.points.cpu(), o.valid.cpu()) for o in outs],
+            {k: v.cpu().tolist() for k, v in overflow.items()},
+            {k: float(v.detach()) for k, v in losses.items()},
+            {n: p.grad.cpu() for n, p in model.named_parameters()})
+
+
+def leaf_errs(got, want):
+    """Per gradient leaf: (|got - want| in L2 norm / |want|, largest
+    |got - want| / largest |want|, name), sorted by the first."""
+    return sorted(
+        (float((got[n] - w).norm() / max(float(w.norm()), 1e-30)),
+         float((got[n] - w).abs().max() / max(float(w.abs().max()), 1e-30)),
+         n) for n, w in want.items())
+
+
+def card_vs_cpu(torch, cfg, batch, device, what, seed=0):
+    """One f32 train step on the card and on the CPU from the same weights
+    and batch: head-level maps and overflow counts exactly equal. Returns
+    the card's and the CPU's losses and the per-leaf errors."""
+    lv_g, ovf_g, loss_g, grad_g = step_grads(torch, cfg, batch, device, seed)
+    lv_c, ovf_c, loss_c, grad_c = step_grads(torch, cfg, batch, "cpu", seed)
+    for i, ((pg, vg), (pc, vc)) in enumerate(zip(lv_g, lv_c)):
+        if not (torch.equal(pg, pc) and torch.equal(vg, vc)):
+            raise AssertionError(f"{what}: level {i} map differs card vs CPU "
+                                 "(neck keep mask)")
+    if ovf_g != ovf_c:
+        raise AssertionError(f"{what}: overflow {ovf_g} vs {ovf_c}")
+    return loss_g, loss_c, ovf_c, leaf_errs(grad_g, grad_c)
+
+
+def report_errs(errs):
+    return (f"median {errs[len(errs) // 2][0]:.3g}, worst "
+            + ", ".join(f"{n} {a:.3g} ({b:.3g})" for a, b, n in errs[-3:]))
+
+
+def compare_train_tiny(torch, device):
+    """One f32 train step at `fcaf3d_tiny`, batch 2, card against CPU, with
+    the tight per-element gate."""
+    from fcaf3d_tpu_torch.configs import fcaf3d_tiny
+
+    cfg = fcaf3d_tiny()
+    batch = head_batch(torch, cfg, TINY_EXTENT)
+    loss_g, loss_c, _, errs = card_vs_cpu(torch, cfg, batch, device,
+                                          "f32 tiny train")
+    loss_err = max(abs(loss_g[k] / loss_c[k] - 1) for k in loss_c)
+    worst = max(errs, key=lambda x: x[1])
+    log(f"   f32 tiny train, batch 2: head-level maps equal card vs CPU; "
+        f"losses {loss_c} (max rel err {loss_err:.3g}, tol "
+        f"{TRAIN_LOSS_RTOL}); gradient leaves, largest-element rel err: "
+        f"worst {worst[2]} {worst[1]:.3g} (tol {TINY_GRAD_RTOL}); norm rel "
+        f"err {report_errs(errs)}")
+    if loss_c["loss_bbox"] <= 0 or loss_err > TRAIN_LOSS_RTOL \
+            or worst[1] > TINY_GRAD_RTOL:
+        raise AssertionError("f32 tiny train: card and CPU disagree")
+
+
+def compare_train_f32(torch, cfg, device):
+    """One f32 train step at batch 1: the card against the plain path on
+    the CPU, from the same weights and batch (the loose gate)."""
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    batch = train_batch(cfg32, 1, seed0=100)
+    cloud = np.concatenate([batch["points"], batch["colors"]], axis=-1)
+    gpu_maps = backbone_maps(cloud, cfg32, device)
+    cpu_maps = backbone_maps(cloud, cfg32, "cpu")
+    for name, (m, _) in gpu_maps.items():
+        if not torch.equal(m.cpu(), cpu_maps[name][0]):
+            raise AssertionError(f"f32 train: {name} differs card vs CPU")
+    loss_g, loss_c, ovf, errs = card_vs_cpu(torch, cfg32, batch, device,
+                                            "f32 train")
+    if any(max(v) for v in ovf.values()):
+        raise AssertionError(f"f32 train: overflow {ovf}")
+    loss_err = max(abs(loss_g[k] / loss_c[k] - 1) for k in loss_c)
+    log(f"   f32 train: voxel keys, {len(gpu_maps) - 1} backbone maps and "
+        f"the pruned head-level maps equal card vs CPU; losses {loss_c} "
+        f"(max rel err {loss_err:.3g}, tol {TRAIN_LOSS_RTOL}); gradient "
+        f"leaves, norm rel err (largest-element rel err): {report_errs(errs)}"
+        f" (tol {TRAIN_GRAD_RTOL} in norm)")
+    if loss_c["loss_bbox"] <= 0 or loss_err > TRAIN_LOSS_RTOL \
+            or errs[-1][0] > TRAIN_GRAD_RTOL:
+        raise AssertionError("f32 train: card and CPU disagree")
+
+
+def grad_control(torch, cfg, device, seeds):
+    """The f32 ScanNet gradients' sensitivity, for weight seed s and the
+    batch-1 scene of data seed 100 + s: the card against the CPU, beside
+    the CPU against itself with the input colours scaled by (1 + 1e-6)."""
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    for s in range(seeds):
+        batch = train_batch(cfg32, 1, seed0=100 + s)
+        nudged = {**batch, "colors": batch["colors"] * np.float32(1 + 1e-6)}
+        _, _, _, grad_c = step_grads(torch, cfg32, batch, "cpu", s)
+        _, _, _, grad_n = step_grads(torch, cfg32, nudged, "cpu", s)
+        _, _, _, grad_g = step_grads(torch, cfg32, batch, device, s)
+        for what, got in (("card vs CPU", grad_g),
+                          ("CPU nudged vs CPU", grad_n)):
+            errs = leaf_errs(got, grad_c)
+            log(f"   seed {s} {what}: norm rel err (largest-element rel "
+                f"err) {report_errs(errs)}; largest-element rel err over "
+                f"leaves {max(e[1] for e in errs):.3g}")
+
+
+def profile_train(torch, cfg, batch):
+    """The batch-8 bf16 train step: stage split on the host clock with a
+    synchronise after each stage (3 steps), then 2 steps under
+    `torch.profiler`: device time by kernel, busy share, host time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from fcaf3d_tpu_torch.models.detector import loss_config
+    from fcaf3d_tpu_torch.models.fcaf3d_head import fcaf3d_loss
+    from fcaf3d_tpu_torch.train import create_train_state, make_train_step
+    from fcaf3d_tpu_torch.train.trainer import BATCH_KEYS
+
+    model, opt, _ = create_train_state(cfg, seed=0, device="cuda")
+    step = make_train_step(model, cfg, opt)
+    step(batch)
+    step(batch)
+    lcfg = loss_config(cfg)
+    for _ in range(3):
+        t = {k: torch.as_tensor(batch[k], device="cuda") for k in BATCH_KEYS}
+        marks = []
+
+        def mark():
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+
+        mark()
+        opt.zero_grad(set_to_none=True)
+        outs, _ = model(t["points"], t["colors"], t["valid"])
+        mark()
+        total = sum(fcaf3d_loss(outs, t["gt_boxes"], t["gt_labels"],
+                                t["gt_valid"], lcfg).values())
+        mark()
+        total.backward()
+        mark()
+        opt.step()
+        mark()
+        ms = np.diff(marks) * 1e3
+        log("   stages ms: " + ", ".join(
+            f"{k} {v:.1f}" for k, v in zip(
+                ("forward", "loss", "backward", "optimizer"), ms))
+            + f", total {ms.sum():.1f}")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(2):
+            step(batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ka = prof.key_averages()
+    # device events, less the ranges the profiler books to annotations
+    # such as `Optimizer.step`
+    kern = [e for e in ka if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+    dev_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    log(f"   profiled 2 steps: wall {wall * 1e3:.1f} ms, kernel device time "
+        f"{dev_ms:.1f} ms (busy {dev_ms / (wall * 1e3):.3f}), "
+        f"{sum(e.count for e in kern)} kernel launches")
+    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:16]:
+        log(f"   device {e.self_device_time_total / 1e3:9.2f} ms "
+            f"n {e.count:6d}  {e.key[:90]}")
+    for e in sorted(ka, key=lambda e: -e.self_cpu_time_total)[:10]:
+        log(f"   host   {e.self_cpu_time_total / 1e3:9.2f} ms "
+            f"n {e.count:6d}  {e.key[:80]}")
 
 
 KERNELS = (
@@ -338,26 +799,55 @@ KERNELS = (
      "fcaf3d_tpu/ops/sparse/gather_kernel.py:410"),
     ("gather_max", "fcaf3d_tpu_torch/csrc/gather_max.cu",
      "fcaf3d_tpu/ops/sparse/gather_kernel.py:991"),
+    ("gather_dw", "fcaf3d_tpu_torch/csrc/gather_dw.cu",
+     "fcaf3d_tpu/ops/sparse/gather_kernel.py:755"),
 )
 
 
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--profile", action="store_true",
+                    help="profile the batch-8 bf16 train step instead")
+    ap.add_argument("--grad-control", type=int, metavar="SEEDS",
+                    help="measure the f32 ScanNet gradients' sensitivity "
+                         "over SEEDS seeds instead")
+    args = ap.parse_args()
     import torch
 
+    t_start = time.perf_counter()
     smi = device_phase(torch)
     sys.path.insert(0, REPO)
     from fcaf3d_tpu_torch.configs import fcaf3d_scannet
 
     build_phase()
     cfg = fcaf3d_scannet()
+    batch = train_batch(cfg, TRAIN_BATCH, seed0=0)
+    if args.profile:
+        return profile_train(torch, cfg, batch)
+    if args.grad_control:
+        return grad_control(torch, cfg, "cuda", args.grad_control)
     scans = [scan(seed) for seed in range(3)]
     log("== 3 kernels against their plain versions, main-path shapes")
-    rec = kernel_phase(torch, cfg, backbone_maps(scans[0], cfg, "cuda"))
-    log("== 4 slice: fcaf3d_scannet, bf16, batch 1, 100000 points per scan")
-    launches = slice_phase(torch, cfg, scans, "cuda")
+    maps = backbone_maps(sample(scans[0], cfg)[None], cfg, "cuda")
+    rec = kernel_phase(torch, cfg, maps)
+    log(f"== 4 backward kernels against their plain versions, training "
+        f"shapes, batch 1 and batch {TRAIN_BATCH}")
+    clouds = np.concatenate([batch["points"], batch["colors"]], axis=-1)
+    rec.update(backward_kernel_phase(
+        torch, cfg, [maps, backbone_maps(clouds, cfg, "cuda")]))
+    log("== 5 inference: fcaf3d_scannet, bf16, batch 1, 100000 points per "
+        "scan")
+    infer_launches = slice_phase(torch, cfg, scans, "cuda")
     compare_f32(torch, cfg, scans[0], "cuda")
+    log(f"== 6 training: fcaf3d_scannet, bf16, batch {TRAIN_BATCH}, "
+        f"{cfg.num_points} points per scan")
+    train_launches = train_phase(torch, cfg, batch, "cuda")
+    compare_train_tiny(torch, "cuda")
+    compare_train_f32(torch, cfg, "cuda")
+    log(f"== all phases passed in {time.perf_counter() - t_start:.1f} s")
     kernels = [{"name": name, "route": "cuda", "source": src,
-                "replaces": tpu, "launches": launches[name], **rec[name]}
+                "replaces": tpu, "launches": train_launches[name],
+                "inference_launches": infer_launches[name], **rec[name]}
                for name, src, tpu in KERNELS]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,7 +1,8 @@
 """Build and bind the port's hand-written CUDA kernels (`csrc/*.cu`).
 
-At first use the sources are compiled by `nvcc` for `sm_90a` into ONE shared
-library with a plain C interface, under `_build/` (git-ignored), named by a
+At first use the sources are compiled by `nvcc` for `sm_90a`, one process
+per source, all at once, and linked into ONE shared library with a plain C
+interface, under `_build/` (git-ignored), named by a
 hash of the sources and flags so a changed source never loads a stale build.
 The library is bound with `ctypes`: no PyTorch headers are compiled, so a
 cold build takes seconds rather than the minutes of
@@ -24,14 +25,15 @@ import threading
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
-SOURCES = ("search.cu", "gather_gemm.cu", "gather_max.cu")
+SOURCES = ("search.cu", "gather_gemm.cu", "gather_max.cu", "gather_dw.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
 # kernel name -> launches since the last `reset_launches()`
-LAUNCHES = {"searchsorted": 0, "gather_gemm": 0, "gather_max": 0}
+LAUNCHES = {"searchsorted": 0, "gather_gemm": 0, "gather_max": 0,
+            "gather_dw": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -76,13 +78,28 @@ def build():
         return lib_path, ""
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{lib_path}.{os.getpid()}.tmp"
-    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, *srcs],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n{proc.stderr}")
+    # one nvcc per source, all at once, then one link
+    objs = [f"{tmp}.{i}.o" for i in range(len(srcs))]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for src, obj in zip(srcs, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    try:
+        for src, p, out in zip(SOURCES, procs, logs):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src} with exit code "
+                                   f"{p.returncode}:\n{out}")
+        link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed with exit code "
+                               f"{link.returncode}:\n{link.stderr}")
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     os.replace(tmp, lib_path)  # atomic: a concurrent loader sees all or nothing
-    return lib_path, proc.stdout + proc.stderr
+    return lib_path, "".join(logs) + link.stdout + link.stderr
 
 
 def _bind(lib):
@@ -95,6 +112,9 @@ def _bind(lib):
     lib.fcaf3d_gather_max.argtypes = [
         p, p, p, i64, i64, i64, i64, i64, i, ctypes.c_float, p]
     lib.fcaf3d_gather_max.restype = i
+    lib.fcaf3d_gather_dw.argtypes = [
+        p, p, p, p, p, i64, i64, i64, i64, i64, i64, i64, i64, i, p]
+    lib.fcaf3d_gather_dw.restype = i
 
 
 def load():

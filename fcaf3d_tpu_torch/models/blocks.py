@@ -1,8 +1,13 @@
-"""Sparse building blocks, inference only (port of `fcaf3d_tpu/models/blocks.py`).
+"""Sparse building blocks (port of `fcaf3d_tpu/models/blocks.py`).
 
 Module and parameter names follow the JAX package's flax names, so a flax
 variable tree `a/b/c` is the state_dict entry `a.b.c` (`params.py`).
 Parameters stay f32; convs cast their kernel to the activations' dtype.
+
+`module.train()` / `.eval()` take the place of the flax `train` argument:
+training normalises with masked batch statistics and updates the running
+ones; evaluation folds every BN, activation and residual add into the
+producing conv's epilogue.
 """
 from __future__ import annotations
 
@@ -56,7 +61,13 @@ class SparseGenerativeTranspose(nn.Module):
 
 
 class SparseBatchNorm(nn.Module):
-    """Masked BatchNorm with running statistics (eval), eps 1e-5."""
+    """Masked BatchNorm, eps 1e-5. Training normalises with the two-pass
+    mean and biased variance of the valid rows of the whole batch and moves
+    the running statistics by momentum 0.1 (`running = 0.9 * running +
+    0.1 * batch`, biased variance: not `torch.nn.BatchNorm`'s rule);
+    evaluation uses the running statistics."""
+
+    momentum = 0.1
 
     def __init__(self, num_features: int, eps: float = 1e-5, device=None):
         super().__init__()
@@ -73,8 +84,20 @@ class SparseBatchNorm(nn.Module):
         return inv, self.bias - self.mean * inv
 
     def forward(self, st: SparseTensor) -> SparseTensor:
-        inv = self.scale / torch.sqrt(self.var + self.eps)
-        out = (st.feats.float() - self.mean) * inv + self.bias
+        feats32 = st.feats.float()
+        if self.training:
+            mask = st.valid[..., None].float()
+            count = torch.clamp_min(mask.sum(), 1.0)
+            mean = (feats32 * mask).sum(dim=(0, 1)) / count
+            var = (((feats32 - mean) ** 2) * mask).sum(dim=(0, 1)) / count
+            with torch.no_grad():
+                m = self.momentum
+                self.mean.copy_((1 - m) * self.mean + m * mean)
+                self.var.copy_((1 - m) * self.var + m * var)
+        else:
+            mean, var = self.mean, self.var
+        inv = self.scale / torch.sqrt(var + self.eps)
+        out = (feats32 - mean) * inv + self.bias
         out = torch.where(st.valid[..., None], out, 0.0).to(st.feats.dtype)
         return st.with_feats(out)
 
@@ -101,7 +124,9 @@ class SparseInstanceNorm(nn.Module):
 
 
 def sparse_relu(st: SparseTensor) -> SparseTensor:
-    return st.with_feats(torch.clamp_min(st.feats, 0.0))
+    """max(x, 0) with the JAX package's gradient: 1/2 at exactly 0, where
+    `relu` and `clamp_min` give 0 and 1."""
+    return st.with_feats(torch.maximum(st.feats, st.feats.new_zeros(())))
 
 
 def sparse_elu(st: SparseTensor) -> SparseTensor:
@@ -117,9 +142,9 @@ def sparse_pool2x2(st: SparseTensor,
 
 class SparseBasicBlock(nn.Module):
     """ME `BasicBlock`: conv3(stride)-BN-ReLU-conv3-BN (+skip), ReLU; the
-    skip is conv1(stride)+BN when the stride or width changes. Inference
+    skip is conv1(stride)+BN when the stride or width changes. Evaluation
     runs every BN, activation and the residual add in the convs' fused
-    epilogues."""
+    epilogues; training runs them as separate ops."""
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
                  out_budget: Optional[int] = None, device=None):
@@ -141,6 +166,14 @@ class SparseBasicBlock(nn.Module):
         """`plans` is an optional (conv1, conv2, downsample) triple of
         precomputed `conv_plan`s."""
         p1, p2, pds = plans if plans is not None else (None, None, None)
+        if self.training:
+            out = sparse_relu(self.norm1(self.conv1(st, plan=p1)))
+            out = self.norm2(self.conv2(out, plan=p2))
+            residual = st
+            if self.has_ds:
+                residual = self.downsample_norm(
+                    self.downsample_conv(st, plan=pds))
+            return sparse_relu(out.with_feats(out.feats + residual.feats))
         inv1, sh1 = self.norm1.affine()
         inv2, sh2 = self.norm2.affine()
         out = self.conv1(st, plan=p1, epilogue=ConvEpilogue(inv1, sh1, "relu"))

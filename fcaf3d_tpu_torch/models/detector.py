@@ -1,5 +1,6 @@
-"""FCAF3D detector, inference: voxelize -> sparse ResNet -> neck/head
-(port of `fcaf3d_tpu/models/detector.py`)."""
+"""FCAF3D detector: voxelize -> sparse ResNet -> neck/head (port of
+`fcaf3d_tpu/models/detector.py`). `model.train()` runs the training forward
+(batch-statistics BN), `model.eval()` the folded inference one."""
 from __future__ import annotations
 
 from typing import Dict
@@ -9,7 +10,7 @@ from torch import nn
 
 from ..configs.fcaf3d import FCAF3DConfig
 from ..ops.sparse.tensor import voxelize
-from .fcaf3d_head import Fcaf3DNeckWithHead, FcafTestConfig
+from .fcaf3d_head import Fcaf3DNeckWithHead, FcafLossConfig, FcafTestConfig
 from .me_resnet import PLANES, MEResNet3D
 
 
@@ -48,6 +49,13 @@ class FCAF3D(nn.Module):
         outs, neck_overflow = self.neck_with_head(feats)
         overflow.update(neck_overflow)
         return outs, overflow
+
+
+def loss_config(cfg: FCAF3DConfig) -> FcafLossConfig:
+    return FcafLossConfig(
+        n_scales=cfg.n_outs, assign_limit=cfg.assign_limit,
+        assign_topk=cfg.assign_topk, with_yaw=cfg.with_yaw,
+        yaw_parametrization=cfg.yaw_parametrization)
 
 
 def infer_config(cfg: FCAF3DConfig) -> FcafTestConfig:

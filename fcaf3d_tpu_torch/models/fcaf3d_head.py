@@ -1,5 +1,5 @@
-"""FCAF3D neck + anchor-free head, inference (port of the prune-early
-inference path of `fcaf3d_tpu/models/fcaf3d_head.py`).
+"""FCAF3D neck + anchor-free head, loss and inference (port of the
+prune-early path of `fcaf3d_tpu/models/fcaf3d_head.py`).
 
 - Top-down neck, coarsest level first: generative transpose (k2 s2) of the
   coarser level, children pruned to the level's budget by the coarser
@@ -7,8 +7,14 @@ inference path of `fcaf3d_tpu/models/fcaf3d_head.py`).
   conv3 (+BN, ELU folded) and a scatter-add of the backbone lateral.
 - Per level: out conv3 (+BN, ELU folded), shared 1x1 head convs
   (centerness 1, reg n_reg_outs, cls n_classes), exp(scale * reg[:6]).
+- `fcaf3d_loss`: focal cls over all valid locations, BCE centerness and
+  centerness-weighted axis-aligned IoU over the assigned positives;
+  normalisers are batch means.
 - `fcaf3d_get_bboxes`: per-level top `nms_pre`, box decode, per-class
   top `nms_cap`, axis-aligned BEV NMS.
+
+In training (`module.train()`) the BNs normalise with batch statistics and
+run as separate ops; in evaluation they fold into the convs' epilogues.
 """
 from __future__ import annotations
 
@@ -27,12 +33,14 @@ from ..ops.sparse.neck_ops import (
     threshold_select,
 )
 from ..ops.sparse.tensor import SENTINEL, SparseTensor, lookup
+from .assigner import fcaf3d_assign
 from .blocks import (
     SparseBatchNorm,
     SparseConv,
     SparseGenerativeTranspose,
     sparse_elu,
 )
+from .losses import bce_loss_sum, focal_loss_sum, iou3d_loss_sum
 
 
 class HeadLevelOutput(NamedTuple):
@@ -99,7 +107,9 @@ class Fcaf3DNeckWithHead(nn.Module):
         b, p = parent.keys.shape
         coords, keys, feats = getattr(self, f"up_block_{i + 1}_tr")(parent)
 
-        cs = child_prune_scores(scores_st.feats.float(), parent_kmap)
+        # the prune mask takes no gradient (`stop_gradient` in the JAX
+        # package, no_grad in the reference's `_prune`)
+        cs = child_prune_scores(scores_st.feats.float().detach(), parent_kmap)
         lat_rows = lateral_child_rows(parent, lateral)  # [B, L] in [0, 8P]
         # dump row 8P takes every unmatched lateral; real rows are unique
         must = torch.zeros((b, 8 * p + 1), dtype=torch.bool, device=keys.device)
@@ -116,9 +126,8 @@ class Fcaf3DNeckWithHead(nn.Module):
 
         x = getattr(self, f"up_block_{i + 1}_bn1")(x)
         x = sparse_elu(x)
-        inv, sh = getattr(self, f"up_block_{i + 1}_bn2").affine()
-        x = getattr(self, f"up_block_{i + 1}_conv")(
-            x, plan=plan, epilogue=ConvEpilogue(inv, sh, "elu"))
+        x = self._conv_bn_elu(f"up_block_{i + 1}_conv",
+                              f"up_block_{i + 1}_bn2", x, plan)
 
         # every lateral voxel is in the pruned map (must_keep at every
         # level), so the reference's union-add is a scatter-add
@@ -126,11 +135,20 @@ class Fcaf3DNeckWithHead(nn.Module):
         c = x.num_channels
         fpad = torch.zeros((b, budget + 1, c), dtype=x.feats.dtype,
                            device=x.feats.device)
-        fpad.scatter_add_(1, lrow.long()[..., None].expand(-1, -1, c),
-                          lateral.feats.to(x.feats.dtype))
+        fpad = fpad.scatter_add(1, lrow.long()[..., None].expand(-1, -1, c),
+                                lateral.feats.to(x.feats.dtype))
         x = x.with_feats(x.feats + fpad[:, :budget])
         missed = ((lrow >= budget) & lateral.valid).sum(dim=1).int()
         return x, kmap, missed
+
+    def _conv_bn_elu(self, conv, bn, x, plan):
+        """conv3 -> BN -> ELU on a shared plan: one conv with the folded
+        epilogue in evaluation, three ops in training."""
+        conv, bn = getattr(self, conv), getattr(self, bn)
+        if self.training:
+            return sparse_elu(bn(conv(x, plan=plan)))
+        inv, sh = bn.affine()
+        return conv(x, plan=plan, epilogue=ConvEpilogue(inv, sh, "elu"))
 
     def forward(self, inputs: Tuple[SparseTensor, ...]):
         n = len(inputs)
@@ -147,9 +165,8 @@ class Fcaf3DNeckWithHead(nn.Module):
             else:
                 kmap = build_kernel_map_self(x.keys, x.coords, x.stride)
             plan = (x.coords, x.keys, kmap, None)
-            inv, sh = getattr(self, f"out_block_{i}_bn").affine()
-            out = getattr(self, f"out_block_{i}_conv")(
-                x, plan=plan, epilogue=ConvEpilogue(inv, sh, "elu"))
+            out = self._conv_bn_elu(f"out_block_{i}_conv",
+                                    f"out_block_{i}_bn", x, plan)
 
             # head outputs leave the (possibly bf16) conv path in f32
             ctr_feats = self.centerness_conv(out).feats.float()
@@ -187,6 +204,80 @@ def bbox_pred_to_bbox(points: torch.Tensor,
         bbox_pred[..., 2] + bbox_pred[..., 3],
         bbox_pred[..., 4] + bbox_pred[..., 5],
     ], dim=-1)
+
+
+def _concat_levels(outs: Tuple[HeadLevelOutput, ...]):
+    """Level outputs concatenated along rows: (centerness, bbox_pred,
+    cls_scores, points, valid, scales [N] int32 level of each row)."""
+    cat = [torch.cat([getattr(o, f) for o in outs], dim=1)
+           for f in HeadLevelOutput._fields]
+    scales = torch.cat([
+        torch.full((o.valid.shape[1],), i, dtype=torch.int32,
+                   device=o.valid.device) for i, o in enumerate(outs)])
+    return (*cat, scales)
+
+
+class FcafLossConfig(NamedTuple):
+    n_scales: int = 4
+    assign_limit: int = 27
+    assign_topk: int = 18
+    with_yaw: bool = False
+    yaw_parametrization: str = "fcaf3d"
+    # static cap on positives per sample for the bbox/centerness terms;
+    # >= assign_topk * max_gt_boxes covers every possible positive
+    max_pos: int = 2048
+
+
+def fcaf3d_loss(outs: Tuple[HeadLevelOutput, ...], gt_boxes: torch.Tensor,
+                gt_labels: torch.Tensor, gt_valid: torch.Tensor,
+                cfg: FcafLossConfig) -> Dict[str, torch.Tensor]:
+    """Batched FCAF3D loss (the JAX package's `fcaf3d_loss`, batched over
+    B instead of vmapped).
+
+    Args:
+        gt_boxes: [B, G, 7] bottom-centred; gt_labels: [B, G] int;
+        gt_valid: [B, G] bool.
+
+    Returns:
+        {loss_centerness, loss_bbox, loss_cls} scalar tensors. Per-sample
+        sums are divided by batch-mean normalisers (positive count, and the
+        sum of positive centerness targets for the box term).
+    """
+    if cfg.with_yaw:
+        raise NotImplementedError("rotated boxes are not ported yet")
+    centerness, bbox_pred, cls_scores, points, valid, scales = \
+        _concat_levels(outs)
+    b, p = valid.shape
+    with torch.no_grad():
+        assign = fcaf3d_assign(points, scales.expand(b, p), valid, gt_boxes,
+                               gt_labels, gt_valid, n_scales=cfg.n_scales,
+                               limit=cfg.assign_limit, topk=cfg.assign_topk)
+    pos = (assign.labels >= 0) & valid
+    n_pos = pos.sum(dim=1).float()
+    cls_sum = focal_loss_sum(cls_scores, assign.labels, valid)
+
+    # compact the positives to a static cap, in row order (stable sort)
+    k = min(cfg.max_pos, p)
+    pos_idx = torch.argsort((~pos).to(torch.int32), dim=1, stable=True)[:, :k]
+    pos_k = torch.gather(pos, 1, pos_idx)
+    ctr_k = torch.gather(centerness[..., 0], 1, pos_idx)
+    ctr_t_k = torch.gather(assign.centerness, 1, pos_idx)
+    ctr_sum = bce_loss_sum(ctr_k, ctr_t_k, pos_k)
+
+    pred_boxes = bbox_pred_to_bbox(_take(points, pos_idx),
+                                   _take(bbox_pred, pos_idx))
+    pred_boxes = torch.cat([pred_boxes, torch.zeros_like(pred_boxes[..., :1])],
+                           dim=-1)
+    w = torch.where(pos_k, ctr_t_k, 0.0)
+    bbox_sum = iou3d_loss_sum(pred_boxes, _take(assign.bbox_targets, pos_idx),
+                              w, with_yaw=False)
+    n_pos_avg = torch.clamp_min(n_pos.mean(), 1.0)
+    denorm = torch.clamp_min(w.sum(dim=1).mean(), 1e-6)
+    return {
+        "loss_cls": (cls_sum / n_pos_avg).mean(),
+        "loss_centerness": (ctr_sum / n_pos_avg).mean(),
+        "loss_bbox": (bbox_sum / denorm).mean(),
+    }
 
 
 class FcafTestConfig(NamedTuple):

@@ -1,10 +1,13 @@
-"""Sparse convolution on sorted coordinate maps, forward only (port of the
-inference path of `fcaf3d_tpu/ops/sparse/conv.py`).
+"""Sparse convolution and max pooling on sorted coordinate maps (port of
+the main path of `fcaf3d_tpu/ops/sparse/conv.py`).
 
 Each convolution derives its output coordinate map, looks every
 `out_coord + offset` up in the sorted input keys to build a [B, M, K]
 neighbour table (miss -> N, the zero dump row), and runs one gather-GEMM
-(kernel K2) over it.
+(kernel K2) over it. Its backward is the JAX package's fused one: dW from
+the weight-gradient kernel K4 on the forward map, dFeats from K2 on the
+inverse map (the offset-reversed map for a self-symmetric conv, else one
+int32 scatter inversion) with the transposed weights.
 
 Kernel offset order: `itertools.product` over (x, y, z), x slowest; odd
 kernels span {-S..S}, even kernels {0..(k-1)S}.
@@ -17,7 +20,12 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .gather_kernel import apply_epilogue, fused_gather_gemm, fused_gather_max
+from .gather_kernel import (
+    apply_epilogue,
+    fused_gather_dw,
+    fused_gather_gemm,
+    fused_gather_max,
+)
 from .tensor import (
     SENTINEL,
     SparseTensor,
@@ -82,10 +90,59 @@ class ConvEpilogue:
         self.add = add
 
 
-def gather_gemm(feats: torch.Tensor, idx: torch.Tensor,
-                weight: torch.Tensor) -> torch.Tensor:
-    """out[b, m] = sum_k feats[b, idx[b, m, k]] @ weight[k] (miss rows -> 0)."""
-    return fused_gather_gemm(feats.contiguous(), idx.contiguous(), weight)
+def invert_kernel_map(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """Inverse [B, N, K] of a kernel map [B, M, K] over N input rows:
+    rev[b, i, k] = the m with idx[b, m, k] == i, else M (a miss). Conv maps
+    are injective per offset, so one int32 scatter builds it; misses land
+    in the dump block of row N, which is cut off."""
+    b, m, k = idx.shape
+    pos = idx.long() * k + torch.arange(k, device=idx.device)
+    src = torch.arange(m, dtype=torch.int32, device=idx.device)
+    src = src[None, :, None].expand(b, m, k)
+    rev = torch.full((b, (n + 1) * k), m, dtype=torch.int32,
+                     device=idx.device)
+    rev.scatter_(1, pos.reshape(b, -1), src.reshape(b, -1))
+    return rev.reshape(b, n + 1, k)[:, :n].contiguous()
+
+
+class _GatherGemm(torch.autograd.Function):
+    """`fused_gather_gemm` (K2) with the fused backward of the JAX
+    package's `gather_gemm` custom VJP (`conv.py:359-399`)."""
+
+    @staticmethod
+    def forward(ctx, feats, idx, weight, self_symmetric):
+        ctx.save_for_backward(feats, idx, weight)
+        ctx.self_symmetric = self_symmetric
+        return fused_gather_gemm(feats, idx, weight)
+
+    @staticmethod
+    def backward(ctx, dout):
+        feats, idx, weight = ctx.saved_tensors
+        dout = dout.contiguous()
+        dfeats = dw = None
+        if ctx.needs_input_grad[2]:
+            # f32 accumulation, cast to the weight's dtype
+            dw = fused_gather_dw(feats, idx, dout).to(weight.dtype)
+        if ctx.needs_input_grad[0]:
+            if ctx.self_symmetric:
+                rev = idx.flip(-1).contiguous()
+            else:
+                rev = invert_kernel_map(idx, feats.shape[1])
+            wT = weight.transpose(1, 2).contiguous()
+            dfeats = fused_gather_gemm(dout, rev, wT).to(feats.dtype)
+        return dfeats, None, dw, None
+
+
+def gather_gemm(feats: torch.Tensor, idx: torch.Tensor, weight: torch.Tensor,
+                self_symmetric: bool = False) -> torch.Tensor:
+    """out[b, m] = sum_k feats[b, idx[b, m, k]] @ weight[k] (miss rows -> 0).
+
+    Differentiable in `feats` and `weight`. `self_symmetric` says the map is
+    a stride-1 odd-kernel map over its own coordinates (M == N, offsets
+    closed under negation), whose inverse is `idx.flip(-1)`; otherwise the
+    backward inverts the map with one scatter."""
+    return _GatherGemm.apply(feats.contiguous(), idx.contiguous(), weight,
+                             self_symmetric)
 
 
 def gather_gemm_inference(feats, idx, weight, *, scale, shift, act=None,
@@ -130,7 +187,10 @@ def sparse_conv(st: SparseTensor, weight: torch.Tensor, kernel_size: int,
                 shift=epilogue.shift, act=epilogue.act,
                 vmask=out_keys != SENTINEL, add=epilogue.add)
         else:
-            out = gather_gemm(st.feats, idx, weight)
+            # stride-1 odd-kernel convs run on their own coordinate map,
+            # whose offset set is closed under negation
+            out = gather_gemm(st.feats, idx, weight,
+                              stride == 1 and kernel_size % 2 == 1)
     if epilogue is None:
         if bias is not None:
             out = out + bias
@@ -141,14 +201,56 @@ def sparse_conv(st: SparseTensor, weight: torch.Tensor, kernel_size: int,
         is_sorted=st.is_sorted if stride == 1 else True, dropped=dropped)
 
 
+class _MaxPoolFeats(torch.autograd.Function):
+    """`fused_gather_max` (K3) with the JAX package's inverse-map backward
+    (`conv.py:559-572`): every input row has one parent output row, and
+    gets the parent's gradient where it equals the parent's max. Every tied
+    maximum receives the full gradient (torch's `amax` would split it)."""
+
+    @staticmethod
+    def forward(ctx, feats, idx, parent_row):
+        out = fused_gather_max(feats, idx)
+        ctx.save_for_backward(feats, out, parent_row)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        feats, out, parent_row = ctx.saved_tensors
+        b, _, c = dout.shape
+        dpad = torch.cat([dout, dout.new_zeros((b, 1, c))], dim=1)
+        opad = torch.cat([out, out.new_full((b, 1, c),
+                                            torch.finfo(out.dtype).min)],
+                         dim=1)
+        rows = parent_row.long()[..., None].expand(-1, -1, c)
+        dparent = torch.gather(dpad, 1, rows)
+        oparent = torch.gather(opad, 1, rows)
+        dfeats = torch.where(feats == oparent, dparent, 0.0)
+        return dfeats.to(feats.dtype), None, None
+
+
 def sparse_max_pool(st: SparseTensor, kernel_size: int, stride: int,
                     out_budget: Optional[int] = None) -> SparseTensor:
-    """Max pooling over present neighbours (MinkowskiMaxPooling), kernel K3."""
+    """Max pooling over present neighbours (MinkowskiMaxPooling), kernel K3.
+
+    The backward needs each input row to lie in exactly one window, so
+    `kernel_size` must equal `stride` (ValueError otherwise)."""
+    if kernel_size != stride:
+        raise ValueError(f"sparse_max_pool needs kernel_size == stride, got "
+                         f"{kernel_size} and {stride}")
     budget = out_budget if out_budget is not None else st.capacity
     out_coords, out_keys, dropped = downsample_coords(st, stride, budget)
     idx = build_kernel_map(st.keys, out_coords,
                            kernel_offsets(kernel_size, st.stride))
-    out = fused_gather_max(st.feats.contiguous(), idx)
+    parent_row = None
+    if torch.is_grad_enabled() and st.feats.requires_grad:
+        # inverse map for the backward: each input row's one parent output
+        # row (miss -> M)
+        new_stride = st.stride * stride
+        pc = torch.div(st.coords, new_stride,
+                       rounding_mode="floor") * new_stride
+        parent_row = lookup(out_keys, torch.where(
+            st.valid, encode_coords(pc), SENTINEL))
+    out = _MaxPoolFeats.apply(st.feats.contiguous(), idx, parent_row)
     out = torch.where((out_keys != SENTINEL)[..., None], out, 0.0)
     return SparseTensor(coords=out_coords, feats=out, keys=out_keys,
                         shift=st.shift, stride=st.stride * stride,

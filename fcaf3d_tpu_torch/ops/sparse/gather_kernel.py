@@ -6,10 +6,16 @@
 - `fused_gather_max`: out[b, m] = max_k feats[b, idx[b, m, k]] per channel,
   a miss being -inf and an all-miss row finfo.min. Kernel K3
   (`csrc/gather_max.cu`).
+- `fused_gather_dw`: dW[k] = sum_{b,m} feats[b, idx[b, m, k]]^T dout[b, m]
+  in f32, a miss adding zero: the weight gradient of `fused_gather_gemm`.
+  Kernel K4 (`csrc/gather_dw.cu`).
 
 Each wrapper runs its kernel on a CUDA tensor and its plain PyTorch version
 (`*_plain`, the same function) on a CPU tensor; there is no fallback from
-one to the other.
+one to the other. The kernels are not differentiable: on a CUDA tensor the
+K2 and K3 wrappers raise when autograd would record them, and the autograd
+Functions of `conv.py` (`gather_gemm`, `sparse_max_pool`) are the way to a
+gradient.
 """
 from __future__ import annotations
 
@@ -99,8 +105,20 @@ def _same_device(device, *tensors):
     return all(t is None or t.device == device for t in tensors)
 
 
+def _check_no_grad(kernel, *tensors):
+    """A CUDA kernel returns a tensor without `grad_fn`: refuse to run one
+    where autograd would record the call, rather than cut the graph."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{kernel} is not differentiable: call it through "
+            "ops.sparse.conv.gather_gemm / sparse_max_pool, or under "
+            "torch.no_grad()")
+
+
 def _fused_gather_gemm_cuda(feats, idx, weight, scale, shift, act, vmask, add,
                             has_epi):
+    _check_no_grad("K2", feats, weight, scale, shift, add)
     lib = _native.load()
     dev = feats.device
     if dev.type != "cuda" or not _same_device(dev, idx, weight, scale, shift,
@@ -182,6 +200,7 @@ def fused_gather_max_plain(feats: torch.Tensor, idx: torch.Tensor):
 
 
 def _fused_gather_max_cuda(feats, idx):
+    _check_no_grad("K3", feats)
     lib = _native.load()
     dev = feats.device
     if dev.type != "cuda" or idx.device != dev:
@@ -216,3 +235,76 @@ def fused_gather_max(feats: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     if feats.device.type == "cpu":
         return fused_gather_max_plain(feats, idx)
     return _fused_gather_max_cuda(feats, idx)
+
+
+def fused_gather_dw_plain(feats: torch.Tensor, idx: torch.Tensor,
+                          dout: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K4, same arguments and result: the gathered
+    rows [B, M, K, C], then one f32 contraction over (b, m)."""
+    g = gather_rows(feats, idx)
+    return torch.einsum("bmkc,bme->kce", g.float(), dout.float())
+
+
+DW_TARGET_BLOCKS = 1024  # K4 cuts the rows into slices until about this many
+DW_TILE_ROWS = 32  # K4's row tile (a slice is a whole number of tiles)
+
+
+def dw_slices(b: int, m: int, k: int, c: int, e: int):
+    """K4's (rows per slice, slices): enough (offset, C tile, E tile, slice)
+    blocks to fill the card, at least 8 row tiles per slice. A function of
+    the shapes only, so the slice sums always add in the same order."""
+    rows = b * m
+    tiles = -(-rows // DW_TILE_ROWS)
+    base = k * -(-c // 64) * -(-e // 64)
+    n = max(1, min(-(-DW_TARGET_BLOCKS // base), tiles // 8, 65535 // k))
+    per = max(1, -(-tiles // n)) * DW_TILE_ROWS
+    return per, max(1, -(-rows // per))
+
+
+def _fused_gather_dw_cuda(feats, idx, dout):
+    lib = _native.load()
+    dev = feats.device
+    if dev.type != "cuda" or not _same_device(dev, idx, dout):
+        raise ValueError("K4 needs feats, idx and dout on one CUDA device")
+    if feats.dtype not in _DTYPES or dout.dtype != feats.dtype:
+        raise TypeError("K4 takes float32 or bfloat16 feats and dout of one "
+                        f"dtype, got {feats.dtype} and {dout.dtype}")
+    if idx.dtype != torch.int32:
+        raise TypeError(f"K4 takes an int32 kernel map, got {idx.dtype}")
+    if feats.dim() != 3 or idx.dim() != 3 or dout.dim() != 3 \
+            or idx.shape[0] != feats.shape[0] \
+            or dout.shape[:2] != idx.shape[:2]:
+        raise ValueError(f"K4 shapes: feats {tuple(feats.shape)}, idx "
+                         f"{tuple(idx.shape)}, dout {tuple(dout.shape)}")
+    if not (feats.is_contiguous() and idx.is_contiguous()
+            and dout.is_contiguous()):
+        raise ValueError("K4 takes contiguous tensors")
+    b, n, c = feats.shape
+    m, k = idx.shape[1:]
+    e = dout.shape[2]
+    per, n_slices = dw_slices(b, m, k, c, e)
+    out = torch.empty((k, c, e), dtype=torch.float32, device=dev)
+    part = (torch.empty((n_slices, k, c, e), dtype=torch.float32, device=dev)
+            if n_slices > 1 else None)
+    err = lib.fcaf3d_gather_dw(
+        feats.data_ptr(), idx.data_ptr(), dout.data_ptr(),
+        None if part is None else part.data_ptr(), out.data_ptr(), b, n, m,
+        k, c, e, per, n_slices, _DTYPES[feats.dtype], _native.stream_ptr(dev))
+    _native.LAUNCHES["gather_dw"] += 1
+    _native.check(err, "gather_dw")
+    return out
+
+
+def fused_gather_dw(feats: torch.Tensor, idx: torch.Tensor,
+                    dout: torch.Tensor) -> torch.Tensor:
+    """dW[k] = sum_{b,m} feats[b, idx[b, m, k]]^T (outer) dout[b, m]; a miss
+    (idx == N) adds zero. The weight gradient of `fused_gather_gemm`.
+
+    Args:
+        feats: [B, N, C]; idx: [B, M, K] int32 in [0, N]; dout: [B, M, E].
+    Returns:
+        dW [K, C, E] float32.
+    """
+    if feats.device.type == "cpu":
+        return fused_gather_dw_plain(feats, idx, dout)
+    return _fused_gather_dw_cuda(feats, idx, dout)

@@ -1,4 +1,4 @@
-"""The port's kernels K1-K3 (plain PyTorch versions, which the CPU runs)
+"""The port's kernels K1-K4 (plain PyTorch versions, which the CPU runs)
 held against the JAX package's Pallas kernels in interpret mode, on the
 same numpy inputs; plus guards on the port's CUDA boundary.
 
@@ -18,6 +18,7 @@ import torch
 from fcaf3d_tpu import configs as jconfigs
 from fcaf3d_tpu.ops.sparse import conv as jc
 from fcaf3d_tpu.ops.sparse.gather_kernel import (
+    fused_gather_dw as j_gather_dw,
     fused_gather_gemm as j_gather_gemm,
     fused_gather_max as j_gather_max,
 )
@@ -120,6 +121,44 @@ def test_k3_plain_matches_pallas():
     assert (idx == 320).all(axis=-1).any()  # padding rows: all miss
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k4_plain_matches_pallas(dtype):
+    """dW within f32 rtol/atol 2e-3 of the Pallas kernel in interpret mode
+    (the JAX package's own tolerance): B = 2, C and E not multiples of 8,
+    random sorted maps with misses, and a real k3 s1 map."""
+    rng = np.random.default_rng(11)
+    b, n, m, k, c, e = 2, 200, 96, 9, 21, 37
+    idx = np.sort(rng.integers(0, n + 1, (b, m, k)), axis=1).astype(np.int32)
+    cases = [(idx, n, c, e)]
+    real, cap = real_map(5)
+    cases.append((np.concatenate([real, real[:, ::-1]]), cap, 12, 19))
+    for idx, n, c, e in cases:
+        feats = rng.standard_normal((idx.shape[0], n, c)).astype(np.float32)
+        dout = rng.standard_normal(idx.shape[:2] + (e,)).astype(np.float32)
+        dt = getattr(torch, dtype)
+        ft = torch.as_tensor(feats).to(dt)
+        dtt = torch.as_tensor(dout).to(dt)
+        got = tg.fused_gather_dw(ft, torch.as_tensor(idx), dtt)
+        assert got.dtype == torch.float32 and got.shape == (idx.shape[2], c, e)
+        want = j_gather_dw(jnp.asarray(ft.float().numpy()), jnp.asarray(idx),
+                           jnp.asarray(dtt.float().numpy()), interpret=True)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-3,
+                                   atol=2e-3)
+    assert (idx == cap).any()  # misses
+
+
+@pytest.mark.parametrize("b,m,k,c,e", [(8, 43520, 27, 3, 64),
+                                       (1, 1024, 27, 512, 512),
+                                       (1, 30, 1, 8, 8), (2, 0, 27, 4, 4)])
+def test_k4_slices_cover_the_rows(b, m, k, c, e):
+    """K4's row slices are whole row tiles, cover every row, leave no slice
+    empty and keep the grid's offset x slice axis in range."""
+    per, n = tg.dw_slices(b, m, k, c, e)
+    assert per % tg.DW_TILE_ROWS == 0 and per > 0
+    assert n * per >= b * m and (n - 1) * per < max(b * m, 1)
+    assert k * n <= 65535
+
+
 def test_port_imports_no_jax():
     """Importing the whole port loads neither jax nor the JAX package."""
     code = ("import sys, fcaf3d_tpu_torch.apis, fcaf3d_tpu_torch.params; "
@@ -167,7 +206,29 @@ def test_cuda_wrappers_raise_without_kernel(monkeypatch):
         tg.fused_gather_gemm(feats, idx, w)
     with pytest.raises(RuntimeError, match="not built"):
         tg.fused_gather_max(feats, idx[..., :8])
+    with pytest.raises(RuntimeError, match="not built"):
+        tg.fused_gather_dw(feats, idx, _cuda_looking(torch.ones(1, 4, 2)))
     assert _native.LAUNCHES == before
+
+
+def test_cuda_kernels_refuse_to_cut_the_graph(monkeypatch):
+    """K2 and K3 on a CUDA tensor that requires grad, with autograd
+    recording, raise instead of returning a tensor without grad_fn; the
+    autograd Functions call them with recording off."""
+    def library_reached():
+        raise RuntimeError("library reached")
+
+    monkeypatch.setattr(_native, "load", library_reached)
+    feats = _cuda_looking(torch.ones(1, 8, 4)).requires_grad_()
+    idx = _cuda_looking(torch.zeros(1, 4, 27, dtype=torch.int32))
+    w = _cuda_looking(torch.ones(27, 4, 2))
+    with pytest.raises(RuntimeError, match="not differentiable"):
+        tg.fused_gather_gemm(feats, idx, w)
+    with pytest.raises(RuntimeError, match="not differentiable"):
+        tg.fused_gather_max(feats, idx[..., :8])
+    with torch.no_grad(), pytest.raises(RuntimeError,
+                                        match="library reached"):
+        tg.fused_gather_gemm(feats, idx, w)
 
 
 def test_build_raises_without_nvcc(monkeypatch):

@@ -168,7 +168,7 @@ def test_norms_and_activations_match_jax():
     coords, keys, feats = rand_map(rng, 40, 48, channels=16)
     st_t, st_j = t_map(coords, keys, feats, 2), j_map(coords, keys, feats, 2)
     params, stats = _bn_vars(rng, 16)
-    bn_t = tb.SparseBatchNorm(16)
+    bn_t = tb.SparseBatchNorm(16).eval()
     load_variables(bn_t, {"params": params, "batch_stats": stats})
     jvars = {"params": params, "batch_stats": stats}
     bn_j = jb.SparseBatchNorm()
@@ -201,7 +201,8 @@ def test_basic_block_matches_jax(stride, inplanes):
     coords, keys, feats = rand_map(rng, 100, 112, grid=7, stride=2,
                                    channels=inplanes)
     st_t, st_j = t_map(coords, keys, feats, 2), j_map(coords, keys, feats, 2)
-    block_t = tb.SparseBasicBlock(inplanes, 32, stride=stride, out_budget=64)
+    block_t = tb.SparseBasicBlock(inplanes, 32, stride=stride,
+                                  out_budget=64).eval()
     skip = ["downsample"] if block_t.has_ds else []
     variables = {"params": {}, "batch_stats": {}}
     for name, shape in [("conv1", (27, inplanes, 32)), ("conv2", (27, 32, 32))] \
