@@ -8,7 +8,7 @@ and PyTorch built for CUDA:
 Phases (any failure raises and the script exits non-zero):
 
 1. Device: require CUDA; print the card's name and power limit.
-2. Build: compile the CUDA kernels K1-K4 from `fcaf3d_tpu_torch/csrc/`
+2. Build: compile the CUDA kernels K1-K6 from `fcaf3d_tpu_torch/csrc/`
    (one nvcc per source, in parallel).
 3. Kernels against their plain PyTorch versions on the card, at the shapes
    of the main path's maps on a real-size scan: K1 exact (with and without
@@ -33,19 +33,33 @@ Phases (any failure raises and the script exits non-zero):
    element within 1e-3 of its leaf's largest) and `fcaf3d_scannet` at
    batch 1 (kernel maps and pruned neck maps exactly equal, losses within
    1e-5, each gradient leaf within 5% in L2 norm).
+7. K5 (farthest-point sampling) and K6 (ball query) against their plain
+   versions at every shape of the VoteNet-v2 path (SA1-SA4, the seeds and
+   the vote aggregation on two 20 000-point scans), at batch 1 and at
+   batch 2 with a valid mask: exactly equal; plus S above the valid count,
+   N beyond shared memory and centres without a hit. Times at batch 1.
+8. VoteNet-v2 inference: `init_votenet(votenet_sunrgbd())` in f32 and
+   `inference_votenet` on three 20 000-point scans, non-empty detections,
+   five K5 and five K6 launches per scan; then one scan in f32 on the card
+   against the CPU (every FPS and SA1-SA4 group exactly equal, aggregation
+   groups equal but for members within 1e-4 of r^2, detections within
+   tolerance) and one scan in "vote" mode.
 
-Output: progress lines, then a JSON line of per-kernel results, the
-`nvidia-smi` name/power-limit line, and last `{"ok": true, "device": ...}`.
+Output: progress lines, then a JSON line of per-kernel results (launches
+of each main path: FCAF3D inference, FCAF3D training, VoteNet inference),
+the `nvidia-smi` name/power-limit line, and last `{"ok": true, ...}`.
 
 Two further modes measure instead of checking (device and build first):
 
     python3 chip_smoke.py --profile         # stage split and kernel profile
-                                            # of the batch-8 bf16 train step
+                                            # of a VoteNet scan and of the
+                                            # batch-8 bf16 train step
     python3 chip_smoke.py --grad-control 3  # f32 ScanNet gradients, seeds
                                             # 0-2: card vs CPU against CPU vs
                                             # CPU with colours x (1 + 1e-6)
 """
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -99,6 +113,18 @@ TRAIN_BOXES, TRAIN_BOX_POINTS, TRAIN_FLOOR_POINTS = 20, 2400, 2000
 # difference in L2 norm relative to the leaf's norm
 TRAIN_LOSS_RTOL, TINY_GRAD_RTOL, TRAIN_GRAD_RTOL = 1e-5, 1e-3, 5e-2
 TINY_EXTENT = (0.6, 0.6, 0.3)  # scene extent that the tiny budgets hold
+VOTE_SCANS = 3  # VoteNet-v2 scans at votenet_sunrgbd
+# the f32 VoteNet slice card vs CPU: aggregation-group members may flip
+# within AGG_D2_TOL of r^2 (its centres are an MLP output); detections of
+# proposals with equal groups within BOX_ATOL / SCORE_ATOL
+AGG_D2_TOL = 1e-4
+# which kernels each main path runs
+PATH_KERNELS = {
+    "fcaf3d_inference": ("searchsorted", "gather_gemm", "gather_max"),
+    "fcaf3d_training": ("searchsorted", "gather_gemm", "gather_max",
+                        "gather_dw"),
+    "votenet_inference": ("fps", "ball_query"),
+}
 
 
 def log(msg):
@@ -399,12 +425,14 @@ def slice_phase(torch, cfg, scans, device):
                         & (dets["labels_3d"] < cfg.n_classes)).all():
             raise AssertionError(f"scan {i}: malformed detections")
     log(f"   launches over {len(scans)} scans: {launches}")
-    # K4 (the weight gradient) belongs to training only
-    missing = [k for k, v in launches.items() if v == 0 and k != "gather_dw"]
-    if missing:
-        raise AssertionError(f"kernels never launched on the main path: "
-                             f"{missing}")
+    check_path_launches(launches, "fcaf3d_inference")
     return launches
+
+
+def check_path_launches(launches, path):
+    missing = [k for k in PATH_KERNELS[path] if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"{path}: kernels never launched: {missing}")
 
 
 def backward_kernel_phase(torch, cfg, maps_by_batch):
@@ -571,9 +599,7 @@ def train_phase(torch, cfg, batch, device):
         f"{np.mean(times) * 1e3:.1f} ms/step (min {min(times) * 1e3:.1f}); "
         f"peak memory {peak / 2**30:.2f} GiB; {n_conv} conv kernels with "
         f"finite non-zero gradients; launches {launches}")
-    missing = [k for k, v in launches.items() if v == 0]
-    if missing:
-        raise AssertionError(f"kernels never launched in training: {missing}")
+    check_path_launches(launches, "fcaf3d_training")
     return launches
 
 
@@ -731,7 +757,6 @@ def profile_train(torch, cfg, batch):
     """The batch-8 bf16 train step: stage split on the host clock with a
     synchronise after each stage (3 steps), then 2 steps under
     `torch.profiler`: device time by kernel, busy share, host time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from fcaf3d_tpu_torch.models.detector import loss_config
@@ -775,13 +800,21 @@ def profile_train(torch, cfg, batch):
             step(batch)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    log_profile(prof, wall, "2 steps")
+
+
+def log_profile(prof, wall, what):
+    """Device time by kernel, busy share of `wall` and the host's largest
+    items, from a finished `torch.profiler` run."""
+    from torch.autograd import DeviceType
+
     ka = prof.key_averages()
     # device events, less the ranges the profiler books to annotations
     # such as `Optimizer.step`
     kern = [e for e in ka if e.device_type == DeviceType.CUDA
             and not getattr(e, "is_user_annotation", False)]
     dev_ms = sum(e.self_device_time_total for e in kern) / 1e3
-    log(f"   profiled 2 steps: wall {wall * 1e3:.1f} ms, kernel device time "
+    log(f"   profiled {what}: wall {wall * 1e3:.1f} ms, kernel device time "
         f"{dev_ms:.1f} ms (busy {dev_ms / (wall * 1e3):.3f}), "
         f"{sum(e.count for e in kern)} kernel launches")
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:16]:
@@ -790,6 +823,367 @@ def profile_train(torch, cfg, batch):
     for e in sorted(ka, key=lambda e: -e.self_cpu_time_total)[:10]:
         log(f"   host   {e.self_cpu_time_total / 1e3:9.2f} ms "
             f"n {e.count:6d}  {e.key[:80]}")
+
+
+def profile_votenet(torch, cfg, device):
+    """VoteNet-v2 inference (f32, batch 1, test mode): the stage split of
+    three scans on the host clock, each stage ended by a synchronise (FPS
+    and ball queries inside the SA modules, the rest of each SA module, the
+    FP modules, the vote module, the head, `votenet_get_bboxes`), then one
+    scan under `torch.profiler`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from fcaf3d_tpu_torch.apis import inference_votenet, init_votenet
+    from fcaf3d_tpu_torch.apis.inference import votenet_inputs
+    from fcaf3d_tpu_torch.models import votenet
+
+    model = init_votenet(cfg, seed=0, device=device)
+    scans = [vote_scan(s, cfg.num_points) for s in range(3)]
+    inference_votenet(model, scans[0])
+    spans = {}
+
+    def timed(name, fn):
+        def call(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            spans[name] = spans.get(name, 0.0) + time.perf_counter() - t0
+            return out
+        return call
+
+    stages = {"sa": [model.backbone.get_submodule(f"sa{i}")
+                     for i in range(model.backbone.n_sa)]
+              + [model.vote_aggregation],
+              "fp": [model.backbone.get_submodule(f"fp{i}")
+                     for i in range(model.backbone.n_fp)],
+              "vote_module": [model.vote_module]}
+    for name, mods in stages.items():
+        for m in mods:
+            m.forward = timed(name, m.forward)
+    try:
+        with wrapped_selections(timed):
+            for s, pts in enumerate(scans):
+                spans.clear()
+                x = torch.as_tensor(votenet_inputs(pts, cfg.num_points)[None],
+                                    device=device)
+                with torch.inference_mode():
+                    fwd = timed("forward", model)(
+                        x, sample_mod=cfg.sample_mod_test)
+                    timed("get_bboxes", votenet.votenet_get_bboxes)(
+                        fwd, x, cfg.n_classes, nms_thr=cfg.nms_thr,
+                        score_thr=cfg.score_thr,
+                        per_class_proposal=cfg.per_class_proposal)
+                spans["sa_rest"] = (spans["sa"] - spans["fps"]
+                                    - spans["ball_query"])
+                spans["head_rest"] = (spans["forward"] - spans["sa"]
+                                      - spans["fp"] - spans["vote_module"]
+                                      - spans["seed_fps"])
+                log(f"   scan {s} stages ms: " + ", ".join(
+                    f"{k} {spans[k] * 1e3:.2f}" for k in (
+                        "fps", "seed_fps", "ball_query", "sa_rest", "fp",
+                        "vote_module", "head_rest", "get_bboxes"))
+                    + "; total "
+                    f"{(spans['forward'] + spans['get_bboxes']) * 1e3:.2f}")
+    finally:
+        for mods in stages.values():
+            for m in mods:
+                del m.forward
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        inference_votenet(model, scans[1])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    log_profile(prof, wall, "1 VoteNet scan")
+
+
+def vote_scan(seed, n):
+    """One synthetic SUN RGB-D-like scan [n, 3] (xyz of `bench.synth_scene`)."""
+    from bench import synth_scene
+
+    return synth_scene(np.random.RandomState(seed), n)[0]
+
+
+def pointnet_cases(torch, cfg, device):
+    """The K5 and K6 cases of the VoteNet path of `cfg` on two scans
+    [2, N, 3]: the backbone's xyz levels (each the FPS sample of the one
+    before, by the plain version), and votes (the seeds moved by ~5 cm) for
+    the aggregation. Returns (fps cases (name, points, S), ball-query cases
+    (name, centres, points, radius, nsample))."""
+    from fcaf3d_tpu_torch.models.votenet import VoteNet
+    from fcaf3d_tpu_torch.ops.pointnet import gather_points
+    from fcaf3d_tpu_torch.ops.pointnet.fps import furthest_point_sample_plain
+
+    net = VoteNet(cfg, device="meta")
+    lv = [torch.as_tensor(np.stack([vote_scan(s, cfg.num_points)
+                                    for s in (0, 1)]), device=device)]
+    for s in cfg.backbone_num_points:
+        lv.append(gather_points(lv[-1], furthest_point_sample_plain(lv[-1],
+                                                                    s)))
+    seeds = lv[net.backbone.n_sa - net.backbone.n_fp]
+    noise = np.random.default_rng(0).normal(0, 0.05, seeds.shape)
+    votes = seeds + torch.as_tensor(noise.astype(np.float32), device=device)
+    proposals = gather_points(votes, furthest_point_sample_plain(
+        seeds, cfg.num_proposal))
+    fps = [(f"SA{i + 1}", lv[i], s)
+           for i, s in enumerate(cfg.backbone_num_points)]
+    fps.append(("seeds", seeds, cfg.num_proposal))
+    ballq = []
+    for i in range(net.backbone.n_sa):
+        sa = getattr(net.backbone, f"sa{i}")
+        ballq.append((f"SA{i + 1}", lv[i + 1], lv[i], sa.radius,
+                      sa.num_sample))
+    agg = net.vote_aggregation
+    ballq.append(("aggregation", proposals, votes, agg.radius,
+                  agg.num_sample))
+    return fps, ballq
+
+
+def mask_of(torch, b, n, device, n_valid=None):
+    """[b, n] bool: the first cloud all valid; the last with its first 3
+    points and ~5% of the rest invalid (only the first `n_valid` of them
+    valid when that is given)."""
+    rng = np.random.default_rng(n)
+    m = np.ones((b, n), bool)
+    m[-1] = rng.random(n) > 0.05
+    m[-1, :3] = False
+    if n_valid is not None:
+        m[-1, np.flatnonzero(m[-1])[n_valid:]] = False
+    return torch.as_tensor(m, device=device)
+
+
+def pointnet_kernel_phase(torch, cfg, device):
+    """K5 and K6 against their plain versions at every shape of the VoteNet
+    path, at batch 1 and at batch 2 with a valid mask: exactly equal. Plus
+    K5 with S above the valid count and with N beyond shared memory, and K6
+    with centres that find no point. Times (batch 1) of each kernel and its
+    plain version."""
+    from fcaf3d_tpu_torch.ops.pointnet.ball_query import (
+        ball_query, ball_query_plain)
+    from fcaf3d_tpu_torch.ops.pointnet.fps import (
+        furthest_point_sample, furthest_point_sample_plain)
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    fps_cases, ballq_cases = pointnet_cases(torch, cfg, device)
+    small = torch.rand(2, 64, 3, generator=gen, device=device)
+    big = torch.rand(2, 60000, 3, generator=gen, device=device) * 5
+    extra_fps = [("S > valid count", small, 32,
+                  mask_of(torch, 2, 64, device, n_valid=20)),
+                 ("N beyond shared memory", big, 128,
+                  mask_of(torch, 2, 60000, device))]
+    far = torch.cat([small[:, :8], small[:, :4] + 10.0], dim=1)
+    extra_ballq = [("centres without a hit", far, small, 0.3, 24,
+                    mask_of(torch, 2, 64, device))]
+    rec = {"fps": {"max_abs_err": 0}, "ball_query": {"max_abs_err": 0}}
+
+    def check(name, what, got, want):
+        torch.cuda.synchronize()
+        err = int((got.long() - want.long()).abs().max())
+        rec[name]["max_abs_err"] = max(rec[name]["max_abs_err"], err)
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name} {what}: kernel != plain (max abs "
+                                 f"index diff {err})")
+
+    for what, pts, s in fps_cases:
+        n = pts.shape[1]
+        for b in (1, 2):
+            x = pts[:b].contiguous()
+            v = None if b == 1 else mask_of(torch, b, n, device)
+            check("fps", f"{what} B={b}", furthest_point_sample(x, s, v),
+                  furthest_point_sample_plain(x, s, v))
+        x = pts[:1].contiguous()
+        ms = cuda_ms(torch, lambda: furthest_point_sample(x, s))
+        plain = cuda_ms(torch, lambda: furthest_point_sample_plain(x, s))
+        log(f"   K5 {what} {n} -> {s}: exact at B=1 and B=2 (masked); "
+            f"kernel {ms:.4f} ms, plain {plain:.4f} ms")
+        rec["fps"].setdefault("ms", ms)
+        rec["fps"].setdefault("plain_ms", plain)
+    for what, x, s, v in extra_fps:
+        check("fps", what, furthest_point_sample(x, s, v),
+              furthest_point_sample_plain(x, s, v))
+        log(f"   K5 {what} ({x.shape[1]} -> {s}, B=2, masked): exact")
+
+    for what, cent, pts, r, ns in ballq_cases:
+        m, n = cent.shape[1], pts.shape[1]
+        for b in (1, 2):
+            c, x = cent[:b].contiguous(), pts[:b].contiguous()
+            v = None if b == 1 else mask_of(torch, b, n, device)
+            check("ball_query", f"{what} B={b}", ball_query(c, x, r, ns, v),
+                  ball_query_plain(c, x, r, ns, v))
+        c, x = cent[:1].contiguous(), pts[:1].contiguous()
+        ms = cuda_ms(torch, lambda: ball_query(c, x, r, ns))
+        plain = cuda_ms(torch, lambda: ball_query_plain(c, x, r, ns))
+        log(f"   K6 {what} M={m} N={n} r={r} ns={ns}: exact at B=1 and B=2 "
+            f"(masked); kernel {ms:.4f} ms, plain {plain:.4f} ms")
+        rec["ball_query"].setdefault("ms", ms)
+        rec["ball_query"].setdefault("plain_ms", plain)
+    for what, c, x, r, ns, v in extra_ballq:
+        got = ball_query(c, x, r, ns, v)
+        check("ball_query", what, got, ball_query_plain(c, x, r, ns, v))
+        if got[:, 8:].any():
+            raise AssertionError(f"K6 {what}: a centre without a hit is not "
+                                 "all zeros")
+        log(f"   K6 {what} (M={c.shape[1]}, N={x.shape[1]}, B=2, masked): "
+            "exact")
+    return rec
+
+
+@contextlib.contextmanager
+def wrapped_selections(wrap):
+    """Every FPS and ball query of the VoteNet forward goes through
+    `wrap(kind, fn)` (kind "fps" in the SA modules, "ball_query", or
+    "seed_fps" for the proposals of the test mode), by the names the model
+    modules call."""
+    from fcaf3d_tpu_torch.models import pointnet2, votenet
+
+    names = ((pointnet2, "furthest_point_sample", "fps"),
+             (pointnet2, "ball_query", "ball_query"),
+             (votenet, "furthest_point_sample", "seed_fps"))
+    saved = [getattr(mod, name) for mod, name, _ in names]
+    for (mod, name, kind), fn in zip(names, saved):
+        setattr(mod, name, wrap(kind, fn))
+    try:
+        yield
+    finally:
+        for (mod, name, _), fn in zip(names, saved):
+            setattr(mod, name, fn)
+
+
+def recorder(torch, calls):
+    """A `wrapped_selections` wrapper appending (kind, arguments, result),
+    on the CPU, to `calls`."""
+    def wrap(kind, fn):
+        def call(*args):
+            out = fn(*args)
+            calls.append((kind, [a.cpu() if torch.is_tensor(a) else a
+                                 for a in args], out.cpu()))
+            return out
+        return call
+    return wrap
+
+
+def votenet_run(torch, model, x):
+    """The body of `inference_votenet` on a prepared input [1, N, 4]:
+    forward in the test mode and raw `VoteDetections`, with every FPS and
+    ball query recorded."""
+    from fcaf3d_tpu_torch.models.votenet import votenet_get_bboxes
+
+    cfg = model.cfg
+    calls = []
+    with torch.inference_mode(), wrapped_selections(recorder(torch, calls)):
+        preds = model(x, sample_mod=cfg.sample_mod_test)
+        dets = votenet_get_bboxes(preds, x, cfg.n_classes,
+                                  nms_thr=cfg.nms_thr, score_thr=cfg.score_thr,
+                                  per_class_proposal=cfg.per_class_proposal)
+    return calls, dets._replace(**{k: v.cpu() for k, v in
+                                   dets._asdict().items()})
+
+
+def compare_votenet_f32(torch, model, cfg, scan_xyz, device):
+    """One scan, card against CPU (same weights, same input): every FPS and
+    the SA1-SA4 groups exactly equal; aggregation groups equal but for
+    members within AGG_D2_TOL of r^2; on proposals whose group is equal the
+    same detections, boxes within BOX_ATOL and scores within SCORE_ATOL."""
+    from fcaf3d_tpu_torch.apis import init_votenet
+    from fcaf3d_tpu_torch.apis.inference import votenet_inputs
+
+    x = votenet_inputs(scan_xyz, cfg.num_points)[None]
+    calls_g, dets_g = votenet_run(torch, model, torch.as_tensor(
+        x, device=device))
+    calls_c, dets_c = votenet_run(torch, init_votenet(cfg, 0, device="cpu"),
+                                  torch.as_tensor(x))
+    if [c[0] for c in calls_g] != [c[0] for c in calls_c]:
+        raise AssertionError("VoteNet f32: the card and the CPU made other "
+                             "FPS / ball-query calls")
+    n_bq = sum(c[0] == "ball_query" for c in calls_c)
+    seen_bq, flipped, eq_rows = 0, 0, None
+    for (name, _, got), (_, args, want) in zip(calls_g, calls_c):
+        if name == "ball_query":
+            seen_bq += 1
+        if seen_bq < n_bq or name != "ball_query":
+            if not torch.equal(got, want):
+                raise AssertionError(f"VoteNet f32: {name} call "
+                                     f"{seen_bq} differs card vs CPU")
+            continue
+        # the aggregation: disputed members must lie within AGG_D2_TOL of r^2
+        cent, pts, radius = args[0][0].double(), args[1][0].double(), args[2]
+        eq_rows = (got[0] == want[0]).all(-1)
+        for r in torch.nonzero(~eq_rows).flatten().tolist():
+            disputed = set(got[0, r].tolist()) ^ set(want[0, r].tolist())
+            d2 = ((pts[sorted(disputed)] - cent[r]) ** 2).sum(-1)
+            flipped += len(disputed)
+            if ((d2 - radius * radius).abs() > AGG_D2_TOL).any():
+                raise AssertionError(f"VoteNet f32: aggregation group {r} "
+                                     f"differs away from r^2: {d2.tolist()}")
+    same = eq_rows.repeat(cfg.n_classes if cfg.per_class_proposal else 1)
+    vg, vc = dets_g.valid[0] & same, dets_c.valid[0] & same
+    if not (vc.any() and torch.equal(vg, vc) and torch.equal(
+            dets_g.labels[0][vc], dets_c.labels[0][vc])):
+        raise AssertionError(f"VoteNet f32: {int(vg.sum())} detections on "
+                             f"the card, {int(vc.sum())} on the CPU, or "
+                             "other labels")
+    box_err = float((dets_g.boxes[0][vc] - dets_c.boxes[0][vc]).abs().max())
+    score_err = float((dets_g.scores[0][vc] - dets_c.scores[0][vc]).abs()
+                      .max())
+    log(f"   f32 card vs CPU: {len(calls_c)} FPS / ball-query calls, all "
+        f"FPS and SA1-SA4 groups equal; aggregation: "
+        f"{int((~eq_rows).sum())} of {len(eq_rows)} groups differ "
+        f"({flipped} members within {AGG_D2_TOL} of r^2); "
+        f"{int(vc.sum())} detections equal, max box err {box_err:.3g} "
+        f"(tol {BOX_ATOL}), max score err {score_err:.3g} (tol {SCORE_ATOL})")
+    if box_err > BOX_ATOL or score_err > SCORE_ATOL:
+        raise AssertionError("VoteNet f32: card and CPU disagree")
+
+
+def votenet_phase(torch, cfg, device):
+    """`init_votenet(cfg)` in f32 and `inference_votenet` on VOTE_SCANS
+    scans: per-scan wall time, non-empty finite detections, five K5 and five
+    K6 launches per scan. Then the f32 card-vs-CPU comparison and one scan
+    in "vote" mode (launches and finiteness). Returns launches per kernel
+    over the timed scans."""
+    from fcaf3d_tpu_torch import _native
+    from fcaf3d_tpu_torch.apis import inference_votenet, init_votenet
+
+    model = init_votenet(cfg, seed=0, device=device)
+    scans = [vote_scan(s, cfg.num_points) for s in range(VOTE_SCANS)]
+
+    def checked(dets, what):
+        n = len(dets["scores_3d"])
+        if n == 0 or dets["boxes_3d"].shape != (n, 7) \
+                or not np.isfinite(dets["boxes_3d"]).all() \
+                or not np.isfinite(dets["scores_3d"]).all() \
+                or not ((dets["labels_3d"] >= 0)
+                        & (dets["labels_3d"] < cfg.n_classes)).all():
+            raise AssertionError(f"VoteNet {what}: malformed detections")
+        return n
+
+    inference_votenet(model, scans[0])  # warm-up: cuBLAS and allocator
+    torch.cuda.synchronize()
+    _native.reset_launches()
+    times, counts = [], []
+    for pts in scans:
+        t0 = time.perf_counter()
+        dets = inference_votenet(model, pts)
+        times.append(time.perf_counter() - t0)
+        counts.append(checked(dets, f"scan {len(counts)}"))
+    launches = dict(_native.LAUNCHES)
+    for i, (dt, n) in enumerate(zip(times, counts)):
+        log(f"   scan {i}: {dt * 1e3:.1f} ms wall, {n} detections")
+    log(f"   launches over {len(scans)} scans: {launches}")
+    want = {k: 5 * len(scans) if k in PATH_KERNELS["votenet_inference"]
+            else 0 for k in launches}
+    if launches != want:
+        raise AssertionError(f"VoteNet launches {launches}, expected {want}")
+    compare_votenet_f32(torch, model, cfg, scans[0], device)
+    _native.reset_launches()
+    n = checked(inference_votenet(model, scans[1], sample_mod="vote"),
+                "vote mode")
+    vote_launches = dict(_native.LAUNCHES)
+    if vote_launches != {k: v // len(scans) for k, v in want.items()}:
+        raise AssertionError(f"VoteNet vote mode launches {vote_launches}")
+    log(f"   \"vote\" mode, scan 1: {n} detections, launches {vote_launches}")
+    return launches
 
 
 KERNELS = (
@@ -801,13 +1195,18 @@ KERNELS = (
      "fcaf3d_tpu/ops/sparse/gather_kernel.py:991"),
     ("gather_dw", "fcaf3d_tpu_torch/csrc/gather_dw.cu",
      "fcaf3d_tpu/ops/sparse/gather_kernel.py:755"),
+    ("fps", "fcaf3d_tpu_torch/csrc/fps.cu",
+     "fcaf3d_tpu/ops/pointnet/fps_kernel.py:98"),
+    ("ball_query", "fcaf3d_tpu_torch/csrc/ball_query.cu",
+     "fcaf3d_tpu/ops/pointnet/ballq_kernel.py:157"),
 )
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="profile the batch-8 bf16 train step instead")
+                    help="profile a VoteNet scan and the batch-8 bf16 train "
+                         "step instead")
     ap.add_argument("--grad-control", type=int, metavar="SEEDS",
                     help="measure the f32 ScanNet gradients' sensitivity "
                          "over SEEDS seeds instead")
@@ -817,12 +1216,13 @@ def main():
     t_start = time.perf_counter()
     smi = device_phase(torch)
     sys.path.insert(0, REPO)
-    from fcaf3d_tpu_torch.configs import fcaf3d_scannet
+    from fcaf3d_tpu_torch.configs import fcaf3d_scannet, votenet_sunrgbd
 
     build_phase()
     cfg = fcaf3d_scannet()
     batch = train_batch(cfg, TRAIN_BATCH, seed0=0)
     if args.profile:
+        profile_votenet(torch, votenet_sunrgbd(), "cuda")
         return profile_train(torch, cfg, batch)
     if args.grad_control:
         return grad_control(torch, cfg, "cuda", args.grad_control)
@@ -844,10 +1244,21 @@ def main():
     train_launches = train_phase(torch, cfg, batch, "cuda")
     compare_train_tiny(torch, "cuda")
     compare_train_f32(torch, cfg, "cuda")
+    vcfg = votenet_sunrgbd()
+    log("== 7 K5 and K6 against their plain versions, VoteNet-path shapes")
+    rec.update(pointnet_kernel_phase(torch, vcfg, "cuda"))
+    log(f"== 8 inference: votenet_sunrgbd, f32, batch 1, {vcfg.num_points} "
+        "points per scan")
+    vote_launches = votenet_phase(torch, vcfg, "cuda")
     log(f"== all phases passed in {time.perf_counter() - t_start:.1f} s")
+    by_path = {"fcaf3d_inference": infer_launches,
+               "fcaf3d_training": train_launches,
+               "votenet_inference": vote_launches}
     kernels = [{"name": name, "route": "cuda", "source": src,
-                "replaces": tpu, "launches": train_launches[name],
-                "inference_launches": infer_launches[name], **rec[name]}
+                "replaces": tpu,
+                "launches": sum(p[name] for p in by_path.values()),
+                "launches_by_path": {k: p[name] for k, p in by_path.items()},
+                **rec[name]}
                for name, src, tpu in KERNELS]
     print(json.dumps({"kernels": kernels}))
     print(smi)

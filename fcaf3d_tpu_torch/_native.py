@@ -9,7 +9,7 @@ cold build takes seconds rather than the minutes of
 `torch.utils.cpp_extension.load`.
 
 Each C entry point launches on the stream it is given and returns the
-`cudaError_t` of the launch; the wrappers in `ops/sparse/` raise on a
+`cudaError_t` of the launch; the wrappers in `ops/` raise on a
 non-zero value. `LAUNCHES` counts the launches of each kernel (the wrappers
 add one per launch), so a run can show which kernels its path went through.
 """
@@ -25,7 +25,8 @@ import threading
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
-SOURCES = ("search.cu", "gather_gemm.cu", "gather_max.cu", "gather_dw.cu")
+SOURCES = ("search.cu", "gather_gemm.cu", "gather_max.cu", "gather_dw.cu",
+           "fps.cu", "ball_query.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -33,7 +34,7 @@ NVCC_FLAGS = (
 
 # kernel name -> launches since the last `reset_launches()`
 LAUNCHES = {"searchsorted": 0, "gather_gemm": 0, "gather_max": 0,
-            "gather_dw": 0}
+            "gather_dw": 0, "fps": 0, "ball_query": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -115,6 +116,11 @@ def _bind(lib):
     lib.fcaf3d_gather_dw.argtypes = [
         p, p, p, p, p, i64, i64, i64, i64, i64, i64, i64, i64, i, p]
     lib.fcaf3d_gather_dw.restype = i
+    lib.fcaf3d_fps.argtypes = [p, p, p, p, i64, i64, i64, p]
+    lib.fcaf3d_fps.restype = i
+    lib.fcaf3d_ball_query.argtypes = [
+        p, p, p, p, i64, i64, i64, i64, ctypes.c_float, p]
+    lib.fcaf3d_ball_query.restype = i
 
 
 def load():

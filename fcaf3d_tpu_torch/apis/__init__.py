@@ -1,3 +1,8 @@
-from .inference import inference_detector, init_detector  # noqa: F401
+from .inference import (  # noqa: F401
+    inference_detector,
+    inference_votenet,
+    init_detector,
+    init_votenet,
+)
 from .test import detections_to_numpy  # noqa: F401
 from .train import train_model  # noqa: F401

@@ -4,3 +4,8 @@ from .fcaf3d import (  # noqa: F401
     fcaf3d_scannet,
     fcaf3d_tiny,
 )
+from .votenet import (  # noqa: F401
+    VoteNetConfig,
+    votenet_sunrgbd,
+    votenet_tiny,
+)

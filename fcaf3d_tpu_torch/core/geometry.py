@@ -29,3 +29,31 @@ def gravity_center(boxes7: torch.Tensor) -> torch.Tensor:
     """Bottom-centre box7 [..., 7] -> gravity centre [..., 3]."""
     z = boxes7[..., 2:3] + boxes7[..., 5:6] * 0.5
     return torch.cat([boxes7[..., :2], z], dim=-1)
+
+
+# unit corners in the box frame: x, y in {-1/2, 1/2}, z in {0, 1} from the
+# bottom, in binary (x, y, z) order
+_UNIT_CORNERS = ((-0.5, -0.5, 0.0), (-0.5, -0.5, 1.0), (-0.5, 0.5, 0.0),
+                 (-0.5, 0.5, 1.0), (0.5, -0.5, 0.0), (0.5, -0.5, 1.0),
+                 (0.5, 0.5, 0.0), (0.5, 0.5, 1.0))
+
+
+def box7_corners(boxes7: torch.Tensor) -> torch.Tensor:
+    """Corners of bottom-centre box7 [..., 7] -> [..., 8, 3]: the unit
+    corners scaled by the dims, rotated by the yaw about the vertical axis
+    through (x, y), then moved to the box."""
+    unit = torch.tensor(_UNIT_CORNERS, dtype=boxes7.dtype,
+                        device=boxes7.device)
+    corners = rotate_points_z(unit * boxes7[..., None, 3:6], boxes7[..., 6])
+    return corners + boxes7[..., None, 0:3]
+
+
+def points_in_boxes(points: torch.Tensor, boxes7: torch.Tensor
+                    ) -> torch.Tensor:
+    """Points [..., N, 3] strictly inside bottom-centre boxes [..., G, 7] ->
+    bool [..., N, G]: un-rotated about the box's gravity centre, within the
+    half-dims on every axis."""
+    shift = points[..., :, None, :] - gravity_center(boxes7)[..., None, :, :]
+    local = rotate_points_z(shift.transpose(-3, -2), -boxes7[..., 6])
+    half = boxes7[..., None, :, 3:6] * 0.5
+    return (local.transpose(-3, -2).abs() < half).all(-1)

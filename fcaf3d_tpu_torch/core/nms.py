@@ -1,7 +1,8 @@
-"""Fixed-shape BEV NMS (port of the axis-aligned path of
-`fcaf3d_tpu/core/nms.py`): a static [K, K] IoU matrix and a greedy
-suppression loop over score-sorted candidates, batched over any leading
-dims (the classes of `fcaf3d_get_bboxes`)."""
+"""Fixed-shape NMS (port of the axis-aligned BEV path and of
+`aligned_3d_nms` of `fcaf3d_tpu/core/nms.py`): a static [K, K] IoU matrix
+and a greedy suppression loop over score-sorted candidates, batched over any
+leading dims (the classes of `fcaf3d_get_bboxes`, the clouds of
+`votenet_get_bboxes`)."""
 from __future__ import annotations
 
 import torch
@@ -58,6 +59,39 @@ def nms_bev(boxes7: torch.Tensor, scores: torch.Tensor, iou_thr: float,
     area = sboxes[..., 3] * sboxes[..., 4]
     union = area[..., :, None] + area[..., None, :] - inter_a
     iou = inter_a / torch.clamp_min(union, 1e-8)
+
+    keep_sorted = _greedy_suppress(iou, svalid, iou_thr)
+    return torch.zeros_like(keep_sorted).scatter(-1, order, keep_sorted)
+
+
+def aligned_3d_nms(boxes6: torch.Tensor, scores: torch.Tensor,
+                   classes: torch.Tensor, iou_thr: float,
+                   valid=None) -> torch.Tensor:
+    """Axis-aligned 3D NMS on corner-form boxes [..., K, 6] = (x1, y1, z1,
+    x2, y2, z2): full 3D IoU, suppression only within the same class
+    (VoteNet's `aligned_3d_nms`).
+
+    Returns:
+        keep [..., K] bool in the original candidate order.
+    """
+    if valid is None:
+        valid = torch.ones_like(scores, dtype=torch.bool)
+    masked = torch.where(valid, scores, -torch.inf)
+    order = torch.argsort(-masked, dim=-1, stable=True)
+    b = torch.take_along_dim(boxes6, order[..., None], dim=-2)
+    svalid = torch.gather(valid, -1, order)
+    scls = torch.gather(classes, -1, order)
+
+    lo, hi = b[..., :3], b[..., 3:6]
+    inter = torch.clamp(
+        torch.minimum(hi[..., :, None, :], hi[..., None, :, :])
+        - torch.maximum(lo[..., :, None, :], lo[..., None, :, :]), min=0.0)
+    vol_i = inter[..., 0] * inter[..., 1] * inter[..., 2]
+    ext = hi - lo
+    vol = ext[..., 0] * ext[..., 1] * ext[..., 2]
+    union = vol[..., :, None] + vol[..., None, :] - vol_i
+    iou = vol_i / torch.clamp_min(union, 1e-8)
+    iou = torch.where(scls[..., :, None] == scls[..., None, :], iou, 0.0)
 
     keep_sorted = _greedy_suppress(iou, svalid, iou_thr)
     return torch.zeros_like(keep_sorted).scatter(-1, order, keep_sorted)

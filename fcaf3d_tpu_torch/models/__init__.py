@@ -5,3 +5,8 @@ from .fcaf3d_head import (  # noqa: F401
     HeadLevelOutput,
     fcaf3d_get_bboxes,
 )
+from .votenet import (  # noqa: F401
+    VoteDetections,
+    VoteNet,
+    votenet_get_bboxes,
+)

@@ -1,18 +1,20 @@
 """Parameters of the port as the JAX package's flax variable tree.
 
 `init_variables(cfg, seed)` draws a `{"params", "batch_stats"}` tree of
-numpy arrays with the flax paths and shapes of `fcaf3d_tpu.models.FCAF3D`,
-so the same tree can drive both packages; `load_variables` copies such a
-tree (or a converted checkpoint's) into the torch modules, whose names are
-the flax names (flax `a/b/c` is state_dict `a.b.c`).
+numpy arrays with the flax paths and shapes of `fcaf3d_tpu.models.FCAF3D`
+(`init_votenet_variables` of `fcaf3d_tpu.models.votenet.VoteNet`), so the
+same tree can drive both packages; `load_variables` copies such a tree (or
+a converted checkpoint's) into the torch modules, whose names are the flax
+names (flax `a/b/c` is state_dict `a.b.c`).
 
 The draw is made so that a forward pass does real work at full size: normal
-conv kernels at the kaiming (fan_out) scale, norm gains in [0.5, 1.5], BN
-running variances in [0.5, 2], a zero `cls_conv` bias, and head kernels
-scaled down (`_HEAD_GAIN`) so that on a ScanNet-size scan the logits stay
-O(1) and the exp-decoded box distances near 1 m. Scores then spread over
-(0, 1) and detections pass `score_thr`. (The flax init's cls bias of -4.6
-puts every score near 0.005, below the threshold.)
+kernels at the kaiming scale (fan_out for sparse convs, fan_in for dense
+layers), norm gains in [0.5, 1.5], BN running variances in [0.5, 2], and
+head kernels scaled (`_HEAD_GAIN`, `_VOTE_HEAD_GAIN`). For FCAF3D, on a
+ScanNet-size scan the logits then stay O(1) and the exp-decoded box
+distances near 1 m; with a zero `cls_conv` bias scores spread over (0, 1)
+and detections pass `score_thr`. (The flax init's cls bias of -4.6 puts
+every score near 0.005, below the threshold.)
 """
 from __future__ import annotations
 
@@ -23,9 +25,23 @@ import numpy as np
 import torch
 
 from .configs.fcaf3d import FCAF3DConfig
+from .configs.votenet import VoteNetConfig
 from .models.detector import FCAF3D
+from .models.votenet import VoteNet
 
 _HEAD_GAIN = {"centerness_conv": 0.15, "cls_conv": 0.15, "reg_conv": 0.02}
+# VoteNet: at random init the class scores obj x sem sit near 0.5 x 1/C,
+# right at `score_thr` = 0.05 for C = 10, and unscaled votes and box
+# regressions throw proposals and boxes away from the points, leaving
+# fewer than the 5 points inside that a detection needs. So the class
+# logits get a gain of 2 (some classes clearly win, objectness ~0.8 without
+# saturating), and the votes and box regressions are scaled down (offsets
+# of centimetres, boxes near 0.5 x 0.6 x 1 m around their proposal). The
+# aggregation's first layer reads unit-norm 256-channel vote features
+# (~1/16 per channel): its gain of 16 gives them the scale of the other
+# layers' inputs.
+_VOTE_HEAD_GAIN = {"conv_cls": 2.0, "conv_reg": 0.02, "conv_out": 0.05,
+                   "vote_aggregation.mlp0.Dense_0": 16.0}
 
 
 def variable_shapes(cfg: FCAF3DConfig):
@@ -35,17 +51,28 @@ def variable_shapes(cfg: FCAF3DConfig):
             {n: tuple(b.shape) for n, b in model.named_buffers()})
 
 
-def _draw_param(rng, name, shape):
+def votenet_variable_shapes(cfg: VoteNetConfig):
+    """`variable_shapes` of `VoteNet(cfg)`."""
+    model = VoteNet(cfg, device="meta")
+    return ({n: tuple(p.shape) for n, p in model.named_parameters()},
+            {n: tuple(b.shape) for n, b in model.named_buffers()})
+
+
+def _draw_param(rng, name, shape, gains, zero_bias):
     module, leaf = name.rsplit(".", 1)
     owner = module.rsplit(".", 1)[-1]
     if leaf == "kernel":
-        k, cin, cout = shape
-        std = (_HEAD_GAIN[owner] / np.sqrt(cin) if owner in _HEAD_GAIN
-               else np.sqrt(2.0 / (k * cout)))
+        gain = gains.get(module, gains.get(owner))
+        if gain is not None:
+            std = gain / np.sqrt(shape[-2])
+        elif len(shape) == 3:  # sparse conv [K, Cin, Cout]: fan_out
+            std = np.sqrt(2.0 / (shape[0] * shape[2]))
+        else:  # dense [in, out]: fan_in
+            std = np.sqrt(2.0 / shape[0])
         return rng.standard_normal(shape) * std
     if leaf.startswith("scale_"):  # the head's per-level exp scale
         return np.ones(shape)
-    if leaf == "bias" and owner == "cls_conv":
+    if leaf == "bias" and owner in zero_bias:
         return np.zeros(shape)
     if leaf == "scale":  # norm gains
         return rng.uniform(0.5, 1.5, shape)
@@ -86,16 +113,28 @@ def flatten(tree: Mapping, prefix: str = "") -> Dict[str, object]:
     return out
 
 
-def init_variables(cfg: FCAF3DConfig, seed: int = 0) -> dict:
-    """Seeded numpy `{"params", "batch_stats"}` tree (float32 leaves) with
-    the flax paths and shapes of `FCAF3D(cfg)`."""
+def _draw_tree(shapes, seed, gains, zero_bias) -> dict:
     rng = np.random.default_rng(seed)
-    pshapes, sshapes = variable_shapes(cfg)
-    params = {n: _draw_param(rng, n, pshapes[n]).astype(np.float32)
+    pshapes, sshapes = shapes
+    params = {n: _draw_param(rng, n, pshapes[n], gains,
+                             zero_bias).astype(np.float32)
               for n in sorted(pshapes)}
     stats = {n: _draw_stat(rng, n, sshapes[n]).astype(np.float32)
              for n in sorted(sshapes)}
     return {"params": _nest(params), "batch_stats": _nest(stats)}
+
+
+def init_variables(cfg: FCAF3DConfig, seed: int = 0) -> dict:
+    """Seeded numpy `{"params", "batch_stats"}` tree (float32 leaves) with
+    the flax paths and shapes of `FCAF3D(cfg)`."""
+    return _draw_tree(variable_shapes(cfg), seed, _HEAD_GAIN, {"cls_conv"})
+
+
+def init_votenet_variables(cfg: VoteNetConfig, seed: int = 0) -> dict:
+    """The same for `VoteNet(cfg)` (the JAX module built with the config's
+    n_classes, num_proposal and backbone_num_points)."""
+    return _draw_tree(votenet_variable_shapes(cfg), seed, _VOTE_HEAD_GAIN,
+                      {"conv_cls"})
 
 
 def load_variables(model: torch.nn.Module, variables: Mapping) -> None:

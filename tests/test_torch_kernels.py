@@ -26,6 +26,7 @@ from fcaf3d_tpu.ops.sparse.search import T_QUERIES
 from fcaf3d_tpu.ops.sparse.search import searchsorted_segments as j_search
 from fcaf3d_tpu_torch import _native
 from fcaf3d_tpu_torch import configs as tconfigs
+from fcaf3d_tpu_torch.ops.pointnet import ops as pointnet_ops
 from fcaf3d_tpu_torch.ops.sparse import conv as tc
 from fcaf3d_tpu_torch.ops.sparse import gather_kernel as tg
 from fcaf3d_tpu_torch.ops.sparse import search as ts
@@ -208,6 +209,12 @@ def test_cuda_wrappers_raise_without_kernel(monkeypatch):
         tg.fused_gather_max(feats, idx[..., :8])
     with pytest.raises(RuntimeError, match="not built"):
         tg.fused_gather_dw(feats, idx, _cuda_looking(torch.ones(1, 4, 2)))
+    xyz = _cuda_looking(torch.zeros(1, 8, 3))
+    valid = _cuda_looking(torch.ones(1, 8, dtype=torch.bool))
+    with pytest.raises(RuntimeError, match="not built"):
+        pointnet_ops.furthest_point_sample(xyz, 4, valid)
+    with pytest.raises(RuntimeError, match="not built"):
+        pointnet_ops.ball_query(xyz, xyz, 0.2, 4, valid)
     assert _native.LAUNCHES == before
 
 
