@@ -12,23 +12,33 @@ Phases (any failure raises and the script exits non-zero):
    (one nvcc per source, in parallel).
 3. Kernels against their plain PyTorch versions on the card, at the shapes
    of the main path's maps on a real-size scan: K1 exact (with and without
-   `with_miss`), K2 in f32 and bf16 with every epilogue, K3 exact. Times
-   of each kernel and its plain version (CUDA events).
+   `with_miss`), K2 in f32 and bf16 with every epilogue, K3 exact. Device
+   times (CUDA events behind a sleep kernel, so that the host's enqueue
+   rate does not set them), timed in turns with the plain version and the
+   yardsticks: for K1's positions `torch.searchsorted(out_int32=True)`,
+   for bf16 K2 and K4 the SIMT kernel (the f32 one, which bf16 used before
+   the tensor-core kernels) and one matmul on the pre-gathered rows (not
+   the same function: it shows what the MMA alone costs). Each time is
+   printed beside its bound (FLOPs over the peak, bytes over the memory
+   rate, from the real map's hits) and its share of it.
 4. The backward kernels, the same way, on the maps of one scan (batch 1)
    and of the batch-8 training batch: K4 (weight gradient) at every
    (C, E, K) of the training path in f32 and bf16, bitwise equal over two
    runs; K2 as dFeats on a reversed self map and on an inverted k3 s2 map
-   (the inverse map card vs CPU exactly).
+   (the inverse map card vs CPU exactly), and K2's training forward at
+   s16 C128 E128 (at batch 8 its 128 x 128 tile).
 5. Inference: `init_detector(fcaf3d_scannet())` in bf16 and
-   `inference_detector` on three 100 000-point scans, with zero overflow
-   and every inference kernel launched; then one scan in f32 on the card
+   `inference_detector` on three 100 000-point scans, with zero overflow,
+   every inference kernel launched and every bf16 K2 launch on the tensor
+   cores (launches by variant printed); then one scan in f32 on the card
    against the plain path on the CPU (voxel keys and backbone kernel maps
    exactly equal, detections equal within tolerance).
 6. Training: `create_train_state` / `make_train_step` at `fcaf3d_scannet`
    in bf16, batch 8 of crowded synthetic scenes (50 000 raw points each,
    sampled to 100 000): one warm-up step, five timed steps with finite
    losses, a live box loss, zero overflow, finite non-zero gradients on
-   every conv kernel and K1-K4 launched; then f32 steps on the card
+   every conv kernel, K1-K4 launched and every bf16 K2 and K4 launch on
+   the tensor cores; then f32 steps on the card
    against the CPU plain path: `fcaf3d_tiny` at batch 2 (every gradient
    element within 1e-3 of its leaf's largest) and `fcaf3d_scannet` at
    batch 1 (kernel maps and pruned neck maps exactly equal, losses within
@@ -46,13 +56,16 @@ Phases (any failure raises and the script exits non-zero):
    tolerance) and one scan in "vote" mode.
 
 Output: progress lines, then a JSON line of per-kernel results (launches
-of each main path: FCAF3D inference, FCAF3D training, VoteNet inference),
+of each main path: FCAF3D inference, FCAF3D training, VoteNet inference;
+K2 and K4 also by variant; the recorded shape's times, bound and share),
 the `nvidia-smi` name/power-limit line, and last `{"ok": true, ...}`.
 
 Two further modes measure instead of checking (device and build first):
 
-    python3 chip_smoke.py --profile         # stage split and kernel profile
-                                            # of a VoteNet scan and of the
+    python3 chip_smoke.py --profile         # kernel profile of a bf16
+                                            # inference scan; stage split
+                                            # and kernel profile of a
+                                            # VoteNet scan and of the
                                             # batch-8 bf16 train step
     python3 chip_smoke.py --grad-control 3  # f32 ScanNet gradients, seeds
                                             # 0-2: card vs CPU against CPU vs
@@ -118,6 +131,19 @@ VOTE_SCANS = 3  # VoteNet-v2 scans at votenet_sunrgbd
 # within AGG_D2_TOL of r^2 (its centres are an MLP output); detections of
 # proposals with equal groups within BOX_ATOL / SCORE_ATOL
 AGG_D2_TOL = 1e-4
+# published dense peaks of one H100 SXM: a kernel's bound is the larger of
+# its operations over the peak of their type (bf16 on the tensor cores;
+# float32 and integer work on the CUDA cores) and its bytes over the memory
+# rate
+PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}
+HBM_BYTES_PER_S = 3.35e12
+SLEEP_CYCLES = 20_000_000  # ~10 ms of device clock ahead of timed launches
+FPS_OPS = 9  # per K5 distance update: 3 sub, 3 mul, 2 add, 1 min
+BALLQ_OPS = 9  # per K6 point scanned: 3 sub, 3 mul, 2 add, 1 compare
+# (what, kernel ms, SIMT ms, plain ms) of every bf16 K2/K4 path shape where
+# the tensor-core kernel is not faster than its plain version and the SIMT
+# one: printed at the end, for PERF.md
+NOT_FASTER = []
 # which kernels each main path runs
 PATH_KERNELS = {
     "fcaf3d_inference": ("searchsorted", "gather_gemm", "gather_max"),
@@ -162,7 +188,7 @@ def build_phase():
 
 def scan(seed):
     """One synthetic ScanNet-like scan [SCAN_POINTS, 6] (xyz + rgb)."""
-    from bench import synth_scene
+    from fcaf3d_tpu_torch.data.synth import synth_scene
 
     xyz, rgb = synth_scene(np.random.RandomState(seed), SCAN_POINTS)
     return np.concatenate([xyz, rgb], axis=1)
@@ -238,17 +264,98 @@ def neck_maps(torch, maps, cfg):
 
 def cuda_ms(torch, fn, reps=10):
     """Mean device time of `fn` over `reps` launches (CUDA events), after
-    one warm-up."""
+    one warm-up. A sleep kernel ahead of the timed launches holds the device
+    while the host enqueues them, so that the time is the device's and not
+    the host's enqueue rate (which sets the pace of back-to-back calls at
+    shapes near launch latency), as long as the enqueue fits in the sleep."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def timed_turns(torch, fns, reps=10):
+    """Device ms of each of `fns` (name -> callable), timed in turns: in
+    order, then in reverse order (plain, kernel, ..., kernel, plain). Returns
+    name -> (mean, first reading, second reading)."""
+    times = {name: [] for name in fns}
+    for name in list(fns) + list(reversed(fns)):
+        times[name].append(cuda_ms(torch, fns[name], reps))
+    return {name: (sum(t) / len(t), t[0], t[1]) for name, t in times.items()}
+
+
+def count_hits(idx, n):
+    """Hits (entries < N) of a kernel map [B, M, K], per offset."""
+    return [int(v) for v in (idx < n).sum(dim=(0, 1)).tolist()]
+
+
+def gemm_work(idx, n, c, e, elt, epilogue=False, add=False,
+              weight_grad=False):
+    """(operations, bytes) of K2 on a map [B, M, K] over N input rows, or of
+    K4 with `weight_grad`: 2 * hits * C * E FLOPs, and each input read once
+    and each output written once: feats [B, N, C] and the map, then for K2
+    W [K, C, E], the epilogue's scale, shift and vmask, `add` [B, M, E] and
+    out [B, M, E] (elt bytes an element), for K4 dout [B, M, E] and dW
+    [K, C, E] in float32."""
+    b, m, k = idx.shape
+    flops = 2 * sum(count_hits(idx, n)) * c * e
+    nbytes = b * n * c * elt + b * m * k * 4
+    if weight_grad:
+        return flops, nbytes + b * m * e * elt + k * c * e * 4
+    nbytes += k * c * e * elt + b * m * e * elt
+    if epilogue:
+        nbytes += 2 * e * 4 + b * m
+    if add:
+        nbytes += b * m * e * elt
+    return flops, nbytes
+
+
+def bound(ops, nbytes, peak):
+    """(bound_ms, what bounds it): the larger of `ops` over `peak` and
+    `nbytes` over the memory rate."""
+    t_ops, t_bytes = ops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def timing_record(times, work, peak):
+    """The kernel's timing record: its ms, the yardsticks' ms, its bound
+    and share of the bound, from `timed_turns` output and (ops, bytes)."""
+    bound_ms, by = bound(*work, peak)
+    rec = {"ms": times["kernel"][0], "bound_ms": bound_ms, "bound_by": by,
+           "share": bound_ms / times["kernel"][0],
+           "library_ms": times["library"][0] if "library" in times else None}
+    for name in ("plain", "simt", "gemm_only"):
+        if name in times:
+            rec[f"{name}_ms"] = times[name][0]
+    return rec
+
+
+def report(rec):
+    """One log fragment of a timing record."""
+    out = f"kernel {rec['ms']:.4f} ms"
+    for name in ("simt", "plain", "library", "gemm_only"):
+        if rec.get(f"{name}_ms") is not None:
+            out += f", {name} {rec[f'{name}_ms']:.4f}"
+    if "gemm_only_ms" in rec:
+        out += " (gemm_only: one matmul on the pre-gathered rows, not the " \
+               "same function)"
+    return (out + f"; bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), "
+            f"share {rec['share']:.3f}")
+
+
+def tc_yardsticks(what, rec):
+    """Record `what` in NOT_FASTER when a tensor-core kernel's time is not
+    below its plain version's and the SIMT kernel's."""
+    if rec["ms"] >= min(rec["plain_ms"], rec["simt_ms"]):
+        NOT_FASTER.append((what, rec["ms"], rec["simt_ms"], rec["plain_ms"]))
+        log(f"   NOT FASTER: {what}")
 
 
 def kernel_phase(torch, cfg, maps):
@@ -281,13 +388,30 @@ def kernel_phase(torch, cfg, maps):
         k1_err = max(k1_err, int((got.long() - want.long()).abs().max()))
         if not torch.equal(got, want):
             raise AssertionError(f"K1 {name}: kernel != plain")
-        ms = cuda_ms(torch, lambda: search.searchsorted_segments(
-            kk, qq, with_miss=miss, layout="ms"))
-        plain = cuda_ms(torch, lambda: search.searchsorted_segments_plain(
-            kk, qq, with_miss=miss))
+        fns = {"plain": lambda: search.searchsorted_segments_plain(
+                   kk, qq, with_miss=miss),
+               "kernel": lambda: search.searchsorted_segments(
+                   kk, qq, with_miss=miss, layout="ms")}
+        flat = qq.reshape(qq.shape[0], -1)
+        if not miss:  # the positions alone: one library call computes them
+            lib = torch.searchsorted(kk, flat, out_int32=True)
+            if not torch.equal(lib.reshape(got.shape), got):
+                raise AssertionError(f"K1 {name}: torch.searchsorted != K1")
+            fns["library"] = lambda: torch.searchsorted(kk, flat,
+                                                        out_int32=True)
+        times = timed_turns(torch, fns)
+        # bytes: keys, queries (int64) and out (int32); operations: one
+        # compare per step of the binary search, on the CUDA cores
+        q_n, n_keys = flat.numel(), kk.numel()
+        steps = int(np.ceil(np.log2(kk.shape[1] + 1)))
+        r = timing_record(times, (q_n * steps, 8 * n_keys + 12 * q_n),
+                          PEAK_OPS["float32"])
+        spread = ", ".join(f"{k} {v[1]:.4f}/{v[2]:.4f}"
+                           for k, v in times.items())
         log(f"   K1 {name} {tuple(qq.shape)} in N={kk.shape[1]}: exact; "
-            f"kernel {ms:.4f} ms, plain {plain:.4f} ms")
-        rec.setdefault("searchsorted", {"ms": ms, "plain_ms": plain})
+            f"{report(r)}; readings {spread}")
+        if not miss and "searchsorted" not in rec:
+            rec["searchsorted"] = r
     rec["searchsorted"]["max_abs_err"] = k1_err
 
     # K2 at every (C, E, K) of the path, on that shape's real map
@@ -326,17 +450,17 @@ def kernel_phase(torch, cfg, maps):
                         f"diff {diff} > {tol}")
                 k2_err[dname] = max(k2_err[dname], diff)
             kw = dict(variants)[PATH_VARIANT[(c, e, k)]]
-            ms = cuda_ms(torch, lambda: gk.fused_gather_gemm(
-                feats, idx, w, **kw))
-            plain = cuda_ms(torch, lambda: gk.fused_gather_gemm_plain(
-                feats, idx, w, **kw))
+            r = k2_timing(torch, feats, idx, w, kw, dname)
             log(f"   K2 C={c} E={e} K={k} {dname} idx {tuple(idx.shape)} "
                 f"N={n}: {len(variants)} variants ok (max abs diff so far "
-                f"{k2_err[dname]:.3g}); kernel {ms:.4f} ms, plain "
-                f"{plain:.4f} ms")
+                f"{k2_err[dname]:.3g}); {r['variant']}: {report(r)}")
+            if dname == "bfloat16":
+                tc_yardsticks(f"K2 C={c} E={e} K={k} "
+                              f"{PATH_VARIANT[(c, e, k)]}", r)
             if (c, e, k, dname) == (64, 64, 27, "bfloat16"):
-                rec["gather_gemm"] = {"ms": ms, "plain_ms": plain}
-    rec["gather_gemm"]["max_abs_err"] = k2_err["float32"]
+                rec["gather_gemm"] = r
+    rec["gather_gemm"]["max_abs_err"] = k2_err["bfloat16"]
+    rec["gather_gemm"]["max_abs_err_f32"] = k2_err["float32"]
 
     # K3 on the stem pool map
     idx, n = maps["s2_pool_k2s2"]
@@ -350,13 +474,48 @@ def kernel_phase(torch, cfg, maps):
         k3_err = max(k3_err, float((got.float() - want.float()).abs().max()))
         if not torch.equal(got, want):
             raise AssertionError(f"K3 {dname}: kernel != plain")
-        ms = cuda_ms(torch, lambda: gk.fused_gather_max(feats, idx))
-        plain = cuda_ms(torch, lambda: gk.fused_gather_max_plain(feats, idx))
+        times = timed_turns(torch, {
+            "plain": lambda: gk.fused_gather_max_plain(feats, idx),
+            "kernel": lambda: gk.fused_gather_max(feats, idx)})
+        # bytes: feats, the map and out; operations: one max per gathered
+        # element, on the CUDA cores
+        b, m, k = idx.shape
+        elt = feats.element_size()
+        r = timing_record(times, (b * m * k * 64, b * n * 64 * elt
+                                  + b * m * k * 4 + b * m * 64 * elt),
+                          PEAK_OPS["float32"])
         log(f"   K3 {dname} idx {tuple(idx.shape)} N={n} C=64: exact; "
-            f"kernel {ms:.4f} ms, plain {plain:.4f} ms")
+            f"{report(r)}")
         if dname == "bfloat16":
-            rec["gather_max"] = {"ms": ms, "plain_ms": plain}
+            rec["gather_max"] = r
     rec["gather_max"]["max_abs_err"] = k3_err
+    return rec
+
+
+def k2_timing(torch, feats, idx, w, kw, dname):
+    """K2 timed in turns with its plain version and, in bf16, with the SIMT
+    kernel and one matmul on the pre-gathered rows; with its bound."""
+    from fcaf3d_tpu_torch.ops.sparse import gather_kernel as gk
+
+    b, n, c = feats.shape
+    m, k = idx.shape[1:]
+    e = w.shape[2]
+    fns = {"plain": lambda: gk.fused_gather_gemm_plain(feats, idx, w, **kw),
+           "kernel": lambda: gk.fused_gather_gemm(feats, idx, w, **kw)}
+    variant = gk.k2_variant(c, e, k, feats.dtype)
+    if dname == "bfloat16":
+        g = gk.gather_rows(feats, idx).reshape(b, m, k * c)
+        w2 = w.reshape(k * c, e)
+        fns["simt"] = lambda: gk.fused_gather_gemm(feats, idx, w, **kw,
+                                                   _variant="simt")
+        fns["gemm_only"] = lambda: torch.matmul(g, w2)
+    times = timed_turns(torch, fns)
+    work = gemm_work(idx, n, c, e, feats.element_size(),
+                     epilogue="scale" in kw, add=kw.get("add") is not None)
+    rec = timing_record(times, work, PEAK_OPS[dname])
+    rec["variant"] = variant
+    if variant != "simt":
+        rec["tile"] = list(gk.k2_tiles(variant, b, m, e, k))
     return rec
 
 
@@ -397,7 +556,8 @@ def compare_f32(torch, cfg, points, device):
 
 
 def slice_phase(torch, cfg, scans, device):
-    """bf16 inference on every scan; returns launches per kernel."""
+    """bf16 inference on every scan; returns launches per kernel, and the
+    K2 launches by variant (all bf16 ones on the tensor cores)."""
     from fcaf3d_tpu_torch import _native
     from fcaf3d_tpu_torch.apis import inference_detector, init_detector
 
@@ -426,7 +586,29 @@ def slice_phase(torch, cfg, scans, device):
             raise AssertionError(f"scan {i}: malformed detections")
     log(f"   launches over {len(scans)} scans: {launches}")
     check_path_launches(launches, "fcaf3d_inference")
-    return launches
+    return launches, check_tc_variants("bf16 inference", ("gather_gemm",))
+
+
+def check_tc_variants(what, kernels):
+    """Every bf16 K2 and K4 launch since the last reset of the counts went
+    through a tensor-core variant, and each of `kernels` had one. Logs and
+    returns the launches by "kernel/variant/dtype"."""
+    from fcaf3d_tpu_torch import _native
+
+    counts = {"/".join(key): n
+              for key, n in sorted(_native.VARIANT_LAUNCHES.items())}
+    log(f"   {what}: K2 / K4 launches by variant: {counts}")
+    off = {key: n for key, n in counts.items()
+           if key.endswith("/simt/bfloat16")}
+    if off:
+        raise AssertionError(f"{what}: bf16 launches off the tensor cores: "
+                             f"{off}")
+    for kernel in kernels:
+        if not any(key.startswith(f"{kernel}/tc") and key.endswith("bfloat16")
+                   for key in counts):
+            raise AssertionError(f"{what}: no bf16 {kernel} launch on the "
+                                 "tensor cores")
+    return counts
 
 
 def check_path_launches(launches, path):
@@ -437,31 +619,38 @@ def check_path_launches(launches, path):
 
 def backward_kernel_phase(torch, cfg, maps_by_batch):
     """K4 against its plain version at every (C, E, K) of the training path
-    (f32 and bf16, bitwise repeatable), and K2 as dFeats on a reversed self
-    map and on an inverted k3 s2 map, on each batch's maps. The record is
-    K4 at s8 C64 E64 bf16 on the largest batch."""
+    (f32 and bf16, bitwise repeatable), K2 as dFeats on a reversed self map
+    and on an inverted k3 s2 map, and K2's training forward at s16 C128
+    E128, on each batch's maps. The record is K4 at s8 C64 E64 bf16 on the
+    largest batch."""
     rec = {}
-    k4_err = 0.0
+    k4_err = {"float32": 0.0, "bfloat16": 0.0}
     for maps in maps_by_batch:
         maps = {**maps, **neck_maps(torch, maps, cfg)}
         for (c, e, k), name in K4_SHAPES:
             for dname in ("float32", "bfloat16"):
-                ms, plain, diff = k4_case(torch, maps[name], c, e, dname,
-                                          f"{name} C={c} E={e} K={k}")
-                if dname == "float32":
-                    k4_err = max(k4_err, diff)
+                r, diff = k4_case(torch, maps[name], c, e, dname,
+                                  f"{name} C={c} E={e} K={k}")
+                k4_err[dname] = max(k4_err[dname], diff)
                 if (c, e, k, name, dname) == (64, 64, 27, "s8_k3s1",
                                               "bfloat16"):
-                    rec["gather_dw"] = {"ms": ms, "plain_ms": plain}
-        dfeats_case(torch, maps["s8_k3s1"], 64, 64, self_map=True)
-        dfeats_case(torch, maps["s8_k3s2"], 64, 128, self_map=False)
-    rec["gather_dw"]["max_abs_err"] = k4_err
+                    rec["gather_dw"] = r
+        k2_train_case(torch, maps["s8_k3s1"], 64, 64,
+                      "dFeats reversed self map")
+        k2_train_case(torch, maps["s8_k3s2"], 64, 128,
+                      "dFeats inverted k3 s2 map")
+        # at batch 8 the forward takes K2's 128 x 128 tile
+        k2_train_case(torch, maps["s16_k3s1"], 128, 128, "forward")
+    rec["gather_dw"]["max_abs_err"] = k4_err["bfloat16"]
+    rec["gather_dw"]["max_abs_err_f32"] = k4_err["float32"]
     return rec
 
 
 def k4_case(torch, idx_n, c, e, dname, what):
     """K4 against its plain version on one map: within K4_RTOL of the
-    largest |dW|, bitwise equal over two runs, and both timed."""
+    largest |dW|, bitwise equal over two runs; timed in turns with its
+    plain version and, in bf16, with the SIMT kernel and one matmul on the
+    pre-gathered rows. Returns (timing record, max abs diff)."""
     from fcaf3d_tpu_torch.ops.sparse import gather_kernel as gk
 
     idx, n = idx_n
@@ -481,17 +670,32 @@ def k4_case(torch, idx_n, c, e, dname, what):
                              f"> {tol}")
     if not torch.equal(got, again):
         raise AssertionError(f"K4 {what} {dname} B={b}: two runs differ")
-    ms = cuda_ms(torch, lambda: gk.fused_gather_dw(feats, idx, dout))
-    plain = cuda_ms(torch, lambda: gk.fused_gather_dw_plain(feats, idx, dout))
+    fns = {"plain": lambda: gk.fused_gather_dw_plain(feats, idx, dout),
+           "kernel": lambda: gk.fused_gather_dw(feats, idx, dout)}
+    if dname == "bfloat16":
+        g = gk.gather_rows(feats, idx).reshape(b * m, k * c)
+        d2 = dout.reshape(b * m, e)
+        fns["simt"] = lambda: gk.fused_gather_dw(feats, idx, dout,
+                                                 _variant="simt")
+        fns["gemm_only"] = lambda: torch.matmul(g.t(), d2)
+    times = timed_turns(torch, fns)
+    r = timing_record(times, gemm_work(idx, n, c, e, feats.element_size(),
+                                       weight_grad=True), PEAK_OPS[dname])
+    r["variant"] = gk.k4_variant(c, e, k, dt)
     log(f"   K4 {what} {dname} idx {tuple(idx.shape)} N={n}: ok, bitwise "
-        f"repeatable (max abs diff {diff:.3g}, tol {tol:.3g}); kernel "
-        f"{ms:.4f} ms, plain {plain:.4f} ms")
-    return ms, plain, diff
+        f"repeatable (max abs diff {diff:.3g}, tol {tol:.3g}); "
+        f"{r['variant']}: {report(r)}")
+    if dname == "bfloat16":
+        tc_yardsticks(f"K4 {what} B={b}", r)
+    return r, diff
 
 
-def dfeats_case(torch, idx_n, c, e, self_map):
-    """K2 as dFeats: dout [B, M, E] through the inverse map with W^T, in
-    f32 and bf16; a strided map's inverse is held card vs CPU exactly."""
+def k2_train_case(torch, idx_n, c, e, how):
+    """K2 as the training path calls it, without an epilogue, in f32 and
+    bf16: the forward of a conv C -> E on its map ("forward"), or dFeats,
+    dout [B, M, E] through the inverse map with W^T ("dFeats reversed self
+    map"; "dFeats inverted k3 s2 map", the inverse held card vs CPU
+    exactly)."""
     from fcaf3d_tpu_torch.ops.sparse import conv as sconv
     from fcaf3d_tpu_torch.ops.sparse import gather_kernel as gk
 
@@ -499,32 +703,34 @@ def dfeats_case(torch, idx_n, c, e, self_map):
     b, m, k = idx.shape
     dev = idx.device
     gen = torch.Generator(device=dev).manual_seed(b * m + c + e)
-    if self_map:
-        rev, how = idx.flip(-1).contiguous(), "reversed self map"
+    if how == "forward":
+        src, rows, cin, cout = idx, n, c, e
+    elif how == "dFeats reversed self map":
+        src, rows, cin, cout = idx.flip(-1).contiguous(), m, e, c
     else:
-        rev, how = sconv.invert_kernel_map(idx, n), "inverted k3 s2 map"
-        if not torch.equal(rev.cpu(), sconv.invert_kernel_map(idx.cpu(), n)):
+        src, rows, cin, cout = sconv.invert_kernel_map(idx, n), m, e, c
+        if not torch.equal(src.cpu(), sconv.invert_kernel_map(idx.cpu(), n)):
             raise AssertionError(f"inverse map B={b} differs card vs CPU")
     for dname in ("float32", "bfloat16"):
         dt = getattr(torch, dname)
-        dout = torch.randn(b, m, e, generator=gen, device=dev).to(dt)
-        wt = (torch.randn(k, e, c, generator=gen, device=dev)
-              / np.sqrt(k * e)).to(dt)
-        got = gk.fused_gather_gemm(dout, rev, wt)
-        want = gk.fused_gather_gemm_plain(dout, rev, wt)
+        x = torch.randn(b, rows, cin, generator=gen, device=dev).to(dt)
+        w = (torch.randn(k, cin, cout, generator=gen, device=dev)
+             / np.sqrt(k * cin)).to(dt)
+        got = gk.fused_gather_gemm(x, src, w)
+        want = gk.fused_gather_gemm_plain(x, src, w)
         torch.cuda.synchronize()
         ref = want.float()
         diff = float((got.float() - ref).abs().max())
         tol = K2_RTOL[dname] * max(float(ref.abs().max()), 1.0)
         if not (diff <= tol and torch.isfinite(got).all()):
-            raise AssertionError(f"K2 dFeats {how} {dname} B={b}: max abs "
-                                 f"diff {diff} > {tol}")
-        ms = cuda_ms(torch, lambda: gk.fused_gather_gemm(dout, rev, wt))
-        plain = cuda_ms(torch, lambda: gk.fused_gather_gemm_plain(
-            dout, rev, wt))
-        log(f"   K2 dFeats {how} {dname} rev {tuple(rev.shape)} E={e} -> "
-            f"C={c}: ok (max abs diff {diff:.3g}); kernel {ms:.4f} ms, "
-            f"plain {plain:.4f} ms")
+            raise AssertionError(f"K2 {how} {dname} B={b}: max abs diff "
+                                 f"{diff} > {tol}")
+        r = k2_timing(torch, x, src, w, {}, dname)
+        log(f"   K2 {how} {dname} map {tuple(src.shape)} C={cin} -> "
+            f"E={cout}: ok (max abs diff {diff:.3g}); {r['variant']} "
+            f"{r.get('tile', '')}: {report(r)}")
+        if dname == "bfloat16":
+            tc_yardsticks(f"K2 {how} C={cin} E={cout} B={b}", r)
 
 
 def train_batch(cfg, batch, seed0):
@@ -560,7 +766,8 @@ def train_batch(cfg, batch, seed0):
 
 def train_phase(torch, cfg, batch, device):
     """bf16 training at batch 8: a warm-up step, then five timed steps.
-    Returns launches per kernel over the timed steps."""
+    Returns launches per kernel over the timed steps, and the K2 / K4
+    launches by variant (all bf16 ones on the tensor cores)."""
     from fcaf3d_tpu_torch import _native
     from fcaf3d_tpu_torch.train import create_train_state, make_train_step
 
@@ -600,15 +807,16 @@ def train_phase(torch, cfg, batch, device):
         f"peak memory {peak / 2**30:.2f} GiB; {n_conv} conv kernels with "
         f"finite non-zero gradients; launches {launches}")
     check_path_launches(launches, "fcaf3d_training")
-    return launches
+    return launches, check_tc_variants("bf16 training",
+                                       ("gather_gemm", "gather_dw"))
 
 
 def head_batch(torch, cfg, extent, b=2, boxes_per_scene=3, seed=0):
-    """B `bench.synth_scene` scans of `extent` for a miniature config, with
+    """B `data.synth.synth_scene` scans of `extent` for a miniature config, with
     GT boxes of ~0.2 m around level-0 head locations of the training
     forward (on the CPU; weights and pruning are the same on the card), so
     that the assigner finds positives and the box loss is live."""
-    from bench import synth_scene
+    from fcaf3d_tpu_torch.data.synth import synth_scene
     from fcaf3d_tpu_torch.train import create_train_state
 
     pts, cols = zip(*(synth_scene(np.random.RandomState(seed + s),
@@ -751,6 +959,30 @@ def grad_control(torch, cfg, device, seeds):
             log(f"   seed {s} {what}: norm rel err (largest-element rel "
                 f"err) {report_errs(errs)}; largest-element rel err over "
                 f"leaves {max(e[1] for e in errs):.3g}")
+
+
+def profile_inference(torch, cfg, scans):
+    """One bf16 `inference_detector` scan under `torch.profiler` (after a
+    warm-up scan): device time by kernel, busy share, launches; and the
+    K2 launches by variant of that scan."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from fcaf3d_tpu_torch import _native
+    from fcaf3d_tpu_torch.apis import inference_detector, init_detector
+
+    model = init_detector(cfg, seed=0, device="cuda")
+    inference_detector(model, scans[0])
+    torch.cuda.synchronize()
+    _native.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        inference_detector(model, scans[1])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    log_profile(prof, wall, "1 bf16 inference scan")
+    log(f"   port launches {dict(_native.LAUNCHES)}")
+    check_tc_variants("profiled scan", ("gather_gemm",))
 
 
 def profile_train(torch, cfg, batch):
@@ -899,8 +1131,9 @@ def profile_votenet(torch, cfg, device):
 
 
 def vote_scan(seed, n):
-    """One synthetic SUN RGB-D-like scan [n, 3] (xyz of `bench.synth_scene`)."""
-    from bench import synth_scene
+    """One synthetic SUN RGB-D-like scan [n, 3] (xyz of
+    `data.synth.synth_scene`)."""
+    from fcaf3d_tpu_torch.data.synth import synth_scene
 
     return synth_scene(np.random.RandomState(seed), n)[0]
 
@@ -993,12 +1226,16 @@ def pointnet_kernel_phase(torch, cfg, device):
             check("fps", f"{what} B={b}", furthest_point_sample(x, s, v),
                   furthest_point_sample_plain(x, s, v))
         x = pts[:1].contiguous()
-        ms = cuda_ms(torch, lambda: furthest_point_sample(x, s))
-        plain = cuda_ms(torch, lambda: furthest_point_sample_plain(x, s))
+        times = timed_turns(torch, {
+            "plain": lambda: furthest_point_sample_plain(x, s),
+            "kernel": lambda: furthest_point_sample(x, s)})
+        # the S x N distance updates; xyz read once, the indices written
+        r = timing_record(times, (s * n * FPS_OPS, n * 12 + s * 4),
+                          PEAK_OPS["float32"])
         log(f"   K5 {what} {n} -> {s}: exact at B=1 and B=2 (masked); "
-            f"kernel {ms:.4f} ms, plain {plain:.4f} ms")
-        rec["fps"].setdefault("ms", ms)
-        rec["fps"].setdefault("plain_ms", plain)
+            f"{report(r)}")
+        if "ms" not in rec["fps"]:
+            rec["fps"].update(r)
     for what, x, s, v in extra_fps:
         check("fps", what, furthest_point_sample(x, s, v),
               furthest_point_sample_plain(x, s, v))
@@ -1012,12 +1249,18 @@ def pointnet_kernel_phase(torch, cfg, device):
             check("ball_query", f"{what} B={b}", ball_query(c, x, r, ns, v),
                   ball_query_plain(c, x, r, ns, v))
         c, x = cent[:1].contiguous(), pts[:1].contiguous()
-        ms = cuda_ms(torch, lambda: ball_query(c, x, r, ns))
-        plain = cuda_ms(torch, lambda: ball_query_plain(c, x, r, ns))
+        times = timed_turns(torch, {
+            "plain": lambda: ball_query_plain(c, x, r, ns),
+            "kernel": lambda: ball_query(c, x, r, ns)})
+        # each centre scans its points in index order up to its ns-th hit
+        # (or all N); centres and points read once, the indices written
+        rt = timing_record(times, (ballq_scanned(torch, c, x, r, ns)
+                                   * BALLQ_OPS, (m + n) * 12 + m * ns * 4),
+                           PEAK_OPS["float32"])
         log(f"   K6 {what} M={m} N={n} r={r} ns={ns}: exact at B=1 and B=2 "
-            f"(masked); kernel {ms:.4f} ms, plain {plain:.4f} ms")
-        rec["ball_query"].setdefault("ms", ms)
-        rec["ball_query"].setdefault("plain_ms", plain)
+            f"(masked); {report(rt)}")
+        if "ms" not in rec["ball_query"]:
+            rec["ball_query"].update(rt)
     for what, c, x, r, ns, v in extra_ballq:
         got = ball_query(c, x, r, ns, v)
         check("ball_query", what, got, ball_query_plain(c, x, r, ns, v))
@@ -1027,6 +1270,17 @@ def pointnet_kernel_phase(torch, cfg, device):
         log(f"   K6 {what} (M={c.shape[1]}, N={x.shape[1]}, B=2, masked): "
             "exact")
     return rec
+
+
+def ballq_scanned(torch, centers, points, radius, nsample):
+    """Points a ball query scans for centres [1, M, 3] over points [1, N,
+    3]: for each centre, up to and including its nsample-th hit (the
+    direct d^2 < r^2), or all N."""
+    d2 = ((points[0][None] - centers[0][:, None]) ** 2).sum(-1)
+    count = torch.cumsum((d2 < radius * radius).int(), dim=1)
+    full = count[:, -1] >= nsample
+    first = torch.argmax((count >= nsample).int(), dim=1) + 1
+    return int(torch.where(full, first, points.shape[1]).sum())
 
 
 @contextlib.contextmanager
@@ -1189,11 +1443,11 @@ def votenet_phase(torch, cfg, device):
 KERNELS = (
     ("searchsorted", "fcaf3d_tpu_torch/csrc/search.cu",
      "fcaf3d_tpu/ops/sparse/search.py:149"),
-    ("gather_gemm", "fcaf3d_tpu_torch/csrc/gather_gemm.cu",
+    ("gather_gemm", "fcaf3d_tpu_torch/csrc/gather_gemm_tc.cu",
      "fcaf3d_tpu/ops/sparse/gather_kernel.py:410"),
     ("gather_max", "fcaf3d_tpu_torch/csrc/gather_max.cu",
      "fcaf3d_tpu/ops/sparse/gather_kernel.py:991"),
-    ("gather_dw", "fcaf3d_tpu_torch/csrc/gather_dw.cu",
+    ("gather_dw", "fcaf3d_tpu_torch/csrc/gather_dw_tc.cu",
      "fcaf3d_tpu/ops/sparse/gather_kernel.py:755"),
     ("fps", "fcaf3d_tpu_torch/csrc/fps.cu",
      "fcaf3d_tpu/ops/pointnet/fps_kernel.py:98"),
@@ -1205,8 +1459,8 @@ KERNELS = (
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="profile a VoteNet scan and the batch-8 bf16 train "
-                         "step instead")
+                    help="profile a bf16 inference scan, a VoteNet scan and "
+                         "the batch-8 bf16 train step instead")
     ap.add_argument("--grad-control", type=int, metavar="SEEDS",
                     help="measure the f32 ScanNet gradients' sensitivity "
                          "over SEEDS seeds instead")
@@ -1222,6 +1476,7 @@ def main():
     cfg = fcaf3d_scannet()
     batch = train_batch(cfg, TRAIN_BATCH, seed0=0)
     if args.profile:
+        profile_inference(torch, cfg, [scan(seed) for seed in range(2)])
         profile_votenet(torch, votenet_sunrgbd(), "cuda")
         return profile_train(torch, cfg, batch)
     if args.grad_control:
@@ -1237,11 +1492,11 @@ def main():
         torch, cfg, [maps, backbone_maps(clouds, cfg, "cuda")]))
     log("== 5 inference: fcaf3d_scannet, bf16, batch 1, 100000 points per "
         "scan")
-    infer_launches = slice_phase(torch, cfg, scans, "cuda")
+    infer_launches, infer_variants = slice_phase(torch, cfg, scans, "cuda")
     compare_f32(torch, cfg, scans[0], "cuda")
     log(f"== 6 training: fcaf3d_scannet, bf16, batch {TRAIN_BATCH}, "
         f"{cfg.num_points} points per scan")
-    train_launches = train_phase(torch, cfg, batch, "cuda")
+    train_launches, train_variants = train_phase(torch, cfg, batch, "cuda")
     compare_train_tiny(torch, "cuda")
     compare_train_f32(torch, cfg, "cuda")
     vcfg = votenet_sunrgbd()
@@ -1251,15 +1506,26 @@ def main():
         "points per scan")
     vote_launches = votenet_phase(torch, vcfg, "cuda")
     log(f"== all phases passed in {time.perf_counter() - t_start:.1f} s")
+    for what, ms, simt, plain in NOT_FASTER:
+        log(f"   not faster than plain and SIMT: {what}: kernel {ms:.4f} ms, "
+            f"simt {simt:.4f}, plain {plain:.4f}")
     by_path = {"fcaf3d_inference": infer_launches,
                "fcaf3d_training": train_launches,
                "votenet_inference": vote_launches}
-    kernels = [{"name": name, "route": "cuda", "source": src,
-                "replaces": tpu,
-                "launches": sum(p[name] for p in by_path.values()),
-                "launches_by_path": {k: p[name] for k, p in by_path.items()},
-                **rec[name]}
-               for name, src, tpu in KERNELS]
+    variants = {"fcaf3d_inference": infer_variants,
+                "fcaf3d_training": train_variants}
+    kernels = []
+    for name, src, tpu in KERNELS:
+        k = {"name": name, "route": "cuda", "source": src, "replaces": tpu,
+             "launches": sum(p[name] for p in by_path.values()),
+             "launches_by_path": {k: p[name] for k, p in by_path.items()},
+             **rec[name]}
+        if name in ("gather_gemm", "gather_dw"):
+            k["launches_by_variant"] = {
+                path: {key: n for key, n in v.items()
+                       if key.startswith(name + "/")}
+                for path, v in variants.items()}
+        kernels.append(k)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

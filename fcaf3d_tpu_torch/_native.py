@@ -1,9 +1,10 @@
 """Build and bind the port's hand-written CUDA kernels (`csrc/*.cu`).
 
-At first use the sources are compiled by `nvcc` for `sm_90a`, one process
-per source, all at once, and linked into ONE shared library with a plain C
-interface, under `_build/` (git-ignored), named by a
-hash of the sources and flags so a changed source never loads a stale build.
+At first use the sources (every `csrc/*.cu`) are compiled by `nvcc` for
+`sm_90a`, one process per source, all at once, and linked into ONE shared
+library with a plain C interface, under `_build/` (git-ignored), named by a
+hash of the flags and of every file under `csrc/` (`*.cu` and the shared
+`*.cuh` headers), so a changed source or header never loads a stale build.
 The library is bound with `ctypes`: no PyTorch headers are compiled, so a
 cold build takes seconds rather than the minutes of
 `torch.utils.cpp_extension.load`.
@@ -11,7 +12,9 @@ cold build takes seconds rather than the minutes of
 Each C entry point launches on the stream it is given and returns the
 `cudaError_t` of the launch; the wrappers in `ops/` raise on a
 non-zero value. `LAUNCHES` counts the launches of each kernel (the wrappers
-add one per launch), so a run can show which kernels its path went through.
+add one per launch), so a run can show which kernels its path went through;
+`VARIANT_LAUNCHES` counts the K2 and K4 launches by (kernel, variant,
+dtype), so a run can show that its bf16 convs ran on the tensor cores.
 """
 from __future__ import annotations
 
@@ -25,8 +28,6 @@ import threading
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
-SOURCES = ("search.cu", "gather_gemm.cu", "gather_max.cu", "gather_dw.cu",
-           "fps.cu", "ball_query.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -36,6 +37,9 @@ NVCC_FLAGS = (
 LAUNCHES = {"searchsorted": 0, "gather_gemm": 0, "gather_max": 0,
             "gather_dw": 0, "fps": 0, "ball_query": 0}
 
+# (kernel, variant, dtype name) -> launches since the last `reset_launches()`
+VARIANT_LAUNCHES: dict = {}
+
 _lock = threading.Lock()
 _lib = None
 
@@ -43,6 +47,38 @@ _lib = None
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    VARIANT_LAUNCHES.clear()
+
+
+def count_launch(kernel: str, variant: str, dtype) -> None:
+    """One launch of `kernel` through `variant` on `dtype` tensors."""
+    LAUNCHES[kernel] += 1
+    key = (kernel, variant, str(dtype).replace("torch.", ""))
+    VARIANT_LAUNCHES[key] = VARIANT_LAUNCHES.get(key, 0) + 1
+
+
+def sources(csrc_dir: str = CSRC_DIR):
+    """The compilation units: every `*.cu` under `csrc_dir`, sorted."""
+    return sorted(f for f in os.listdir(csrc_dir) if f.endswith(".cu"))
+
+
+def hashed_files(csrc_dir: str = CSRC_DIR):
+    """Every file the build reads: the `*.cu` and `*.cuh` under `csrc_dir`,
+    sorted."""
+    return sorted(f for f in os.listdir(csrc_dir)
+                  if f.endswith((".cu", ".cuh")))
+
+
+def library_path(csrc_dir: str = CSRC_DIR, build_dir: str = BUILD_DIR):
+    """Where the library of these exact sources, headers and flags lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in hashed_files(csrc_dir):
+        h.update(name.encode() + b"\0")
+        with open(os.path.join(csrc_dir, name), "rb") as f:
+            h.update(f.read())
+        h.update(b"\0")
+    return os.path.join(build_dir,
+                        f"libfcaf3d_kernels_{h.hexdigest()[:16]}.so")
 
 
 def find_nvcc():
@@ -69,12 +105,9 @@ def build():
         raise RuntimeError(
             "cannot build the CUDA kernels: no nvcc on PATH, $CUDA_HOME or "
             "$CUDA_PATH")
-    srcs = [os.path.join(CSRC_DIR, s) for s in SOURCES]
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in srcs:
-        with open(path, "rb") as f:
-            h.update(f.read())
-    lib_path = os.path.join(BUILD_DIR, f"libfcaf3d_kernels_{h.hexdigest()[:16]}.so")
+    names = sources()
+    srcs = [os.path.join(CSRC_DIR, s) for s in names]
+    lib_path = library_path()
     if os.path.isfile(lib_path):
         return lib_path, ""
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -86,7 +119,7 @@ def build():
                               text=True) for src, obj in zip(srcs, objs)]
     logs = [p.communicate()[0] for p in procs]
     try:
-        for src, p, out in zip(SOURCES, procs, logs):
+        for src, p, out in zip(names, procs, logs):
             if p.returncode != 0:
                 raise RuntimeError(f"nvcc failed on {src} with exit code "
                                    f"{p.returncode}:\n{out}")
@@ -110,12 +143,19 @@ def _bind(lib):
     lib.fcaf3d_gather_gemm.argtypes = [
         p, p, p, p, p, p, p, p, i64, i64, i64, i64, i64, i64, i64, i64, i, i, p]
     lib.fcaf3d_gather_gemm.restype = i
+    lib.fcaf3d_gather_gemm_tc.argtypes = [
+        p, p, p, p, p, p, p, p, p, i64, i64, i64, i64, i64, i64, i, i, i, i,
+        i, i64, i64, p]
+    lib.fcaf3d_gather_gemm_tc.restype = i
     lib.fcaf3d_gather_max.argtypes = [
         p, p, p, i64, i64, i64, i64, i64, i, ctypes.c_float, p]
     lib.fcaf3d_gather_max.restype = i
     lib.fcaf3d_gather_dw.argtypes = [
         p, p, p, p, p, i64, i64, i64, i64, i64, i64, i64, i64, i, p]
     lib.fcaf3d_gather_dw.restype = i
+    lib.fcaf3d_gather_dw_tc.argtypes = [
+        p, p, p, p, p, i64, i64, i64, i64, i64, i64, i64, i64, i, i, i, p]
+    lib.fcaf3d_gather_dw_tc.restype = i
     lib.fcaf3d_fps.argtypes = [p, p, p, p, i64, i64, i64, p]
     lib.fcaf3d_fps.restype = i
     lib.fcaf3d_ball_query.argtypes = [

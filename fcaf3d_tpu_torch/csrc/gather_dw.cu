@@ -32,6 +32,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sum_slices.cuh"
+
 namespace {
 
 constexpr int kTileR = 32;   // rows per tile (one warp ballot)
@@ -133,17 +135,6 @@ __global__ void __launch_bounds__(kThreads) gather_dw_kernel(
   }
 }
 
-// out[i] = sum_s part[s, i], slices added in order.
-__global__ void sum_slices_kernel(const float* __restrict__ part,
-                                  float* __restrict__ out, int64_t size,
-                                  int n_slices) {
-  const int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-  if (i >= size) return;
-  float total = part[i];
-  for (int s = 1; s < n_slices; ++s) total += part[(int64_t)s * size + i];
-  out[i] = total;
-}
-
 template <typename T>
 int launch(const void* feats, const int32_t* idx, const void* dout,
            float* part, float* out, int64_t batch, int64_t n_rows,
@@ -164,9 +155,7 @@ int launch(const void* feats, const int32_t* idx, const void* dout,
       rows_per_slice, (int)n_slices);
   int err = (int)cudaGetLastError();
   if (err != 0 || n_slices == 1) return err;
-  sum_slices_kernel<<<(unsigned)((size + kThreads - 1) / kThreads), kThreads,
-                      0, stream>>>(part, out, size, (int)n_slices);
-  return (int)cudaGetLastError();
+  return sum_slices(part, out, size, (int)n_slices, stream);
 }
 
 }  // namespace

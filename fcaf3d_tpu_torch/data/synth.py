@@ -1,9 +1,12 @@
-"""Synthetic scenes built from box annotations (a copy of
-`fcaf3d_tpu/data/synth.py`, host numpy, held equal to it by a test; the JAX
-package's `data` imports jax through its package init).
+"""Synthetic scenes, host numpy.
 
-Points are sampled on the boxes' surfaces plus a floor sheet, so the box
-geometry and labels are exact.
+- `sample_box_surface`, `densify`, `crowded_scene`: scenes built from box
+  annotations (a copy of `fcaf3d_tpu/data/synth.py`, held equal to it by a
+  test; the JAX package's `data` imports jax through its package init).
+  Points are sampled on the boxes' surfaces plus a floor sheet, so the box
+  geometry and labels are exact.
+- `synth_scene`: a room-like cloud without annotations (a copy of the JAX
+  benchmark's `bench.synth_scene`, held equal to it by a test).
 """
 from __future__ import annotations
 
@@ -72,3 +75,29 @@ def crowded_scene(n_boxes, n_classes, rng, extent=8.0, with_yaw=False):
     boxes = np.asarray(boxes, np.float32)
     labels = rng.integers(0, n_classes, n_boxes).astype(np.int64)
     return {"gt_boxes": boxes, "gt_labels": labels}
+
+
+def synth_scene(rng, n_points, extent=(6.0, 6.0, 2.8)):
+    """Room-like synthetic scene: points concentrated on walls/floor planes
+    plus furniture blobs, so voxel occupancy resembles real scans. `rng` is
+    a `np.random.RandomState`; returns (xyz [n, 3], rgb [n, 3]) float32."""
+    n_planes = int(n_points * 0.6)
+    n_blobs = n_points - n_planes
+    pts = np.empty((n_points, 3), np.float32)
+    # floor + 4 walls
+    k = n_planes // 5
+    e = np.asarray(extent)
+    pts[:k] = rng.uniform(0, 1, (k, 3)) * [e[0], e[1], 0.02]
+    pts[k:2 * k] = rng.uniform(0, 1, (k, 3)) * [e[0], 0.02, e[2]]
+    pts[2 * k:3 * k] = (rng.uniform(0, 1, (k, 3)) * [0.02, e[1], e[2]]
+                        + [e[0] - 0.02, 0, 0])
+    pts[3 * k:4 * k] = (rng.uniform(0, 1, (k, 3)) * [e[0], 0.02, e[2]]
+                        + [0, e[1] - 0.02, 0])
+    pts[4 * k:n_planes] = (rng.uniform(0, 1, (n_planes - 4 * k, 3))
+                           * [0.02, e[1], e[2]])
+    # furniture blobs
+    centers = rng.uniform(0.5, 1, (12, 3)) * (e - 1.0)
+    blob = rng.randint(0, 12, n_blobs)
+    pts[n_planes:] = centers[blob] + rng.normal(0, 0.25, (n_blobs, 3))
+    colors = rng.uniform(0, 255, (n_points, 3)).astype(np.float32)
+    return pts, colors

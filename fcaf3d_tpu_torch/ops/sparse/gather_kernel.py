@@ -2,13 +2,25 @@
 
 - `fused_gather_gemm`: out[b, m] = sum_k feats[b, idx[b, m, k]] @ W[k], a
   miss (idx == N) adding zero, with the optional inference epilogue
-  `act(out * scale + shift [+ add]) * vmask`. Kernel K2 (`csrc/gather_gemm.cu`).
+  `act(out * scale + shift [+ add]) * vmask`. Kernel K2: bf16 on the tensor
+  cores (`csrc/gather_gemm_tc.cu`), f32 on the CUDA cores
+  (`csrc/gather_gemm.cu`).
 - `fused_gather_max`: out[b, m] = max_k feats[b, idx[b, m, k]] per channel,
   a miss being -inf and an all-miss row finfo.min. Kernel K3
   (`csrc/gather_max.cu`).
 - `fused_gather_dw`: dW[k] = sum_{b,m} feats[b, idx[b, m, k]]^T dout[b, m]
   in f32, a miss adding zero: the weight gradient of `fused_gather_gemm`.
-  Kernel K4 (`csrc/gather_dw.cu`).
+  Kernel K4: bf16 on the tensor cores (`csrc/gather_dw_tc.cu`), f32 on the
+  CUDA cores (`csrc/gather_dw.cu`).
+
+K2 and K4 each have three variants, picked by `k2_variant` / `k4_variant`
+from (C, E, K, dtype) alone: "tc" (bf16, C % 8 == 0: cp.async row gathers
+into a shared-memory ring, ldmatrix, mma.sync m16n8k16 with f32
+accumulators), "tc_folded" (bf16, C < 16: the K offsets folded into the
+MMA's depth, or into its M for K4) and "simt" (f32, whose gates hold the
+card to the CPU, and any bf16 shape the tensor-core kernels do not take:
+the first kernels: float FMAs on the CUDA cores). Tiles and slices are
+functions of the shapes only (`k2_tiles`, `k4_tiles`, `dw_slices`).
 
 Each wrapper runs its kernel on a CUDA tensor and its plain PyTorch version
 (`*_plain`, the same function) on a CPU tensor; there is no fallback from
@@ -29,6 +41,64 @@ from ... import _native
 _ACTS = {None: 0, "relu": 1, "elu": 2}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 N_CHUNKS = 3  # offset chunks summed in order (the JAX fallback's n_chunks)
+VARIANTS = ("simt", "tc", "tc_folded")
+_TC_VARIANT_IDS = {"tc": 1, "tc_folded": 2}
+SMS = 132  # streaming multiprocessors of an H100 SXM
+K2_FOLD_MAX_DEPTH = 512  # K2 folded: K * C, padded to 16, at most this
+K4_FOLD_ROWS = 128  # K4 folded: K * C rows fit one block tile of this
+
+
+def fold_depth(k: int, c: int) -> int:
+    """K * C rounded up to the MMA depth of 16: the folded A row's width."""
+    return -(-k * c // 16) * 16
+
+
+def k2_variant(c: int, e: int, k: int, dtype) -> str:
+    """K2's variant for C input and E output channels over K offsets: bf16
+    on the tensor cores ("tc_folded" below 16 channels, "tc" at C % 8 ==
+    0), everything else (f32, or E or C off the 8-channel granule) on the
+    SIMT kernel."""
+    if dtype != torch.bfloat16 or e % 8:
+        return "simt"
+    if c < 16 and fold_depth(k, c) <= K2_FOLD_MAX_DEPTH:
+        return "tc_folded"
+    return "tc" if c % 8 == 0 else "simt"
+
+
+def k2_tiles(variant: str, b: int, m: int, e: int, k: int):
+    """K2's (tile rows, tile channels, offset chunks) on the tensor cores:
+    128 x 128 where those tiles fill the SMs and E > 64, else 64 x 64; the
+    folded variant 128 x 8 for E <= 8. Where even the 64 x 64 tiles do not
+    fill the SMs, the generic variant splits K >= 3 offsets into the
+    `N_CHUNKS` chunks of the plain version, each in blocks of its own. A
+    function of the shapes only, so a shape always sums in one order."""
+    if variant == "tc_folded":
+        return ((128, 8) if e <= 8 else (64, 64)) + (1,)
+    if e > 64 and b * -(-m // 128) * -(-e // 128) >= SMS:
+        return (128, 128, 1)
+    small = b * -(-m // 64) * -(-e // 64) < SMS and k >= N_CHUNKS
+    return (64, 64, N_CHUNKS if small else 1)
+
+
+def k4_variant(c: int, e: int, k: int, dtype) -> str:
+    """K4's variant, by the rule of `k2_variant`; the folded variant needs
+    the K * C rows of dW in one block tile."""
+    if dtype != torch.bfloat16 or e % 8:
+        return "simt"
+    if c < 16 and k * c <= K4_FOLD_ROWS:
+        return "tc_folded"
+    return "tc" if c % 8 == 0 else "simt"
+
+
+def k4_tiles(variant: str, c: int, e: int):
+    """K4's block tile (rows of dW, columns of dW): the SIMT kernel's
+    64 x 64; on the tensor cores 128 x 128 where C and E are both >= 128,
+    else 64 x 64; folded, all K * C rows in one 128-row tile by 64."""
+    if variant == "tc_folded":
+        return (K4_FOLD_ROWS, 64)
+    if variant == "tc" and c >= 128 and e >= 128:
+        return (128, 128)
+    return (64, 64)
 
 
 def _apply_act(x: torch.Tensor, act: Optional[str]) -> torch.Tensor:
@@ -116,8 +186,14 @@ def _check_no_grad(kernel, *tensors):
             "torch.no_grad()")
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """`t`, or a copy of it at a fresh allocation when its data does not
+    start on the 16 bytes that cp.async reads."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _fused_gather_gemm_cuda(feats, idx, weight, scale, shift, act, vmask, add,
-                            has_epi):
+                            has_epi, variant=None):
     _check_no_grad("K2", feats, weight, scale, shift, add)
     lib = _native.load()
     dev = feats.device
@@ -149,23 +225,40 @@ def _fused_gather_gemm_cuda(feats, idx, weight, scale, shift, act, vmask, add,
     operands = (feats, idx, weight, scale, shift, vmask, add)
     if not all(t is None or t.is_contiguous() for t in operands):
         raise ValueError("K2 takes contiguous tensors")
+    variant = variant or k2_variant(c, e, k, feats.dtype)
+    if variant not in VARIANTS:
+        raise ValueError(f"K2 variant must be one of {VARIANTS}, got "
+                         f"{variant!r}")
     out = torch.empty((b, m, e), dtype=feats.dtype, device=dev)
-    (_, k1), (_, k2), _ = chunk_bounds(k)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    err = lib.fcaf3d_gather_gemm(
-        feats.data_ptr(), idx.data_ptr(), weight.data_ptr(), ptr(scale),
-        ptr(shift), ptr(add), ptr(vmask), out.data_ptr(), b, n, m, k, c, e,
-        k1, k2, _DTYPES[feats.dtype], _ACTS[act], _native.stream_ptr(dev))
-    _native.LAUNCHES["gather_gemm"] += 1
-    _native.check(err, "gather_gemm")
+    if variant == "simt":
+        (_, k1), (_, k2), _ = chunk_bounds(k)
+        err = lib.fcaf3d_gather_gemm(
+            feats.data_ptr(), idx.data_ptr(), weight.data_ptr(), ptr(scale),
+            ptr(shift), ptr(add), ptr(vmask), out.data_ptr(), b, n, m, k, c,
+            e, k1, k2, _DTYPES[feats.dtype], _ACTS[act],
+            _native.stream_ptr(dev))
+    else:
+        tile_m, tile_n, n_split = k2_tiles(variant, b, m, e, k)
+        part = (torch.empty((n_split, b, m, e), dtype=torch.float32,
+                            device=dev) if n_split > 1 else None)
+        (_, k1), (_, k2), _ = chunk_bounds(k)
+        feats, weight = _aligned(feats), _aligned(weight)
+        err = lib.fcaf3d_gather_gemm_tc(
+            feats.data_ptr(), idx.data_ptr(), weight.data_ptr(), ptr(scale),
+            ptr(shift), ptr(add), ptr(vmask), out.data_ptr(), ptr(part), b, n,
+            m, k, c, e, _ACTS[act], _TC_VARIANT_IDS[variant], tile_m, tile_n,
+            n_split, k1, k2, _native.stream_ptr(dev))
+    _native.count_launch("gather_gemm", variant, feats.dtype)
+    _native.check(err, f"gather_gemm ({variant})")
     return out
 
 
 def fused_gather_gemm(feats, idx, weight, scale=None, shift=None, act=None,
-                      vmask=None, add=None):
+                      vmask=None, add=None, *, _variant=None):
     """out[b, m] = sum_k feats[b, idx[b, m, k]] @ weight[k]; a miss row
     (idx == N) contributes zero.
 
@@ -178,14 +271,15 @@ def fused_gather_gemm(feats, idx, weight, scale=None, shift=None, act=None,
         add: optional [B, M, E] residual added after the affine, before act.
 
     Raises ValueError when act/vmask/add come without scale (the TPU kernel
-    silently dropped them).
+    silently dropped them). `_variant` forces a kernel variant on a CUDA
+    tensor (a yardstick of the measurements; the path never passes it).
     """
     has_epi = _check_epilogue(scale, shift, act, vmask, add)
     if feats.device.type == "cpu":
         return fused_gather_gemm_plain(feats, idx, weight, scale, shift, act,
                                        vmask, add)
     return _fused_gather_gemm_cuda(feats, idx, weight, scale, shift, act,
-                                   vmask, add, has_epi)
+                                   vmask, add, has_epi, _variant)
 
 
 def fused_gather_max_plain(feats: torch.Tensor, idx: torch.Tensor):
@@ -246,22 +340,26 @@ def fused_gather_dw_plain(feats: torch.Tensor, idx: torch.Tensor,
 
 
 DW_TARGET_BLOCKS = 1024  # K4 cuts the rows into slices until about this many
+DW_TC_TARGET_BLOCKS = 2 * SMS  # ... on the tensor cores: two blocks an SM
 DW_TILE_ROWS = 32  # K4's row tile (a slice is a whole number of tiles)
 
 
-def dw_slices(b: int, m: int, k: int, c: int, e: int):
+def dw_slices(b: int, m: int, k: int, c: int, e: int, variant: str = "simt"):
     """K4's (rows per slice, slices): enough (offset, C tile, E tile, slice)
-    blocks to fill the card, at least 8 row tiles per slice. A function of
-    the shapes only, so the slice sums always add in the same order."""
+    blocks to fill the card (the folded variant has no offset or C axis),
+    at least 8 row tiles per slice. A function of the shapes only, so the
+    slice sums always add in the same order."""
     rows = b * m
     tiles = -(-rows // DW_TILE_ROWS)
-    base = k * -(-c // 64) * -(-e // 64)
-    n = max(1, min(-(-DW_TARGET_BLOCKS // base), tiles // 8, 65535 // k))
+    tm, tn = k4_tiles(variant, c, e)
+    base = (1 if variant == "tc_folded" else k * -(-c // tm)) * -(-e // tn)
+    target = DW_TARGET_BLOCKS if variant == "simt" else DW_TC_TARGET_BLOCKS
+    n = max(1, min(-(-target // base), tiles // 8, 65535 // k))
     per = max(1, -(-tiles // n)) * DW_TILE_ROWS
     return per, max(1, -(-rows // per))
 
 
-def _fused_gather_dw_cuda(feats, idx, dout):
+def _fused_gather_dw_cuda(feats, idx, dout, variant=None):
     lib = _native.load()
     dev = feats.device
     if dev.type != "cuda" or not _same_device(dev, idx, dout):
@@ -282,21 +380,34 @@ def _fused_gather_dw_cuda(feats, idx, dout):
     b, n, c = feats.shape
     m, k = idx.shape[1:]
     e = dout.shape[2]
-    per, n_slices = dw_slices(b, m, k, c, e)
+    variant = variant or k4_variant(c, e, k, feats.dtype)
+    if variant not in VARIANTS:
+        raise ValueError(f"K4 variant must be one of {VARIANTS}, got "
+                         f"{variant!r}")
+    per, n_slices = dw_slices(b, m, k, c, e, variant)
     out = torch.empty((k, c, e), dtype=torch.float32, device=dev)
     part = (torch.empty((n_slices, k, c, e), dtype=torch.float32, device=dev)
             if n_slices > 1 else None)
-    err = lib.fcaf3d_gather_dw(
-        feats.data_ptr(), idx.data_ptr(), dout.data_ptr(),
-        None if part is None else part.data_ptr(), out.data_ptr(), b, n, m,
-        k, c, e, per, n_slices, _DTYPES[feats.dtype], _native.stream_ptr(dev))
-    _native.LAUNCHES["gather_dw"] += 1
-    _native.check(err, "gather_dw")
+    part_ptr = None if part is None else part.data_ptr()
+    if variant == "simt":
+        err = lib.fcaf3d_gather_dw(
+            feats.data_ptr(), idx.data_ptr(), dout.data_ptr(), part_ptr,
+            out.data_ptr(), b, n, m, k, c, e, per, n_slices,
+            _DTYPES[feats.dtype], _native.stream_ptr(dev))
+    else:
+        tile_m, tile_n = k4_tiles(variant, c, e)
+        feats, dout = _aligned(feats), _aligned(dout)
+        err = lib.fcaf3d_gather_dw_tc(
+            feats.data_ptr(), idx.data_ptr(), dout.data_ptr(), part_ptr,
+            out.data_ptr(), b, n, m, k, c, e, per, n_slices,
+            _TC_VARIANT_IDS[variant], tile_m, tile_n, _native.stream_ptr(dev))
+    _native.count_launch("gather_dw", variant, feats.dtype)
+    _native.check(err, f"gather_dw ({variant})")
     return out
 
 
 def fused_gather_dw(feats: torch.Tensor, idx: torch.Tensor,
-                    dout: torch.Tensor) -> torch.Tensor:
+                    dout: torch.Tensor, *, _variant=None) -> torch.Tensor:
     """dW[k] = sum_{b,m} feats[b, idx[b, m, k]]^T (outer) dout[b, m]; a miss
     (idx == N) adds zero. The weight gradient of `fused_gather_gemm`.
 
@@ -304,7 +415,10 @@ def fused_gather_dw(feats: torch.Tensor, idx: torch.Tensor,
         feats: [B, N, C]; idx: [B, M, K] int32 in [0, N]; dout: [B, M, E].
     Returns:
         dW [K, C, E] float32.
+
+    `_variant` forces a kernel variant on a CUDA tensor (a yardstick of the
+    measurements; the path never passes it).
     """
     if feats.device.type == "cpu":
         return fused_gather_dw_plain(feats, idx, dout)
-    return _fused_gather_dw_cuda(feats, idx, dout)
+    return _fused_gather_dw_cuda(feats, idx, dout, _variant)
