@@ -47,13 +47,21 @@ Phases (any failure raises and the script exits non-zero):
    versions at every shape of the VoteNet-v2 path (SA1-SA4, the seeds and
    the vote aggregation on two 20 000-point scans), at batch 1 and at
    batch 2 with a valid mask: exactly equal; plus S above the valid count,
-   N beyond shared memory and centres without a hit. Times at batch 1.
+   N beyond shared memory, N beyond the K5 cluster's registers, lattice tie
+   clouds (SA1 and each side of every `fps_plan` boundary), every K5
+   cluster size of the sweep at SA1, and centres without a hit. Times at
+   batch 1; K5's beside its single-CTA kernel (the earlier one), the
+   operations bound and the serial floor (the cluster kernel at the
+   plan's cluster and CTA size with one point a thread, on a cloud with
+   one valid point a CTA: S - 1 steps of the protocol alone).
 8. VoteNet-v2 inference: `init_votenet(votenet_sunrgbd())` in f32 and
    `inference_votenet` on three 20 000-point scans, non-empty detections,
-   five K5 and five K6 launches per scan; then one scan in f32 on the card
-   against the CPU (every FPS and SA1-SA4 group exactly equal, aggregation
-   groups equal but for members within 1e-4 of r^2, detections within
-   tolerance) and one scan in "vote" mode.
+   five K5 and five K6 launches per scan, every K5 launch on the cluster
+   kernel; then one scan in f32 on the card against the CPU (every FPS and
+   SA1-SA4 group exactly equal, aggregation groups equal but for members
+   within 1e-4 of r^2, detections within tolerance), one scan in "vote"
+   mode, and the scans' wall and FPS device time with K5 against its single-CTA
+   kernel, in turns.
 
 Output: progress lines, then a JSON line of per-kernel results (launches
 of each main path: FCAF3D inference, FCAF3D training, VoteNet inference;
@@ -139,6 +147,8 @@ PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}
 HBM_BYTES_PER_S = 3.35e12
 SLEEP_CYCLES = 20_000_000  # ~10 ms of device clock ahead of timed launches
 FPS_OPS = 9  # per K5 distance update: 3 sub, 3 mul, 2 add, 1 min
+FPS_SWEEP = (2, 4, 8, 16)  # K5 cluster sizes tried at SA1
+FPS_TIE_S = 64  # samples of the K5 tie clouds at the plan's boundaries
 BALLQ_OPS = 9  # per K6 point scanned: 3 sub, 3 mul, 2 add, 1 compare
 # (what, kernel ms, SIMT ms, plain ms) of every bf16 K2/K4 path shape where
 # the tensor-core kernel is not faster than its plain version and the SIMT
@@ -331,23 +341,30 @@ def timing_record(times, work, peak):
     rec = {"ms": times["kernel"][0], "bound_ms": bound_ms, "bound_by": by,
            "share": bound_ms / times["kernel"][0],
            "library_ms": times["library"][0] if "library" in times else None}
-    for name in ("plain", "simt", "gemm_only"):
+    for name in ("plain", "simt", "gemm_only", "earlier"):
         if name in times:
             rec[f"{name}_ms"] = times[name][0]
+    if "floor" in times:
+        rec["serial_floor_ms"] = times["floor"][0]
+        rec["serial_share"] = times["floor"][0] / times["kernel"][0]
     return rec
 
 
 def report(rec):
     """One log fragment of a timing record."""
     out = f"kernel {rec['ms']:.4f} ms"
-    for name in ("simt", "plain", "library", "gemm_only"):
+    for name in ("earlier", "simt", "plain", "library", "gemm_only"):
         if rec.get(f"{name}_ms") is not None:
             out += f", {name} {rec[f'{name}_ms']:.4f}"
     if "gemm_only_ms" in rec:
         out += " (gemm_only: one matmul on the pre-gathered rows, not the " \
                "same function)"
-    return (out + f"; bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), "
+    out += (f"; bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), "
             f"share {rec['share']:.3f}")
+    if "serial_floor_ms" in rec:
+        out += (f"; serial floor {rec['serial_floor_ms']:.4f} ms, share "
+                f"{rec['serial_share']:.3f}")
+    return out
 
 
 def tc_yardsticks(what, rec):
@@ -493,8 +510,8 @@ def kernel_phase(torch, cfg, maps):
 
 
 def k2_timing(torch, feats, idx, w, kw, dname):
-    """K2 timed in turns with its plain version and, in bf16, with the SIMT
-    kernel and one matmul on the pre-gathered rows; with its bound."""
+    """K2 timed in turns with its plain version, one matmul on the
+    pre-gathered rows and, in bf16, the SIMT kernel; with its bound."""
     from fcaf3d_tpu_torch.ops.sparse import gather_kernel as gk
 
     b, n, c = feats.shape
@@ -503,12 +520,12 @@ def k2_timing(torch, feats, idx, w, kw, dname):
     fns = {"plain": lambda: gk.fused_gather_gemm_plain(feats, idx, w, **kw),
            "kernel": lambda: gk.fused_gather_gemm(feats, idx, w, **kw)}
     variant = gk.k2_variant(c, e, k, feats.dtype)
+    g = gk.gather_rows(feats, idx).reshape(b, m, k * c)
+    w2 = w.reshape(k * c, e)
+    fns["gemm_only"] = lambda: torch.matmul(g, w2)
     if dname == "bfloat16":
-        g = gk.gather_rows(feats, idx).reshape(b, m, k * c)
-        w2 = w.reshape(k * c, e)
         fns["simt"] = lambda: gk.fused_gather_gemm(feats, idx, w, **kw,
                                                    _variant="simt")
-        fns["gemm_only"] = lambda: torch.matmul(g, w2)
     times = timed_turns(torch, fns)
     work = gemm_work(idx, n, c, e, feats.element_size(),
                      epilogue="scale" in kw, add=kw.get("add") is not None)
@@ -825,7 +842,7 @@ def head_batch(torch, cfg, extent, b=2, boxes_per_scene=3, seed=0):
     batch = {"points": np.stack(pts).astype(np.float32),
              "colors": np.stack(cols).astype(np.float32),
              "valid": np.ones((b, cfg.num_points), bool)}
-    model, _, _ = create_train_state(cfg, seed=0)
+    model, _, _ = create_train_state(cfg, 0, device="cpu")
     with torch.no_grad():
         outs, _ = model(*(torch.as_tensor(batch[k])
                           for k in ("points", "colors", "valid")))
@@ -1186,25 +1203,77 @@ def mask_of(torch, b, n, device, n_valid=None):
     return torch.as_tensor(m, device=device)
 
 
+def lattice_cloud(torch, b, n, device, seed=0):
+    """[b, n, 3] f32 integer lattice points, each site drawn many times: a
+    cloud of exact ties (equal distances and duplicated points)."""
+    rng = np.random.default_rng(seed)
+    return torch.as_tensor(rng.integers(0, (9, 7, 5), (b, n, 3)).astype(
+        np.float32), device=device)
+
+
+def fps_plan_boundaries(s, n_max):
+    """Every N up to n_max after which `fps_plan`'s variant (cluster size,
+    points a thread, where the minima live) changes."""
+    from fcaf3d_tpu_torch.ops.pointnet.fps import fps_plan
+
+    out, last = [], None
+    for n in range(1, n_max + 1):
+        p = fps_plan(1, n, s)
+        key = (p.cs, p.points_per_thread, p.where)
+        if last is not None and key != last:
+            out.append(n - 1)
+        last = key
+    return out
+
+
+def empty_step(torch, plan, s, device):
+    """The serial floor's launch: the cluster kernel at `plan`'s cluster
+    and CTA size with one point a thread (P = 1, the smallest instance), on
+    a cloud of one CTA's worth of points a rank whose first is its only
+    valid one. Every step runs the whole protocol (warp argmax, candidate
+    exchange, wait, the reduction of cs x warps candidates) and one
+    distance update a thread. Not a strict bound: P = 1 is another compiled
+    instance, whose step can read above the plan's own where the protocol
+    is all of it (one CTA of 4 warps at SA4 and the seeds: PERF.md)."""
+    from fcaf3d_tpu_torch.ops.pointnet.fps import furthest_point_sample
+
+    one = plan._replace(points_per_thread=1)
+    n = one.cs * one.threads
+    x = torch.rand(1, n, 3, device=device)
+    valid = torch.zeros(1, n, dtype=torch.bool, device=device)
+    valid[0, ::one.threads] = True
+    return lambda: furthest_point_sample(x, s, valid, _plan=one)
+
+
 def pointnet_kernel_phase(torch, cfg, device):
     """K5 and K6 against their plain versions at every shape of the VoteNet
     path, at batch 1 and at batch 2 with a valid mask: exactly equal. Plus
-    K5 with S above the valid count and with N beyond shared memory, and K6
-    with centres that find no point. Times (batch 1) of each kernel and its
-    plain version."""
+    K5 with S above the valid count, with N beyond shared memory and beyond
+    the cluster kernel's registers, on lattice tie clouds (SA1 and each
+    side of every boundary of `fps_plan`) and at every cluster size of the
+    sweep at SA1; K6 with centres that find no point. Times (batch 1) of
+    each kernel and its plain version; K5 also beside its single-CTA kernel
+    (the earlier one), its operations bound and its serial floor."""
     from fcaf3d_tpu_torch.ops.pointnet.ball_query import (
         ball_query, ball_query_plain)
     from fcaf3d_tpu_torch.ops.pointnet.fps import (
-        furthest_point_sample, furthest_point_sample_plain)
+        CLUSTER_SIZE, MAX_CTA_POINTS, fps_plan, furthest_point_sample,
+        furthest_point_sample_plain)
 
     gen = torch.Generator(device=device).manual_seed(0)
     fps_cases, ballq_cases = pointnet_cases(torch, cfg, device)
     small = torch.rand(2, 64, 3, generator=gen, device=device)
     big = torch.rand(2, 60000, 3, generator=gen, device=device) * 5
+    beyond = CLUSTER_SIZE * MAX_CTA_POINTS + 1024
+    huge = torch.rand(2, beyond, 3, generator=gen, device=device) * 5
     extra_fps = [("S > valid count", small, 32,
                   mask_of(torch, 2, 64, device, n_valid=20)),
+                 ("no valid point", lattice_cloud(torch, 2, 20000, device),
+                  16, torch.zeros(2, 20000, dtype=torch.bool, device=device)),
                  ("N beyond shared memory", big, 128,
-                  mask_of(torch, 2, 60000, device))]
+                  mask_of(torch, 2, 60000, device)),
+                 ("N beyond the cluster's registers", huge, 128,
+                  mask_of(torch, 2, beyond, device))]
     far = torch.cat([small[:, :8], small[:, :4] + 10.0], dim=1)
     extra_ballq = [("centres without a hit", far, small, 0.3, 24,
                     mask_of(torch, 2, 64, device))]
@@ -1218,6 +1287,7 @@ def pointnet_kernel_phase(torch, cfg, device):
             raise AssertionError(f"{name} {what}: kernel != plain (max abs "
                                  f"index diff {err})")
 
+    shapes = {}
     for what, pts, s in fps_cases:
         n = pts.shape[1]
         for b in (1, 2):
@@ -1226,20 +1296,32 @@ def pointnet_kernel_phase(torch, cfg, device):
             check("fps", f"{what} B={b}", furthest_point_sample(x, s, v),
                   furthest_point_sample_plain(x, s, v))
         x = pts[:1].contiguous()
+        plan = fps_plan(1, n, s)
         times = timed_turns(torch, {
             "plain": lambda: furthest_point_sample_plain(x, s),
-            "kernel": lambda: furthest_point_sample(x, s)})
+            "kernel": lambda: furthest_point_sample(x, s),
+            "earlier": lambda: furthest_point_sample(x, s, _variant="single"),
+            "floor": empty_step(torch, plan, s, device)})
         # the S x N distance updates; xyz read once, the indices written
         r = timing_record(times, (s * n * FPS_OPS, n * 12 + s * 4),
                           PEAK_OPS["float32"])
-        log(f"   K5 {what} {n} -> {s}: exact at B=1 and B=2 (masked); "
-            f"{report(r)}")
+        r["plan"] = list(plan)
+        log(f"   K5 {what} {n} -> {s}: exact at B=1 and B=2 (masked); plan "
+            f"{tuple(plan)}; {report(r)}")
+        shapes[what] = {k: r[k] for k in (
+            "ms", "earlier_ms", "plain_ms", "bound_ms", "serial_floor_ms",
+            "plan")}
         if "ms" not in rec["fps"]:
             rec["fps"].update(r)
+    rec["fps"]["shapes"] = shapes
     for what, x, s, v in extra_fps:
         check("fps", what, furthest_point_sample(x, s, v),
               furthest_point_sample_plain(x, s, v))
-        log(f"   K5 {what} ({x.shape[1]} -> {s}, B=2, masked): exact")
+        log(f"   K5 {what} ({x.shape[1]} -> {s}, B=2, masked, plan "
+            f"{tuple(fps_plan(2, x.shape[1], s))}): exact")
+
+    rec["fps"]["sweep"] = fps_sweeps(torch, fps_cases, check, device)
+    fps_ties(torch, fps_cases[0], check, device)
 
     for what, cent, pts, r, ns in ballq_cases:
         m, n = cent.shape[1], pts.shape[1]
@@ -1270,6 +1352,63 @@ def pointnet_kernel_phase(torch, cfg, device):
         log(f"   K6 {what} (M={c.shape[1]}, N={x.shape[1]}, B=2, masked): "
             "exact")
     return rec
+
+
+def fps_sweeps(torch, fps_cases, check, device):
+    """K5 at SA1 at every cluster size of FPS_SWEEP, exact at B=1 and B=2
+    (masked) through `check`, timed in turns beside its serial floor.
+    Returns the times by cluster size."""
+    from fcaf3d_tpu_torch.ops.pointnet.fps import (
+        fps_plan, furthest_point_sample, furthest_point_sample_plain)
+
+    what, pts, s = fps_cases[0]
+    n = pts.shape[1]
+    fns, sweep = {}, {}
+    for cs in FPS_SWEEP:
+        for b in (1, 2):
+            x = pts[:b].contiguous()
+            v = None if b == 1 else mask_of(torch, b, n, device)
+            check("fps", f"{what} cluster of {cs} B={b}",
+                  furthest_point_sample(x, s, v, _plan=fps_plan(
+                      b, n, s, cluster=cs)),
+                  furthest_point_sample_plain(x, s, v))
+        plan = fps_plan(1, n, s, cluster=cs)
+        fns[cs] = (lambda x=pts[:1].contiguous(), p=plan:
+                   furthest_point_sample(x, s, _plan=p))
+        fns[(cs, "floor")] = empty_step(torch, plan, s, device)
+    times = timed_turns(torch, fns)
+    for cs in FPS_SWEEP:
+        ms, floor = times[cs][0], times[(cs, "floor")][0]
+        plan = fps_plan(1, n, s, cluster=cs)
+        sweep[str(cs)] = {"ms": ms, "serial_floor_ms": floor,
+                          "plan": list(plan)}
+        log(f"   K5 sweep {what} {n} -> {s}, {tuple(plan)}: exact at B=1 "
+            f"and B=2 (masked); kernel {ms:.4f} ms, serial floor "
+            f"{floor:.4f} ms (share {floor / ms:.3f})")
+    return sweep
+
+
+def fps_ties(torch, sa1_case, check, device):
+    """K5 exactly equal to plain through `check` on lattice tie clouds (B=2,
+    the second masked): at SA1, and at FPS_TIE_S samples on each side of
+    every boundary of `fps_plan` up to the cluster's register capacity."""
+    from fcaf3d_tpu_torch.ops.pointnet.fps import (
+        CLUSTER_SIZE, MAX_CTA_POINTS, fps_plan, furthest_point_sample,
+        furthest_point_sample_plain)
+
+    _, pts, s = sa1_case
+    n = pts.shape[1]
+    ties = [(n, s)] + [(m, FPS_TIE_S) for edge in fps_plan_boundaries(
+        FPS_TIE_S, CLUSTER_SIZE * MAX_CTA_POINTS + 1) for m in (edge,
+                                                                edge + 1)]
+    for m, s in ties:
+        x = lattice_cloud(torch, 2, m, device, seed=m)
+        v = mask_of(torch, 2, m, device)
+        check("fps", f"tie cloud {m} -> {s}", furthest_point_sample(x, s, v),
+              furthest_point_sample_plain(x, s, v))
+    log(f"   K5 lattice tie clouds (B=2, the second masked) exact at "
+        + ", ".join(f"{m} -> {s} {tuple(fps_plan(2, m, s))[:3]}"
+                    for m, s in ties))
 
 
 def ballq_scanned(torch, centers, points, radius, nsample):
@@ -1390,14 +1529,59 @@ def compare_votenet_f32(torch, model, cfg, scan_xyz, device):
         raise AssertionError("VoteNet f32: card and CPU disagree")
 
 
+def votenet_turns(torch, model, scans):
+    """Per-scan wall ms of `inference_votenet` and device ms of its five
+    FPS calls (CUDA events around each), with K5 as planned ("cluster") and
+    with the single-CTA kernel wrapped in ("earlier"), in turns: cluster,
+    earlier, earlier, cluster. Returns variant -> (wall ms, FPS ms)
+    lists."""
+    from fcaf3d_tpu_torch.apis import inference_votenet
+
+    spans = []
+
+    def wrap_with(variant):
+        def wrap(kind, fn):
+            if kind == "ball_query":
+                return fn
+
+            def call(*args):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = fn(*args, _variant=variant)
+                end.record()
+                spans.append((start, end))
+                return out
+            return call
+        return wrap
+
+    res = {"cluster": ([], []), "earlier": ([], [])}
+    for variant in ("cluster", "earlier", "earlier", "cluster"):
+        with wrapped_selections(wrap_with(
+                "single" if variant == "earlier" else None)):
+            for pts in scans:
+                spans.clear()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                inference_votenet(model, pts)
+                res[variant][0].append((time.perf_counter() - t0) * 1e3)
+                torch.cuda.synchronize()
+                res[variant][1].append(sum(a.elapsed_time(b)
+                                           for a, b in spans))
+    return res
+
+
 def votenet_phase(torch, cfg, device):
     """`init_votenet(cfg)` in f32 and `inference_votenet` on VOTE_SCANS
     scans: per-scan wall time, non-empty finite detections, five K5 and five
-    K6 launches per scan. Then the f32 card-vs-CPU comparison and one scan
-    in "vote" mode (launches and finiteness). Returns launches per kernel
-    over the timed scans."""
+    K6 launches per scan, every K5 launch on the cluster kernel (SA1 on a
+    cluster of more than one CTA). Then the f32 card-vs-CPU comparison, one
+    scan in "vote" mode (launches and finiteness), and the scans' wall and
+    FPS device time with K5 against the single-CTA kernel, in turns. Returns
+    launches per kernel and K5 launches by variant over the timed scans."""
     from fcaf3d_tpu_torch import _native
     from fcaf3d_tpu_torch.apis import inference_votenet, init_votenet
+    from fcaf3d_tpu_torch.ops.pointnet.fps import fps_plan
 
     model = init_votenet(cfg, seed=0, device=device)
     scans = [vote_scan(s, cfg.num_points) for s in range(VOTE_SCANS)]
@@ -1422,13 +1606,21 @@ def votenet_phase(torch, cfg, device):
         times.append(time.perf_counter() - t0)
         counts.append(checked(dets, f"scan {len(counts)}"))
     launches = dict(_native.LAUNCHES)
+    variants = {"/".join(key): n
+                for key, n in sorted(_native.VARIANT_LAUNCHES.items())}
     for i, (dt, n) in enumerate(zip(times, counts)):
         log(f"   scan {i}: {dt * 1e3:.1f} ms wall, {n} detections")
-    log(f"   launches over {len(scans)} scans: {launches}")
+    log(f"   launches over {len(scans)} scans: {launches}; K5 by variant "
+        f"{variants}")
     want = {k: 5 * len(scans) if k in PATH_KERNELS["votenet_inference"]
             else 0 for k in launches}
     if launches != want:
         raise AssertionError(f"VoteNet launches {launches}, expected {want}")
+    sa1 = fps_plan(1, cfg.num_points, cfg.backbone_num_points[0])
+    if variants != {"fps/cluster/float32": want["fps"]} or sa1.cs < 2:
+        raise AssertionError(f"VoteNet: K5 launches {variants}, SA1 plan "
+                             f"{sa1}: expected every launch on the cluster "
+                             "kernel, SA1 on a cluster of more than one CTA")
     compare_votenet_f32(torch, model, cfg, scans[0], device)
     _native.reset_launches()
     n = checked(inference_votenet(model, scans[1], sample_mod="vote"),
@@ -1437,7 +1629,12 @@ def votenet_phase(torch, cfg, device):
     if vote_launches != {k: v // len(scans) for k, v in want.items()}:
         raise AssertionError(f"VoteNet vote mode launches {vote_launches}")
     log(f"   \"vote\" mode, scan 1: {n} detections, launches {vote_launches}")
-    return launches
+    turns = votenet_turns(torch, model, scans)
+    for variant, (wall, fps) in turns.items():
+        log(f"   K5 {variant}: scan wall ms "
+            + " ".join(f"{t:.1f}" for t in wall) + "; FPS stage device ms "
+            + " ".join(f"{t:.3f}" for t in fps))
+    return launches, variants
 
 
 KERNELS = (
@@ -1504,7 +1701,7 @@ def main():
     rec.update(pointnet_kernel_phase(torch, vcfg, "cuda"))
     log(f"== 8 inference: votenet_sunrgbd, f32, batch 1, {vcfg.num_points} "
         "points per scan")
-    vote_launches = votenet_phase(torch, vcfg, "cuda")
+    vote_launches, vote_variants = votenet_phase(torch, vcfg, "cuda")
     log(f"== all phases passed in {time.perf_counter() - t_start:.1f} s")
     for what, ms, simt, plain in NOT_FASTER:
         log(f"   not faster than plain and SIMT: {what}: kernel {ms:.4f} ms, "
@@ -1513,14 +1710,15 @@ def main():
                "fcaf3d_training": train_launches,
                "votenet_inference": vote_launches}
     variants = {"fcaf3d_inference": infer_variants,
-                "fcaf3d_training": train_variants}
+                "fcaf3d_training": train_variants,
+                "votenet_inference": vote_variants}
     kernels = []
     for name, src, tpu in KERNELS:
         k = {"name": name, "route": "cuda", "source": src, "replaces": tpu,
              "launches": sum(p[name] for p in by_path.values()),
              "launches_by_path": {k: p[name] for k, p in by_path.items()},
              **rec[name]}
-        if name in ("gather_gemm", "gather_dw"):
+        if name in ("gather_gemm", "gather_dw", "fps"):
             k["launches_by_variant"] = {
                 path: {key: n for key, n in v.items()
                        if key.startswith(name + "/")}

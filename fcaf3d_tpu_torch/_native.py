@@ -13,8 +13,9 @@ Each C entry point launches on the stream it is given and returns the
 `cudaError_t` of the launch; the wrappers in `ops/` raise on a
 non-zero value. `LAUNCHES` counts the launches of each kernel (the wrappers
 add one per launch), so a run can show which kernels its path went through;
-`VARIANT_LAUNCHES` counts the K2 and K4 launches by (kernel, variant,
-dtype), so a run can show that its bf16 convs ran on the tensor cores.
+`VARIANT_LAUNCHES` counts the K2, K4 and K5 launches by (kernel, variant,
+dtype), so a run can show that its bf16 convs ran on the tensor cores and
+its farthest-point sampling on the cluster kernel.
 """
 from __future__ import annotations
 
@@ -158,6 +159,8 @@ def _bind(lib):
     lib.fcaf3d_gather_dw_tc.restype = i
     lib.fcaf3d_fps.argtypes = [p, p, p, p, i64, i64, i64, p]
     lib.fcaf3d_fps.restype = i
+    lib.fcaf3d_fps_cluster.argtypes = [p, p, p, i64, i64, i64, i, i, i, p]
+    lib.fcaf3d_fps_cluster.restype = i
     lib.fcaf3d_ball_query.argtypes = [
         p, p, p, p, i64, i64, i64, i64, ctypes.c_float, p]
     lib.fcaf3d_ball_query.restype = i

@@ -20,7 +20,7 @@ from .test import detections_to_numpy
 
 def init_detector(cfg: FCAF3DConfig, seed: int = 0,
                   params_file: Optional[str] = None,
-                  device="cpu") -> FCAF3D:
+                  device="cuda") -> FCAF3D:
     """Build a detector in eval mode on `device`, with the weights of a
     converted-checkpoint pickle (`{"params", "batch_stats"}` numpy tree in
     the flax layout, `tools/convert_checkpoint.py`) or, without one, the
@@ -64,7 +64,7 @@ def inference_detector(model: FCAF3D, points: np.ndarray, seed: int = 0):
 
 def init_votenet(cfg: VoteNetConfig, seed: int = 0,
                  params_file: Optional[str] = None,
-                 device="cpu") -> VoteNet:
+                 device="cuda") -> VoteNet:
     """Build a VoteNet-v2 in eval mode on `device`, with the weights of a
     converted-checkpoint pickle (flax layout) or, without one, the seeded
     numpy draw of `params.init_votenet_variables`."""

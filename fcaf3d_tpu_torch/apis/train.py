@@ -17,7 +17,7 @@ from ..train.trainer import create_train_state, make_train_step
 def train_model(cfg: FCAF3DConfig, loader, work_dir: str, seed: int = 0,
                 log_interval: int = 50, eval_hook: Optional[Callable] = None,
                 resume: bool = False, load_from: Optional[str] = None,
-                device="cpu"):
+                device="cuda"):
     """Train FCAF3D for `cfg.max_epochs` epochs on `device`; returns
     (model, optimizer).
 

@@ -22,7 +22,7 @@ BATCH_KEYS = ("points", "colors", "valid", "gt_boxes", "gt_labels",
               "gt_valid")
 
 
-def create_train_state(cfg: FCAF3DConfig, seed: int = 0, device="cpu",
+def create_train_state(cfg: FCAF3DConfig, seed: int = 0, device="cuda",
                        steps_per_epoch: int = 1
                        ) -> Tuple[FCAF3D, ClipAdamW, int]:
     """(model in train mode with the seeded `params.init_variables` draw,

@@ -28,7 +28,8 @@ from fcaf3d_tpu_torch.ops.sparse import conv as tc
 from fcaf3d_tpu_torch.ops.sparse import tensor as tt
 from fcaf3d_tpu_torch.params import flatten, init_variables, load_variables
 from tests.test_torch_model import EXTENT, _bn_vars, _stage_plans
-from tests.test_torch_ops import eq, j_map, rand_map, t_map
+from tests.test_torch_ops import (  # noqa: F401
+    eq, j_map, jax_without_persistent_cache, rand_map, t_map)
 
 import bench
 
@@ -280,7 +281,7 @@ def test_backbone_train_matches_jax():
     (f32 summation order over ~40 layers, forward and backward)."""
     cfg = tconfigs.fcaf3d_tiny()
     variables = init_variables(cfg, seed=0)
-    model = init_detector(cfg, seed=0)
+    model = init_detector(cfg, seed=0, device="cpu")
     pts, cols = [], []
     for seed in range(2):
         xyz, rgb = bench.synth_scene(np.random.RandomState(seed),

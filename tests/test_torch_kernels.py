@@ -30,7 +30,8 @@ from fcaf3d_tpu_torch.ops.pointnet import ops as pointnet_ops
 from fcaf3d_tpu_torch.ops.sparse import conv as tc
 from fcaf3d_tpu_torch.ops.sparse import gather_kernel as tg
 from fcaf3d_tpu_torch.ops.sparse import search as ts
-from tests.test_torch_ops import rand_map, t_map, tkeys
+from tests.test_torch_ops import (  # noqa: F401
+    jax_without_persistent_cache, rand_map, t_map, tkeys)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SENT = 0xFFFFFFFF
@@ -71,12 +72,54 @@ def test_k1_plain_matches_pallas(with_miss, layout):
 K2_CASES = [(3, 64, 27), (1, 8, 27), (16, 24, 1)]  # stem, prune scores, k1
 
 
+def k2_float64(feats, idx, w, scale=None, shift=None, act=None, vmask=None,
+               add=None):
+    """K2 in float64 numpy: act(sum over (k, c) of the gathered rows times
+    W, * scale + shift [+ add]) * vmask; a miss (idx == N) gathers zeros."""
+    b, n, c = feats.shape
+    fpad = np.concatenate([feats, np.zeros((b, 1, c), feats.dtype)], 1)
+    g = np.take_along_axis(fpad.astype(np.float64),
+                           idx.reshape(b, -1, 1).astype(np.int64), 1)
+    y = np.einsum("bmkc,kce->bme", g.reshape(idx.shape + (c,)),
+                  w.astype(np.float64))
+    if scale is None:
+        return y
+    y = y * scale + shift
+    if add is not None:
+        y = y + add
+    if act == "relu":
+        y = np.maximum(y, 0.0)
+    elif act == "elu":
+        y = np.where(y > 0, y, np.exp(np.minimum(y, 0.0)) - 1.0)
+    return y * vmask[..., None]
+
+
+def assert_k2_close(got, want, ref, capfd):
+    """`got` (port) within rtol / atol 1e-5 of `want` (Pallas, interpret).
+    On a mismatch the message says which side moved: each side's largest
+    distance from the float64 reference `ref`, and whether XLA printed, in
+    this test, that it loaded an executable compiled for another machine
+    type."""
+    try:
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    except AssertionError as err:
+        logged = capfd.readouterr().err
+        foreign = ("Machine type" in logged
+                   and "doesn't match" in logged)
+        raise AssertionError(
+            f"{err}\nlargest distance from the float64 reference: port "
+            f"{np.abs(got - ref).max():.3e}, JAX {np.abs(want - ref).max():.3e}"
+            f"; XLA loaded an executable for another machine type in this "
+            f"test: {foreign}\n{logged[-2000:]}") from None
+
+
 @pytest.mark.parametrize("c,e,k", K2_CASES)
 @pytest.mark.parametrize("act", [None, "relu", "elu"])
 @pytest.mark.parametrize("with_add", [False, True])
-def test_k2_plain_matches_pallas(c, e, k, act, with_add):
+def test_k2_plain_matches_pallas(c, e, k, act, with_add, capfd):
     """f32 within rtol 1e-5 / atol 1e-5 of the Pallas kernel (summation
-    order), with the fused epilogue; valid rows with no hit get act(shift)."""
+    order), with the fused epilogue; valid rows with no hit get act(shift).
+    A mismatch reports each side's distance from a float64 reference."""
     idx, n = real_map(c + e, kernel_size=3 if k == 27 else 1)
     rng = np.random.default_rng(k + c)
     b, m, _ = idx.shape
@@ -95,15 +138,16 @@ def test_k2_plain_matches_pallas(c, e, k, act, with_add):
         jnp.asarray(feats), jnp.asarray(idx), jnp.asarray(w), interpret=True,
         scale=jnp.asarray(scale), shift=jnp.asarray(shift), act=act,
         vmask=jnp.asarray(vmask), add=None if add is None else jnp.asarray(add))
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
-                               atol=1e-5)
+    assert_k2_close(got.numpy(), np.asarray(want),
+                    k2_float64(feats, idx, w, scale, shift, act, vmask, add),
+                    capfd)
     if not with_add and act is None:  # the bare sum, without an epilogue
         got = tg.fused_gather_gemm(torch.as_tensor(feats), torch.as_tensor(idx),
                                    torch.as_tensor(w))
         want = j_gather_gemm(jnp.asarray(feats), jnp.asarray(idx),
                              jnp.asarray(w), interpret=True)
-        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
-                                   atol=1e-5)
+        assert_k2_close(got.numpy(), np.asarray(want),
+                        k2_float64(feats, idx, w), capfd)
 
 
 def test_k3_plain_matches_pallas():

@@ -36,6 +36,7 @@ from fcaf3d_tpu_torch.data import synth as tsynth
 from fcaf3d_tpu_torch.models import losses as tl
 from fcaf3d_tpu_torch.models.assigner import fcaf3d_assign
 from fcaf3d_tpu_torch.train import make_optimizer, step_lr_schedule
+from tests.test_torch_ops import jax_without_persistent_cache  # noqa: F401
 
 
 def close(got, want, rtol=1e-6, atol=1e-6, what=""):
@@ -257,7 +258,8 @@ def test_train_model_writes_the_jax_records(tmp_path):
                       num_points=cfg.num_points, max_gt=cfg.max_gt_boxes,
                       shuffle=False, num_workers=1)
 
-    train_model(cfg, loader(), str(tmp_path / "port"), log_interval=1)
+    train_model(cfg, loader(), str(tmp_path / "port"), log_interval=1,
+                device="cpu")
     j_train_model(jcfg, loader(), str(tmp_path / "jax"), log_interval=1,
                   use_mesh=False)
     records = {}
@@ -269,4 +271,5 @@ def test_train_model_writes_the_jax_records(tmp_path):
     assert len(records["port"]) == 4
     assert all(np.isfinite(r["loss"]) for r in records["port"] if "loss" in r)
     with pytest.raises(NotImplementedError):
-        train_model(cfg, loader(), str(tmp_path / "x"), resume=True)
+        train_model(cfg, loader(), str(tmp_path / "x"), resume=True,
+                    device="cpu")

@@ -10,6 +10,7 @@ overflow counts, labels) must be exactly equal; float outputs within f32
 atol 1e-4 (summation order over ~40 layers).
 """
 import dataclasses
+import inspect
 
 import jax
 import jax.numpy as jnp
@@ -25,11 +26,14 @@ from fcaf3d_tpu.models.detector import FCAF3D as JFCAF3D
 from fcaf3d_tpu.models.me_resnet import MEResNet3D as JMEResNet3D
 from fcaf3d_tpu.ops.sparse import tensor as jt
 from fcaf3d_tpu_torch import configs as tconfigs
-from fcaf3d_tpu_torch.apis import inference_detector, init_detector
+from fcaf3d_tpu_torch.apis import (inference_detector, init_detector,
+                                   init_votenet, train_model)
 from fcaf3d_tpu_torch.models import blocks as tb
 from fcaf3d_tpu_torch.ops.sparse import tensor as tt
 from fcaf3d_tpu_torch.params import init_variables, load_variables
-from tests.test_torch_ops import eq, j_map, rand_map, t_map
+from fcaf3d_tpu_torch.train import create_train_state
+from tests.test_torch_ops import (  # noqa: F401
+    eq, j_map, jax_without_persistent_cache, rand_map, t_map)
 
 ATOL = 1e-4
 # scene extents: ~1/10 of a room, so the miniature budgets see real
@@ -64,7 +68,7 @@ class Pair:
         self.cfg = getattr(tconfigs, name)()
         self.jcfg = getattr(jconfigs, name)()
         self.variables = init_variables(self.cfg, seed=0)
-        self.model = init_detector(self.cfg, seed=0)
+        self.model = init_detector(self.cfg, seed=0, device="cpu")
         self.jvars = jax.tree_util.tree_map(jnp.asarray, self.variables)
         xyz, rgb = bench.synth_scene(np.random.RandomState(0),
                                      self.cfg.num_points, extent=EXTENT[name])
@@ -148,10 +152,10 @@ def test_load_variables_rejects_a_mismatched_tree(pair):
     bad["params"]["backbone"]["conv1"]["kernel"] = np.zeros((1, 1, 1),
                                                             np.float32)
     with pytest.raises(ValueError, match="shape"):
-        load_variables(init_detector(pair.cfg), bad)
+        load_variables(init_detector(pair.cfg, device="cpu"), bad)
     del bad["params"]["backbone"]["conv1"]
     with pytest.raises(ValueError, match="missing"):
-        load_variables(init_detector(pair.cfg), bad)
+        load_variables(init_detector(pair.cfg, device="cpu"), bad)
 
 
 def _bn_vars(rng, c):
@@ -243,7 +247,7 @@ def test_bf16_forward_runs_on_cpu():
     """The ScanNet dtype (bf16) path runs end to end on the plain ops at
     tiny budgets: finite outputs of the expected shapes."""
     cfg = dataclasses.replace(tconfigs.fcaf3d_tiny(), compute_dtype="bfloat16")
-    model = init_detector(cfg, seed=0)
+    model = init_detector(cfg, seed=0, device="cpu")
     xyz, rgb = bench.synth_scene(np.random.RandomState(1), cfg.num_points,
                                  extent=EXTENT["fcaf3d_tiny"])
     dets, overflow = inference_detector(model, np.concatenate([xyz, rgb], 1))
@@ -254,3 +258,11 @@ def test_bf16_forward_runs_on_cpu():
                              "backbone_s32", "backbone_s64",
                              "neck_lateral_missed_0", "neck_lateral_missed_1",
                              "neck_lateral_missed_2"}
+
+
+@pytest.mark.parametrize("entry", [init_detector, init_votenet, train_model,
+                                   create_train_state])
+def test_entry_points_default_to_the_card(entry):
+    """The port's entry points run on the card unless the caller asks for
+    the CPU (as every test here does)."""
+    assert inspect.signature(entry).parameters["device"].default == "cuda"

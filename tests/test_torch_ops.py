@@ -25,6 +25,24 @@ from fcaf3d_tpu_torch.ops.sparse import tensor as tt
 SENT = 0xFFFFFFFF
 
 
+@pytest.fixture(scope="module", autouse=True)
+def jax_without_persistent_cache():
+    """Runs a module's JAX side without JAX's persistent compilation cache
+    (which `tests/conftest.py` turns on for the whole suite), and without
+    executables compiled before it in this process, so that the reference
+    side of every comparison is compiled here, for this machine. Restores
+    the setting afterwards."""
+    from jax.experimental.compilation_cache import compilation_cache
+
+    was = jax.config.jax_enable_compilation_cache
+    jax.config.update("jax_enable_compilation_cache", False)
+    compilation_cache.reset_cache()
+    jax.clear_caches()
+    yield
+    jax.config.update("jax_enable_compilation_cache", was)
+    compilation_cache.reset_cache()
+
+
 def tkeys(keys):
     """uint32 numpy keys -> the port's int64 key tensor."""
     return torch.as_tensor(np.asarray(keys).astype(np.int64))

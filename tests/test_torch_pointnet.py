@@ -7,6 +7,9 @@ here, as every wrapper does on a CPU tensor; the JAX side runs its XLA
 formulations and its Pallas kernels in interpret mode. Indices and masks
 must be exactly equal; floats within f32 atol 1e-5 unless a test says why.
 """
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,10 +21,14 @@ from fcaf3d_tpu.core.nms import aligned_3d_nms as j_aligned_nms
 from fcaf3d_tpu.ops.pointnet import ops as jops
 from fcaf3d_tpu.ops.pointnet.ballq_kernel import ball_query_grid
 from fcaf3d_tpu.ops.pointnet.fps_kernel import fps_tpu
+from fcaf3d_tpu_torch import configs as tconfigs
 from fcaf3d_tpu_torch.core import geometry as tgeo
 from fcaf3d_tpu_torch.core.nms import aligned_3d_nms
+from fcaf3d_tpu_torch.models.votenet import VoteNet
+from fcaf3d_tpu_torch.ops.pointnet import fps as tfps
 from fcaf3d_tpu_torch.ops.pointnet import ops as tops
 from fcaf3d_tpu_torch.ops.pointnet.ball_query import squared_radius
+from tests.test_torch_ops import jax_without_persistent_cache  # noqa: F401
 
 
 def fps_cloud(rng, b, n, dup=True):
@@ -238,3 +245,161 @@ def test_aligned_3d_nms_matches_jax(with_valid):
                          None if valid is None else torch.as_tensor(
                              np.stack([valid, valid])))
     np.testing.assert_array_equal(two.numpy(), np.stack([want, want]))
+
+
+def lattice_cloud(n, seed=0):
+    """[1, N, 3] f32 integer lattice points, each site drawn many times: a
+    cloud of exact ties (equal distances and duplicated points)."""
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, (9, 7, 5), (1, n, 3)).astype(np.float32)
+
+
+def partitioned_fps(pts, s, valid, plan):
+    """K5's cluster kernel (`csrc/fps.cu`) replayed in numpy on one cloud
+    [N, 3]: point (r * T + t) * P + j lives in thread t of CTA r (rank) as
+    its j-th point; the argmax compares each minimum's bits as an int32, so
+    that invalid points (-1.0) and padding (-0.5) sort below every distance.
+    Each step every thread keeps its first best, every warp its lowest lane
+    at the warp's maximum, and the (rank, warp) candidates, carrying their
+    coordinates, are folded in cluster-rank order by the kernel's rule
+    (larger value, then lower index)."""
+    cs, t, p = plan.cs, plan.threads, plan.points_per_thread
+    n = len(pts)
+    cap = cs * t * p
+    xyz = np.zeros((cap, 3), np.float32)
+    xyz[:n] = pts
+    dcur = np.full(cap, -0.5, np.float32)
+    dcur[:n] = np.where(valid, np.float32(1e10), np.float32(-1))
+    x, y, z = (xyz[:, c].reshape(cs, t, p) for c in range(3))
+    dcur = dcur.reshape(cs, t, p)
+    index = np.arange(cap).reshape(cs, t, p)
+    out, centre = [], None
+    for k in range(s):
+        if k:
+            dx, dy, dz = x - centre[0], y - centre[1], z - centre[2]
+            dcur = np.minimum(dcur, (dx * dx + dy * dy) + dz * dz)
+        bits = dcur.view(np.int32)
+        j = np.argmax(bits, axis=2)  # [cs, t]: the first best of a thread
+        key = np.take_along_axis(bits, j[..., None], 2)[..., 0]
+        idx = np.take_along_axis(index, j[..., None], 2)[..., 0]
+        key, idx = key.reshape(cs, t // 32, 32), idx.reshape(cs, t // 32, 32)
+        lane = np.argmax(key, axis=2)  # the lowest lane at the maximum
+        wkey = np.take_along_axis(key, lane[..., None], 2)[..., 0]
+        widx = np.take_along_axis(idx, lane[..., None], 2)[..., 0]
+        best_k, best_i = np.iinfo(np.int32).min, cap
+        for r in range(cs):
+            for w in range(t // 32):
+                kk, i = wkey[r, w], widx[r, w]
+                if kk > best_k or (kk == best_k and i < best_i):
+                    best_k, best_i = kk, i
+        out.append(best_i)
+        centre = xyz[best_i]
+    return np.asarray(out, np.int32)
+
+
+SA1_N, SA1_S = 20000, 2048
+
+
+@pytest.mark.parametrize("cs", [2, 4, 8, 16])
+@pytest.mark.parametrize("cloud", ["lattice", "masked", "s_above_valid",
+                                   "none_valid"])
+def test_k5_partitioned_argmax_matches_plain_and_pallas(cs, cloud):
+    """The cluster kernel's partitioned argmax, split as `fps_plan` splits
+    SA1 (20 000 points) at each swept cluster size, gives exactly the
+    indices of `furthest_point_sample_plain` and of `fps_tpu` (interpret):
+    on the lattice tie cloud, a masked room-like cloud, a cloud with fewer
+    valid points than samples (the first valid index repeats) and one with
+    none (index 0 throughout: invalid points rank above the padding)."""
+    plan = tfps.fps_plan(1, SA1_N, SA1_S, cluster=cs)
+    assert plan.where == "registers" and plan.cs == cs
+    s = 48
+    if cloud == "lattice":
+        pts, valid = lattice_cloud(SA1_N), np.ones((1, SA1_N), bool)
+    else:
+        pts = scene(cs, SA1_N, (4.0, 4.0, 2.0))[None]
+        rng = np.random.default_rng(cs)
+        valid = rng.random((1, SA1_N)) < 0.9
+        valid[0, :3] = False
+        if cloud == "s_above_valid":
+            valid[0, np.flatnonzero(valid[0])[20:]] = False
+        if cloud == "none_valid":
+            valid[:] = False
+    got = partitioned_fps(pts[0], s, valid[0], plan)
+    plain = tfps.furthest_point_sample_plain(
+        torch.as_tensor(pts), s, torch.as_tensor(valid)).numpy()[0]
+    want = np.asarray(fps_tpu(jnp.asarray(pts), s, jnp.asarray(valid),
+                              interpret=True))[0]
+    np.testing.assert_array_equal(plain, want)
+    np.testing.assert_array_equal(got, plain)
+    if cloud == "s_above_valid":
+        assert (got[20:] == np.argmax(valid[0])).all()
+    if cloud == "none_valid":
+        assert (got == 0).all()
+
+
+@pytest.mark.parametrize("n", [SA1_N - 1, SA1_N])
+def test_k5_partitioned_argmax_at_sa1_plan(n):
+    """The shipped SA1 plan (a cluster of more than one CTA) on the lattice
+    tie cloud: the partitioned argmax equals the plain version."""
+    plan = tfps.fps_plan(1, n, SA1_S)
+    assert plan.where == "registers" and plan.cs > 1
+    pts = lattice_cloud(n, seed=n)
+    valid = np.ones((1, n), bool)
+    got = partitioned_fps(pts[0], 64, valid[0], plan)
+    want = tfps.furthest_point_sample_plain(torch.as_tensor(pts), 64).numpy()
+    np.testing.assert_array_equal(got, want[0])
+
+
+def fps_shapes(cfg):
+    """(N, S) of every FPS of the VoteNet path of `cfg`: SA1-SA4 and the
+    seeds' proposals (test mode)."""
+    backbone = VoteNet(cfg, device="meta").backbone
+    ns = (cfg.num_points,) + tuple(cfg.backbone_num_points)
+    seeds = ns[backbone.n_sa - backbone.n_fp]
+    return list(zip(ns[:-1], ns[1:])) + [(seeds, cfg.num_proposal)]
+
+
+@pytest.mark.parametrize("name", ["votenet_sunrgbd", "votenet_tiny"])
+def test_k5_plan_fits_the_card(name):
+    """Every FPS shape of the VoteNet path gets a cluster-kernel plan that
+    covers its cloud within the H100's limits: 227 KB of shared memory a
+    CTA (the slice's float4 coordinates plus the two parities of
+    candidates, as `csrc/fps.cu` lays them out), 255 registers a thread
+    (and 65 536 a CTA) for 4 floats a point and a fixed overhead, 16 CTAs a
+    cluster; SA1 on a cluster of more than one CTA."""
+    cfg = getattr(tconfigs, name)()
+    for n, s in fps_shapes(cfg):
+        for b in (1, 2):
+            plan = tfps.fps_plan(b, n, s)
+            assert plan.where == "registers", (n, plan)
+            assert plan.cs * plan.threads * plan.points_per_thread >= n
+            assert plan.threads % 32 == 0 and 32 <= plan.threads <= 1024
+            assert plan.threads <= tfps.max_threads(plan.points_per_thread)
+            assert 1 <= plan.cs <= 16
+            smem = (plan.points_per_thread * plan.threads * 16
+                    + 2 * 16 * 32 * (8 + 16))
+            assert smem <= 232448, (n, plan, smem)
+            regs = 4 * plan.points_per_thread + 40
+            assert regs <= min(255, 65536 // plan.threads), (n, plan, regs)
+    if name == "votenet_sunrgbd":
+        assert tfps.fps_plan(1, cfg.num_points, 2048).cs > 1
+
+
+def test_k5_launch_rule_matches_the_kernel_source():
+    """The wrapper's launch-shape rule is the kernel's: POINTS_PER_THREAD
+    lists exactly the template instances that `launch_cluster_p` in
+    `csrc/fps.cu` dispatches to, and `max_threads` gives each the CTA size
+    of its `__launch_bounds__` (MaxThreads there). A mismatch would show on
+    the card only as a refused launch."""
+    src = (Path(tfps.__file__).parents[2] / "csrc" / "fps.cu").read_text()
+    body = src[src.index("int launch_cluster_p("):]
+    body = body[:body.index("default:")]
+    cases = [int(a) for a, b in re.findall(
+        r"case (\d+): return launch_cluster<(\d+)>\(a\);", body) if a == b]
+    assert tuple(cases) == tfps.POINTS_PER_THREAD
+    rule = re.search(r"struct MaxThreads \{\s*static constexpr int value = "
+                     r"P <= (\d+) \? (\d+) : (\d+);", src)
+    assert rule, "MaxThreads<P> not found in csrc/fps.cu"
+    edge, small, large = map(int, rule.groups())
+    for p in tfps.POINTS_PER_THREAD:
+        assert tfps.max_threads(p) == (small if p <= edge else large), p

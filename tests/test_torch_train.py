@@ -35,6 +35,7 @@ from fcaf3d_tpu_torch import configs as tconfigs
 from fcaf3d_tpu_torch.params import flatten, init_variables
 from fcaf3d_tpu_torch.train import create_train_state, make_train_step
 from tests.test_torch_model import EXTENT
+from tests.test_torch_ops import jax_without_persistent_cache  # noqa: F401
 
 LOSSES = ("loss_cls", "loss_centerness", "loss_bbox")
 
@@ -68,7 +69,7 @@ def nano_step():
             "overflow": overflow, "outs": outs, "grads": grads,
             "grad_norm": float(optax.global_norm(grads))}
 
-    port, opt, _ = create_train_state(cfg, seed=0)
+    port, opt, _ = create_train_state(cfg, seed=0, device="cpu")
     fwd_model = copy.deepcopy(port)
     with torch.no_grad():
         outs_t, ovf_t = fwd_model(*(torch.as_tensor(batch[k])
@@ -127,7 +128,8 @@ def test_tiny_loss_falls_over_six_steps():
     below the first, a positive gradient norm and the step count kept."""
     cfg = tconfigs.fcaf3d_tiny()
     batch = head_batch(torch, cfg, EXTENT["fcaf3d_tiny"])
-    model, opt, _ = create_train_state(cfg, seed=0, steps_per_epoch=100)
+    model, opt, _ = create_train_state(cfg, seed=0, device="cpu",
+                                       steps_per_epoch=100)
     step = make_train_step(model, cfg, opt)
     metrics = [step(batch) for _ in range(6)]
     losses = [float(m["loss"]) for m in metrics]

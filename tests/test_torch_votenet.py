@@ -33,6 +33,7 @@ from fcaf3d_tpu_torch.data.points import add_height
 from fcaf3d_tpu_torch.models import pointnet2 as tp2
 from fcaf3d_tpu_torch.models import votenet as tv
 from fcaf3d_tpu_torch.params import init_votenet_variables
+from tests.test_torch_ops import jax_without_persistent_cache  # noqa: F401
 
 ATOL = 1e-4
 EXTENT = (2.0, 2.0, 1.4)  # a small room: the tiny radii see real groups
@@ -117,7 +118,7 @@ class Tiny:
     def __init__(self):
         self.cfg = tconfigs.votenet_tiny()
         self.variables = init_votenet_variables(self.cfg, seed=0)
-        self.model = init_votenet(self.cfg, seed=0)
+        self.model = init_votenet(self.cfg, seed=0, device="cpu")
         self.jvars = jax.tree_util.tree_map(jnp.asarray, self.variables)
         xyz, _ = bench.synth_scene(np.random.RandomState(0),
                                    self.cfg.num_points, extent=EXTENT)
