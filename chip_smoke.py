@@ -12,15 +12,19 @@ Phases (any failure raises and the script exits non-zero):
    (one nvcc per source, in parallel).
 3. Kernels against their plain PyTorch versions on the card, at the shapes
    of the main path's maps on a real-size scan: K1 exact (with and without
-   `with_miss`), K2 in f32 and bf16 with every epilogue, K3 exact. Device
-   times (CUDA events behind a sleep kernel, so that the host's enqueue
-   rate does not set them), timed in turns with the plain version and the
-   yardsticks: for K1's positions `torch.searchsorted(out_int32=True)`,
-   for bf16 K2 and K4 the SIMT kernel (the f32 one, which bf16 used before
-   the tensor-core kernels) and one matmul on the pre-gathered rows (not
-   the same function: it shows what the MMA alone costs). Each time is
-   printed beside its bound (FLOPs over the peak, bytes over the memory
-   rate, from the real map's hits) and its share of it.
+   `with_miss`, also on edge clouds: N = 1, N < L, N = 1 mod L, runs of
+   equal keys across every L-th key, a compaction cumsum, random-order and
+   all-SENTINEL queries, both K1 variants), K2 in f32 and bf16 with every
+   epilogue (f32, and bf16 off the tensor cores' granule, equal to the
+   earlier kernel), K3 exact. Device times (CUDA events behind a sleep
+   kernel, so that the host's enqueue rate does not set them), timed in
+   turns with the plain version and the yardsticks: for K1 the binary-search
+   kernel and, for positions, `torch.searchsorted(out_int32=True)`;
+   for f32 K2 the earlier kernel, for bf16 K2 and K4 the SIMT kernel, and one
+   matmul on the pre-gathered rows (not the same function: it shows what
+   the GEMM alone costs). Each time is printed beside its bound (FLOPs
+   over the peak, bytes over the memory rate, from the real map's hits)
+   and its share of it.
 4. The backward kernels, the same way, on the maps of one scan (batch 1)
    and of the batch-8 training batch: K4 (weight gradient) at every
    (C, E, K) of the training path in f32 and bf16, bitwise equal over two
@@ -29,20 +33,25 @@ Phases (any failure raises and the script exits non-zero):
    s16 C128 E128 (at batch 8 its 128 x 128 tile).
 5. Inference: `init_detector(fcaf3d_scannet())` in bf16 and
    `inference_detector` on three 100 000-point scans, with zero overflow,
-   every inference kernel launched and every bf16 K2 launch on the tensor
-   cores (launches by variant printed); then one scan in f32 on the card
-   against the plain path on the CPU (voxel keys and backbone kernel maps
-   exactly equal, detections equal within tolerance).
+   every inference kernel launched, every bf16 K2 launch on the tensor
+   cores, every f32 K2 launch on the narrow or tiled kernel and every K1
+   launch on the gallop kernel (launches by variant printed); the warm-up
+   scan's K1 calls, each distinct one exact against plain and the
+   earlier kernel and timed beside them; then one scan in f32 on the card
+   against the plain path on the CPU (voxel keys and backbone kernel maps exactly
+   equal, detections equal within tolerance), and that scan's K2 calls
+   replayed on the card, as the path runs them and on the earlier kernel.
 6. Training: `create_train_state` / `make_train_step` at `fcaf3d_scannet`
    in bf16, batch 8 of crowded synthetic scenes (50 000 raw points each,
-   sampled to 100 000): one warm-up step, five timed steps with finite
-   losses, a live box loss, zero overflow, finite non-zero gradients on
-   every conv kernel, K1-K4 launched and every bf16 K2 and K4 launch on
-   the tensor cores; then f32 steps on the card
+   sampled to 100 000): one warm-up step (its K1 calls checked and timed
+   as in phase 5), five timed steps with finite losses, a live box loss,
+   zero overflow, finite non-zero gradients on every conv kernel, K1-K4
+   launched and the variant gate of phase 5; then f32 steps on the card
    against the CPU plain path: `fcaf3d_tiny` at batch 2 (every gradient
    element within 1e-3 of its leaf's largest) and `fcaf3d_scannet` at
    batch 1 (kernel maps and pruned neck maps exactly equal, losses within
-   1e-5, each gradient leaf within 5% in L2 norm).
+   1e-5, each gradient leaf within 5% in L2 norm), their f32 K2 launches
+   on the narrow or tiled kernel and K1 on the gallop kernel.
 7. K5 (farthest-point sampling) and K6 (ball query) against their plain
    versions at every shape of the VoteNet-v2 path (SA1-SA4, the seeds and
    the vote aggregation on two 20 000-point scans), at batch 1 and at
@@ -65,7 +74,9 @@ Phases (any failure raises and the script exits non-zero):
 
 Output: progress lines, then a JSON line of per-kernel results (launches
 of each main path: FCAF3D inference, FCAF3D training, VoteNet inference;
-K2 and K4 also by variant; the recorded shape's times, bound and share),
+K1, K2, K4 and K5 also by variant; the recorded shape's times, bound and
+share; K1 at every distinct call of the two FCAF3D paths, K2 at every f32
+path shape and over the f32 scan),
 the `nvidia-smi` name/power-limit line, and last `{"ok": true, ...}`.
 
 Two further modes measure instead of checking (device and build first):
@@ -148,6 +159,8 @@ HBM_BYTES_PER_S = 3.35e12
 SLEEP_CYCLES = 20_000_000  # ~10 ms of device clock ahead of timed launches
 FPS_OPS = 9  # per K5 distance update: 3 sub, 3 mul, 2 add, 1 min
 FPS_SWEEP = (2, 4, 8, 16)  # K5 cluster sizes tried at SA1
+K1_EDGE_RUN = 7  # K1 gallop rows a thread on the edge clouds
+K1_EDGE_LINE = 16  # K1 edge clouds' L: N < L, N = 1 mod L, runs across L
 FPS_TIE_S = 64  # samples of the K5 tie clouds at the plan's boundaries
 BALLQ_OPS = 9  # per K6 point scanned: 3 sub, 3 mul, 2 add, 1 compare
 # (what, kernel ms, SIMT ms, plain ms) of every bf16 K2/K4 path shape where
@@ -163,7 +176,14 @@ PATH_KERNELS = {
 }
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg):
+    """Print a progress line; phase headers ("== ...") carry the seconds
+    since the script started."""
+    if msg.startswith("== "):
+        msg = f"{msg} [{time.perf_counter() - _T0:.1f} s]"
     print(msg, flush=True)
 
 
@@ -375,17 +395,109 @@ def tc_yardsticks(what, rec):
         log(f"   NOT FASTER: {what}")
 
 
-def kernel_phase(torch, cfg, maps):
+def k1_case(torch, name, kk, qq, miss, shapes=None, time_plain=True):
+    """K1 (the gallop kernel) exactly equal to its plain version and to the
+    earlier binary-search kernel on keys `kk` [B, N] and queries `qq`, timed in
+    turns with the earlier kernel, the plain version unless `time_plain` is
+    false and, for positions, `torch.searchsorted(out_int32=True)`
+    (checked equal too). Returns the timing record (with the plan); adds it
+    to `shapes` under `name`."""
+    from fcaf3d_tpu_torch.ops.sparse import search
+
+    got = search.searchsorted_segments(kk, qq, with_miss=miss, layout="ms")
+    want = search.searchsorted_segments_plain(kk, qq, with_miss=miss)
+    old = search.searchsorted_segments(kk, qq, with_miss=miss, layout="ms",
+                                       _variant="binary")
+    torch.cuda.synchronize()
+    err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
+    if not (torch.equal(got, want) and torch.equal(old, want)):
+        raise AssertionError(f"K1 {name}: kernel != plain (max abs diff "
+                             f"{err}) or the earlier kernel != plain")
+    fns = {"kernel": lambda: search.searchsorted_segments(
+               kk, qq, with_miss=miss, layout="ms"),
+           "earlier": lambda: search.searchsorted_segments(
+               kk, qq, with_miss=miss, layout="ms", _variant="binary")}
+    if time_plain:
+        fns["plain"] = lambda: search.searchsorted_segments_plain(
+            kk, qq, with_miss=miss)
+    flat = qq.reshape(qq.shape[0], -1)
+    if not miss:  # the positions alone: one library call computes them
+        lib = torch.searchsorted(kk, flat, out_int32=True)
+        if not torch.equal(lib.reshape(got.shape), got):
+            raise AssertionError(f"K1 {name}: torch.searchsorted != K1")
+        fns["library"] = lambda: torch.searchsorted(kk, flat, out_int32=True)
+    times = timed_turns(torch, fns)
+    # bytes: keys, queries (int64) and out (int32); operations: one
+    # compare per step of a binary search, on the CUDA cores
+    q_n, n_keys = flat.numel(), kk.numel()
+    steps = int(np.ceil(np.log2(kk.shape[1] + 1)))
+    r = timing_record(times, (q_n * steps, 8 * n_keys + 12 * q_n),
+                      PEAK_OPS["float32"])
+    r["max_abs_err"] = err
+    b = kk.shape[0]
+    m, s = (qq.shape[1], qq.shape[2]) if qq.dim() == 3 else (q_n // b, 1)
+    r["plan"] = search.k1_gallop_plan(b, m, s)
+    r["shape"] = [list(kk.shape), list(qq.shape), miss]
+    spread = ", ".join(f"{k} {v[1]:.4f}/{v[2]:.4f}" for k, v in times.items())
+    log(f"   K1 {name} {tuple(qq.shape)} in N={kk.shape[1]}"
+        f"{', with_miss' if miss else ''}: exact (and the earlier kernel); "
+        f"{r['plan']} rows a thread; {report(r)}; readings {spread}")
+    if r["ms"] >= min(r["earlier_ms"], r.get("library_ms") or np.inf):
+        NOT_FASTER.append((f"K1 {name}", r["ms"], r["earlier_ms"],
+                           r.get("library_ms")))
+        log(f"   NOT FASTER: K1 {name}")
+    if shapes is not None:
+        shapes[name] = {k: r.get(k) for k in (
+            "shape", "plan", "ms", "earlier_ms", "plain_ms", "library_ms",
+            "bound_ms", "share")}
+    return r
+
+
+def k1_edge_keys(line, rng):
+    """(name, keys [2, N] int64) of K1's edge clouds for a line of `line`
+    keys: N = 1, N < L, N = 1 mod L, runs of equal keys across every L-th
+    key, a compaction cumsum with a long flat run and a flat tail."""
+    sent = 0xFFFFFFFF
+    n = 8 * line + 3
+    mask = rng.random((2, 10 * line + 7)) < 0.3
+    mask[:, 4 * line:6 * line] = False
+    mask[:, -3 * line:] = False
+    return [
+        ("N = 1", np.array([[5], [sent]])),
+        ("N < L", np.sort(rng.integers(1, 50, (2, line // 2 + 1)), axis=1)),
+        ("N = 1 mod L", np.sort(rng.integers(1, 2 ** 20, (2, 3 * line + 1)),
+                                axis=1)),
+        ("runs across every L-th key", np.stack([
+            (np.arange(n) + line // 2) // line + 1,
+            (np.arange(n) + 5) // (3 * line) * 7 + 2])),
+        ("compaction cumsum", np.cumsum(mask, axis=1)),
+    ]
+
+
+def k1_edge_queries(keys, rng, m=512):
+    """[B, m, 3] queries on `keys`: the keys themselves and their
+    neighbours, values below the first and above the last key, SENTINEL."""
+    sent = 0xFFFFFFFF
+    b, n = keys.shape
+    pick = rng.integers(0, n, (b, m))
+    q = rng.integers(0, sent, (b, m, 3)).astype(np.int64)
+    q[:, :, 0] = np.take_along_axis(keys, pick, 1)
+    q[:, :, 1] = q[:, :, 0] + rng.integers(-1, 2, (b, m))
+    q[:, :3, 2] = [0, sent - 1, sent]
+    q[:, -5:, :] = sent
+    return np.clip(q, 0, sent)
+
+
+def k1_phase(torch, cfg, maps):
+    """K1 at the s8 self-map lookup (with_miss and positions) and the voxel
+    compaction (`k1_case`); both variants on the edge clouds (random-order
+    and all-SENTINEL queries), exactly equal to plain. Returns the s8
+    positions record."""
     from fcaf3d_tpu_torch.ops.sparse import (
         SENTINEL, decode_coords, encode_coords, kernel_offsets)
-    from fcaf3d_tpu_torch.ops.sparse import gather_kernel as gk
     from fcaf3d_tpu_torch.ops.sparse import search
 
     dev = maps["voxel_keys"][0].device
-    gen = torch.Generator(device=dev).manual_seed(0)
-    rec = {}
-
-    # K1 on the s8 self map's queries and on the voxel compaction query
     s8_keys = maps["s8_keys"][0]
     q = encode_coords(decode_coords(s8_keys)[:, :, None, :] + torch.as_tensor(
         kernel_offsets(3, 8), device=dev)).contiguous()
@@ -394,48 +506,55 @@ def kernel_phase(torch, cfg, maps):
     csum = csum.long().contiguous()
     qc = torch.arange(1, cfg.backbone_budgets[0] + 1, device=dev)
     qc = qc[None, :, None].contiguous()
-    k1_cases = [("s8 self-map lookup, with_miss", s8_keys, q, True),
-                ("s8 self-map lookup, positions", s8_keys, q, False),
-                ("voxel compaction positions", csum, qc, False)]
-    k1_err = 0
-    for name, kk, qq, miss in k1_cases:
-        got = search.searchsorted_segments(kk, qq, with_miss=miss, layout="ms")
-        want = search.searchsorted_segments_plain(kk, qq, with_miss=miss)
-        torch.cuda.synchronize()
-        k1_err = max(k1_err, int((got.long() - want.long()).abs().max()))
-        if not torch.equal(got, want):
-            raise AssertionError(f"K1 {name}: kernel != plain")
-        fns = {"plain": lambda: search.searchsorted_segments_plain(
-                   kk, qq, with_miss=miss),
-               "kernel": lambda: search.searchsorted_segments(
-                   kk, qq, with_miss=miss, layout="ms")}
-        flat = qq.reshape(qq.shape[0], -1)
-        if not miss:  # the positions alone: one library call computes them
-            lib = torch.searchsorted(kk, flat, out_int32=True)
-            if not torch.equal(lib.reshape(got.shape), got):
-                raise AssertionError(f"K1 {name}: torch.searchsorted != K1")
-            fns["library"] = lambda: torch.searchsorted(kk, flat,
-                                                        out_int32=True)
-        times = timed_turns(torch, fns)
-        # bytes: keys, queries (int64) and out (int32); operations: one
-        # compare per step of the binary search, on the CUDA cores
-        q_n, n_keys = flat.numel(), kk.numel()
-        steps = int(np.ceil(np.log2(kk.shape[1] + 1)))
-        r = timing_record(times, (q_n * steps, 8 * n_keys + 12 * q_n),
-                          PEAK_OPS["float32"])
-        spread = ", ".join(f"{k} {v[1]:.4f}/{v[2]:.4f}"
-                           for k, v in times.items())
-        log(f"   K1 {name} {tuple(qq.shape)} in N={kk.shape[1]}: exact; "
-            f"{report(r)}; readings {spread}")
-        if not miss and "searchsorted" not in rec:
-            rec["searchsorted"] = r
-    rec["searchsorted"]["max_abs_err"] = k1_err
+    shapes = {}
+    k1_case(torch, "s8 self-map lookup", s8_keys, q, True, shapes)
+    rec = k1_case(torch, "s8 self-map lookup, positions", s8_keys, q, False,
+                  shapes)
+    k1_case(torch, "voxel keys compaction", csum, qc, False, shapes)
+    rec["shapes"] = shapes
 
+    rng = np.random.default_rng(0)
+    n_edge = 0
+    for name, keys in k1_edge_keys(K1_EDGE_LINE, rng):
+        kk = torch.as_tensor(keys.astype(np.int64), device=dev)
+        for qq in (k1_edge_queries(keys, rng),
+                   np.full((2, 64, 1), SENTINEL, np.int64)):
+            qq = torch.as_tensor(qq, device=dev)
+            for variant, plan in (("gallop", None), ("gallop", K1_EDGE_RUN),
+                                  ("binary", None)):
+                for miss in (False, True):
+                    got = search.searchsorted_segments(
+                        kk, qq, with_miss=miss, layout="ms",
+                        _variant=variant, _plan=plan)
+                    want = search.searchsorted_segments_plain(kk, qq, miss)
+                    torch.cuda.synchronize()
+                    if not torch.equal(got, want):
+                        raise AssertionError(
+                            f"K1 {variant} ({plan} rows a thread) edge "
+                            f"{name}, L={K1_EDGE_LINE}, with_miss={miss}: "
+                            "!= plain")
+                    n_edge += 1
+    log(f"   K1 edge clouds (N = 1, N < L, N = 1 mod L, runs across every "
+        f"L-th key, a compaction cumsum; random-order and all-SENTINEL "
+        f"queries) at L = {K1_EDGE_LINE}, gallop at the plan's and at "
+        f"{K1_EDGE_RUN} rows a thread, binary: {n_edge} cases exact")
+    return rec
+
+
+def kernel_phase(torch, cfg, maps):
+    from fcaf3d_tpu_torch.ops.sparse import gather_kernel as gk
+
+    dev = maps["voxel_keys"][0].device
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rec = {}
+
+    rec["searchsorted"] = k1_phase(torch, cfg, maps)
     # K2 at every (C, E, K) of the path, on that shape's real map
     map_for = {(3, 64, 27): "s1_k3s2", (1, 8, 27): "s16_k3s1",
                (64, 64, 27): "s8_k3s1", (256, 512, 1): "s32_k1s2",
                (512, 512, 27): "s64_k3s1", (128, 128, 27): "s16_k3s1"}
     k2_err = {"float32": 0.0, "bfloat16": 0.0}
+    f32_shapes = {}
     for (c, e, k) in K2_SHAPES:
         idx, n = maps[map_for[(c, e, k)]]
         b, m, _ = idx.shape
@@ -465,6 +584,9 @@ def kernel_phase(torch, cfg, maps):
                     raise AssertionError(
                         f"K2 C={c} E={e} K={k} {dname} {vname}: max abs "
                         f"diff {diff} > {tol}")
+                if dname == "float32":
+                    k2_equal_simt(torch, got, feats, idx, w, kw,
+                                  f"C={c} E={e} K={k} {vname}")
                 k2_err[dname] = max(k2_err[dname], diff)
             kw = dict(variants)[PATH_VARIANT[(c, e, k)]]
             r = k2_timing(torch, feats, idx, w, kw, dname)
@@ -474,10 +596,21 @@ def kernel_phase(torch, cfg, maps):
             if dname == "bfloat16":
                 tc_yardsticks(f"K2 C={c} E={e} K={k} "
                               f"{PATH_VARIANT[(c, e, k)]}", r)
+            if dname == "float32":
+                f32_shapes[f"C{c} E{e} K{k}"] = {key: r[key] for key in (
+                    "variant", "tile", "ms", "earlier_ms", "plain_ms",
+                    "gemm_only_ms", "bound_ms", "bound_by", "share")}
+                if not r["ms"] < min(r["earlier_ms"], r["plain_ms"]):
+                    NOT_FASTER.append((f"K2 f32 C={c} E={e} K={k}", r["ms"],
+                                       r["earlier_ms"], r["plain_ms"]))
+                    log(f"   NOT FASTER than the earlier kernel and plain: K2 "
+                        f"f32 C={c} E={e} K={k}")
             if (c, e, k, dname) == (64, 64, 27, "bfloat16"):
                 rec["gather_gemm"] = r
     rec["gather_gemm"]["max_abs_err"] = k2_err["bfloat16"]
     rec["gather_gemm"]["max_abs_err_f32"] = k2_err["float32"]
+    rec["gather_gemm"]["f32_shapes"] = f32_shapes
+    k2_off_granule(torch, maps, gen)
 
     # K3 on the stem pool map
     idx, n = maps["s2_pool_k2s2"]
@@ -509,9 +642,71 @@ def kernel_phase(torch, cfg, maps):
     return rec
 
 
+def k2_equal_simt(torch, got, feats, idx, w, kw, what):
+    """`got` (K2 as the path runs it) equal to the earlier kernel on the same
+    inputs: the f32 kernels keep its arithmetic."""
+    from fcaf3d_tpu_torch.ops.sparse import gather_kernel as gk
+
+    old = gk.fused_gather_gemm(feats, idx, w, **kw, _variant="simt")
+    torch.cuda.synchronize()
+    if not torch.equal(got, old):
+        diff = float((got.float() - old.float()).abs().max())
+        k, c, e = w.shape
+        raise AssertionError(f"K2 {feats.dtype} {what}: "
+                             f"{gk.k2_variant(c, e, k, feats.dtype)} != the "
+                             f"earlier kernel (max abs diff {diff})")
+
+
+def k2_off_granule(torch, maps, gen):
+    """K2 at shapes off the path's: bf16 where the tensor-core kernels do
+    not take it (E or C off the 8-channel granule), on the narrow and tiled
+    kernels, and the same shapes in f32 (C and E off 16 and 64, partial
+    channel groups, C and E off the 4-channel granule of 16-byte copies):
+    equal to the earlier kernel, within K2_RTOL of plain, three epilogues
+    each."""
+    from fcaf3d_tpu_torch.ops.sparse import gather_kernel as gk
+
+    # (18, 30): f32 off 16-byte copies, staged 4 bytes at a time
+    cases = ((3, 18, "s1_k3s2"), (5, 20, "s16_k3s1"), (20, 64, "s8_k3s1"),
+             (64, 36, "s16_k3s1"), (18, 30, "s16_k3s1"))
+    for c, e, name in cases:
+        idx, n = maps[name]
+        b, m, k = idx.shape
+        dev = idx.device
+        for dname in ("bfloat16", "float32"):
+            dt = getattr(torch, dname)
+            feats = torch.randn(b, n, c, generator=gen, device=dev).to(dt)
+            w = (torch.randn(k, c, e, generator=gen, device=dev)
+                 / np.sqrt(k * c)).to(dt)
+            epi = dict(scale=torch.rand(e, generator=gen, device=dev) + 0.5,
+                       shift=torch.randn(e, generator=gen, device=dev) * 0.1,
+                       vmask=torch.rand(b, m, generator=gen, device=dev) < 0.9)
+            add = torch.randn(b, m, e, generator=gen, device=dev).to(dt)
+            variant = gk.k2_variant(c, e, k, dt)
+            if not variant.startswith("simt_"):
+                raise AssertionError(f"K2 {dname} C={c} E={e}: variant "
+                                     f"{variant}")
+            for kw in ({}, dict(epi, act="relu", add=add),
+                       dict(epi, act="elu")):
+                got = gk.fused_gather_gemm(feats, idx, w, **kw)
+                want = gk.fused_gather_gemm_plain(feats, idx, w, **kw).float()
+                torch.cuda.synchronize()
+                diff = float((got.float() - want).abs().max())
+                if not diff <= K2_RTOL[dname] * max(float(want.abs().max()),
+                                                    1.0):
+                    raise AssertionError(f"K2 {dname} C={c} E={e} {variant}:"
+                                         f" max abs diff {diff}")
+                k2_equal_simt(torch, got, feats, idx, w, kw, f"C={c} E={e}")
+            log(f"   K2 {dname} off the path C={c} E={e} K={k} idx "
+                f"{tuple(idx.shape)}: {variant}, 3 epilogues equal to the "
+                "earlier kernel and within tolerance of plain")
+
+
 def k2_timing(torch, feats, idx, w, kw, dname):
     """K2 timed in turns with its plain version, one matmul on the
-    pre-gathered rows and, in bf16, the SIMT kernel; with its bound."""
+    pre-gathered rows and the earlier kernel ("earlier" in f32, the f32
+    variants' predecessor; "simt" in bf16, the tensor cores'); with its
+    bound."""
     from fcaf3d_tpu_torch.ops.sparse import gather_kernel as gk
 
     b, n, c = feats.shape
@@ -523,9 +718,8 @@ def k2_timing(torch, feats, idx, w, kw, dname):
     g = gk.gather_rows(feats, idx).reshape(b, m, k * c)
     w2 = w.reshape(k * c, e)
     fns["gemm_only"] = lambda: torch.matmul(g, w2)
-    if dname == "bfloat16":
-        fns["simt"] = lambda: gk.fused_gather_gemm(feats, idx, w, **kw,
-                                                   _variant="simt")
+    fns["simt" if dname == "bfloat16" else "earlier"] = (
+        lambda: gk.fused_gather_gemm(feats, idx, w, **kw, _variant="simt"))
     times = timed_turns(torch, fns)
     work = gemm_work(idx, n, c, e, feats.element_size(),
                      epilogue="scale" in kw, add=kw.get("add") is not None)
@@ -537,7 +731,10 @@ def k2_timing(torch, feats, idx, w, kw, dname):
 
 
 def compare_f32(torch, cfg, points, device):
-    """One scan in f32: the card against the plain path on the CPU."""
+    """One scan in f32: the card against the plain path on the CPU, every
+    f32 K2 launch on the narrow and tiled kernels and every K1 launch on
+    the gallop kernel. Returns the scan's K2 device time (`k2_scan_times`)."""
+    from fcaf3d_tpu_torch import _native
     from fcaf3d_tpu_torch.apis import inference_detector, init_detector
 
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
@@ -549,8 +746,12 @@ def compare_f32(torch, cfg, points, device):
             raise AssertionError(f"f32 slice: {name} differs card vs CPU")
     log(f"   f32: voxel keys and {len(gpu_maps) - 1} backbone maps equal "
         "card vs CPU")
-    got, got_ovf = inference_detector(init_detector(cfg32, 0, device=device),
-                                      points)
+    model = init_detector(cfg32, 0, device=device)
+    _native.reset_launches()
+    k2_calls = []
+    with recorded_k2_calls(k2_calls):
+        got, got_ovf = inference_detector(model, points)
+    check_variants("f32 inference scan", f32=True)
     want, want_ovf = inference_detector(init_detector(cfg32, 0, device="cpu"),
                                         points)
     n_got, n_want = len(got["scores_3d"]), len(want["scores_3d"])
@@ -570,17 +771,64 @@ def compare_f32(torch, cfg, points, device):
     log(f"   f32: {n_got} detections equal card vs CPU; max box err "
         f"{box_err:.3g} (tol {BOX_ATOL}), max score err {score_err:.3g} "
         f"(tol {SCORE_ATOL})")
+    return k2_scan_times(torch, k2_calls, "the f32 inference scan")
+
+
+@contextlib.contextmanager
+def recorded_k2_calls(calls):
+    """Every K2 call of the sparse convs made inside (through
+    `ops.sparse.conv`) is appended to `calls` as (args, kwargs)."""
+    from fcaf3d_tpu_torch.ops.sparse import conv as sconv
+
+    real = sconv.fused_gather_gemm
+
+    def call(*args, **kw):
+        calls.append((args, kw))
+        return real(*args, **kw)
+
+    sconv.fused_gather_gemm = call
+    try:
+        yield
+    finally:
+        sconv.fused_gather_gemm = real
+
+
+def k2_scan_times(torch, calls, what):
+    """Device ms of a run's recorded K2 calls replayed on their own inputs,
+    as the path runs them and on the earlier kernel, in turns."""
+    from fcaf3d_tpu_torch.ops.sparse import gather_kernel as gk
+
+    def replay(variant):
+        def run():
+            with torch.inference_mode():  # as the scan ran them
+                for args, kw in calls:
+                    gk.fused_gather_gemm(*args, **kw, _variant=variant)
+        return run
+
+    times = timed_turns(torch, {"kernel": replay(None),
+                                "earlier": replay("simt")}, reps=3)
+    rec = {"calls": len(calls), "ms": times["kernel"][0],
+           "earlier_ms": times["earlier"][0]}
+    log(f"   K2 device time of {what}, its {len(calls)} calls replayed: "
+        f"{rec['ms']:.4f} ms (the earlier kernel {rec['earlier_ms']:.4f}); "
+        "readings " + ", ".join(f"{k} {v[1]:.4f}/{v[2]:.4f}"
+                                for k, v in times.items()))
+    return rec
 
 
 def slice_phase(torch, cfg, scans, device):
-    """bf16 inference on every scan; returns launches per kernel, and the
-    K2 launches by variant (all bf16 ones on the tensor cores)."""
+    """bf16 inference on every scan after a warm-up scan whose K1 calls are
+    checked and timed (`k1_path_phase`); returns launches per kernel, the
+    launches by variant (`check_variants`) and the K1 record."""
     from fcaf3d_tpu_torch import _native
     from fcaf3d_tpu_torch.apis import inference_detector, init_detector
 
     model = init_detector(cfg, seed=0, device=device)
-    inference_detector(model, scans[0])  # warm-up: cuBLAS and allocator
+    calls = {}
+    with recorded_k1_calls(calls):  # warm-up: cuBLAS and allocator
+        inference_detector(model, scans[0])
     torch.cuda.synchronize()
+    k1 = k1_path_phase(torch, calls, 1, "one bf16 inference scan")
     _native.reset_launches()
     results = []
     for pts in scans:
@@ -603,29 +851,91 @@ def slice_phase(torch, cfg, scans, device):
             raise AssertionError(f"scan {i}: malformed detections")
     log(f"   launches over {len(scans)} scans: {launches}")
     check_path_launches(launches, "fcaf3d_inference")
-    return launches, check_tc_variants("bf16 inference", ("gather_gemm",))
+    return launches, check_variants("bf16 inference", ("gather_gemm",)), k1
 
 
-def check_tc_variants(what, kernels):
-    """Every bf16 K2 and K4 launch since the last reset of the counts went
-    through a tensor-core variant, and each of `kernels` had one. Logs and
-    returns the launches by "kernel/variant/dtype"."""
+def check_variants(what, tc_kernels=(), f32=False):
+    """The launches since the last reset of the counts went through the
+    path's kernels: every bf16 K2 and K4 launch through a tensor-core
+    variant (and each of `tc_kernels` had one), every f32 K2 launch through
+    "simt_narrow" / "simt_tiled" (never the first "simt"), every K1 launch
+    through the gallop kernel; with `f32`, at least one f32 K2 and one K1
+    launch. Logs and returns the launches by "kernel/variant/dtype"."""
     from fcaf3d_tpu_torch import _native
 
     counts = {"/".join(key): n
               for key, n in sorted(_native.VARIANT_LAUNCHES.items())}
-    log(f"   {what}: K2 / K4 launches by variant: {counts}")
+    log(f"   {what}: K1 / K2 / K4 launches by variant: {counts}")
     off = {key: n for key, n in counts.items()
-           if key.endswith("/simt/bfloat16")}
+           if key.endswith("/simt/bfloat16")
+           or key == "gather_gemm/simt/float32"
+           or (key.startswith("searchsorted/")
+               and key != "searchsorted/gallop/int64")}
     if off:
-        raise AssertionError(f"{what}: bf16 launches off the tensor cores: "
+        raise AssertionError(f"{what}: launches off the path's kernels: "
                              f"{off}")
-    for kernel in kernels:
+    for kernel in tc_kernels:
         if not any(key.startswith(f"{kernel}/tc") and key.endswith("bfloat16")
                    for key in counts):
             raise AssertionError(f"{what}: no bf16 {kernel} launch on the "
                                  "tensor cores")
+    if f32 and not (any(key.startswith("gather_gemm/simt_")
+                        and key.endswith("/float32") for key in counts)
+                    and "searchsorted/gallop/int64" in counts):
+        raise AssertionError(f"{what}: no f32 K2 launch on the narrow or "
+                             "tiled kernel, or no K1 launch")
     return counts
+
+
+@contextlib.contextmanager
+def recorded_k1_calls(calls):
+    """Every K1 call (`search.searchsorted_segments`) made inside is
+    counted in `calls` by (site, keys shape, queries shape, with_miss),
+    with a copy of its first keys and queries: site is the chain of the
+    three callers above it, e.g. "conv_plan/build_kernel_map/lookup"."""
+    from fcaf3d_tpu_torch.ops.sparse import search
+
+    real = search.searchsorted_segments
+
+    def call(keys, queries, with_miss=False, layout="sm", **kw):
+        f = sys._getframe(1)
+        site = "/".join(g.f_code.co_name for g in (
+            f.f_back.f_back, f.f_back, f))
+        key = (site, tuple(keys.shape), tuple(queries.shape), with_miss)
+        if key not in calls:
+            calls[key] = [0, keys.clone(), queries.clone()]
+        calls[key][0] += 1
+        return real(keys, queries, with_miss, layout, **kw)
+
+    search.searchsorted_segments = call
+    try:
+        yield
+    finally:
+        search.searchsorted_segments = real
+
+
+def k1_path_phase(torch, calls, runs, what):
+    """K1 at every distinct call of a path recorded over `runs` runs
+    (`recorded_k1_calls`): exactly equal to plain and to the earlier kernel,
+    timed beside the earlier kernel and `torch.searchsorted` (`k1_case`).
+    Returns the
+    records by call, each with its launches a run, and the device ms a run
+    of K1 and of the earlier kernel summed over the calls."""
+    shapes = {}
+    for (site, kshape, qshape, miss), (n, kk, qq) in sorted(
+            calls.items(), key=lambda kv: -kv[1][2].numel()):
+        name = (f"{site} B{kshape[0]} N{kshape[1]} Q{list(qshape[1:])}"
+                f"{' with_miss' if miss else ''}")
+        k1_case(torch, name, kk, qq, miss, shapes, time_plain=False)
+        shapes[name]["launches"] = n / runs
+    total = {k: sum(r[k] * r["launches"] for r in shapes.values())
+             for k in ("ms", "earlier_ms")}
+    log(f"   K1 over the {len(shapes)} distinct calls of {what}: "
+        f"{sum(r['launches'] for r in shapes.values()):g} launches a run, "
+        f"{total['ms']:.4f} ms of device time a run (the earlier kernel "
+        f"{total['earlier_ms']:.4f})")
+    return {"calls": shapes, "ms_per_run": total["ms"],
+            "earlier_ms_per_run": total["earlier_ms"]}
 
 
 def check_path_launches(launches, path):
@@ -742,6 +1052,8 @@ def k2_train_case(torch, idx_n, c, e, how):
         if not (diff <= tol and torch.isfinite(got).all()):
             raise AssertionError(f"K2 {how} {dname} B={b}: max abs diff "
                                  f"{diff} > {tol}")
+        if dname == "float32":
+            k2_equal_simt(torch, got, x, src, w, {}, f"{how} B={b}")
         r = k2_timing(torch, x, src, w, {}, dname)
         log(f"   K2 {how} {dname} map {tuple(src.shape)} C={cin} -> "
             f"E={cout}: ok (max abs diff {diff:.3g}); {r['variant']} "
@@ -782,16 +1094,21 @@ def train_batch(cfg, batch, seed0):
 
 
 def train_phase(torch, cfg, batch, device):
-    """bf16 training at batch 8: a warm-up step, then five timed steps.
-    Returns launches per kernel over the timed steps, and the K2 / K4
-    launches by variant (all bf16 ones on the tensor cores)."""
+    """bf16 training at batch 8: a warm-up step whose K1 calls are checked
+    and timed (`k1_path_phase`), then five timed steps. Returns launches per
+    kernel over the timed steps, the launches by variant
+    (`check_variants`) and the K1 record."""
     from fcaf3d_tpu_torch import _native
     from fcaf3d_tpu_torch.train import create_train_state, make_train_step
 
     model, opt, _ = create_train_state(cfg, seed=0, device=device)
     step = make_train_step(model, cfg, opt)
-    step(batch)  # warm-up: cuBLAS and the allocator
+    calls = {}
+    with recorded_k1_calls(calls):  # warm-up: cuBLAS and the allocator
+        step(batch)
     torch.cuda.synchronize()
+    k1 = k1_path_phase(torch, calls, 1, f"one batch-{TRAIN_BATCH} train step")
+    calls.clear()  # the recorded copies must not count in the peak memory
     torch.cuda.reset_peak_memory_stats()
     _native.reset_launches()
     times, metrics = [], []
@@ -824,8 +1141,8 @@ def train_phase(torch, cfg, batch, device):
         f"peak memory {peak / 2**30:.2f} GiB; {n_conv} conv kernels with "
         f"finite non-zero gradients; launches {launches}")
     check_path_launches(launches, "fcaf3d_training")
-    return launches, check_tc_variants("bf16 training",
-                                       ("gather_gemm", "gather_dw"))
+    return launches, check_variants("bf16 training",
+                                    ("gather_gemm", "gather_dw")), k1
 
 
 def head_batch(torch, cfg, extent, b=2, boxes_per_scene=3, seed=0):
@@ -999,7 +1316,7 @@ def profile_inference(torch, cfg, scans):
         wall = time.perf_counter() - t0
     log_profile(prof, wall, "1 bf16 inference scan")
     log(f"   port launches {dict(_native.LAUNCHES)}")
-    check_tc_variants("profiled scan", ("gather_gemm",))
+    check_variants("profiled scan", ("gather_gemm",))
 
 
 def profile_train(torch, cfg, batch):
@@ -1667,6 +1984,7 @@ def main():
     t_start = time.perf_counter()
     smi = device_phase(torch)
     sys.path.insert(0, REPO)
+    from fcaf3d_tpu_torch import _native
     from fcaf3d_tpu_torch.configs import fcaf3d_scannet, votenet_sunrgbd
 
     build_phase()
@@ -1689,13 +2007,19 @@ def main():
         torch, cfg, [maps, backbone_maps(clouds, cfg, "cuda")]))
     log("== 5 inference: fcaf3d_scannet, bf16, batch 1, 100000 points per "
         "scan")
-    infer_launches, infer_variants = slice_phase(torch, cfg, scans, "cuda")
-    compare_f32(torch, cfg, scans[0], "cuda")
+    infer_launches, infer_variants, k1_infer = slice_phase(torch, cfg, scans,
+                                                           "cuda")
+    rec["gather_gemm"]["f32_scan"] = compare_f32(torch, cfg, scans[0], "cuda")
     log(f"== 6 training: fcaf3d_scannet, bf16, batch {TRAIN_BATCH}, "
         f"{cfg.num_points} points per scan")
-    train_launches, train_variants = train_phase(torch, cfg, batch, "cuda")
+    train_launches, train_variants, k1_train = train_phase(torch, cfg, batch,
+                                                           "cuda")
+    _native.reset_launches()
     compare_train_tiny(torch, "cuda")
     compare_train_f32(torch, cfg, "cuda")
+    check_variants("f32 train steps", f32=True)
+    rec["searchsorted"]["path_calls"] = {"fcaf3d_inference": k1_infer,
+                                         "fcaf3d_training": k1_train}
     vcfg = votenet_sunrgbd()
     log("== 7 K5 and K6 against their plain versions, VoteNet-path shapes")
     rec.update(pointnet_kernel_phase(torch, vcfg, "cuda"))
@@ -1703,9 +2027,9 @@ def main():
         "points per scan")
     vote_launches, vote_variants = votenet_phase(torch, vcfg, "cuda")
     log(f"== all phases passed in {time.perf_counter() - t_start:.1f} s")
-    for what, ms, simt, plain in NOT_FASTER:
-        log(f"   not faster than plain and SIMT: {what}: kernel {ms:.4f} ms, "
-            f"simt {simt:.4f}, plain {plain:.4f}")
+    for what, ms, first, second in NOT_FASTER:
+        log(f"   not faster than a yardstick: {what}: kernel {ms:.4f} ms, "
+            f"yardsticks {first} and {second} ms")
     by_path = {"fcaf3d_inference": infer_launches,
                "fcaf3d_training": train_launches,
                "votenet_inference": vote_launches}
@@ -1718,7 +2042,7 @@ def main():
              "launches": sum(p[name] for p in by_path.values()),
              "launches_by_path": {k: p[name] for k, p in by_path.items()},
              **rec[name]}
-        if name in ("gather_gemm", "gather_dw", "fps"):
+        if name in ("searchsorted", "gather_gemm", "gather_dw", "fps"):
             k["launches_by_variant"] = {
                 path: {key: n for key, n in v.items()
                        if key.startswith(name + "/")}

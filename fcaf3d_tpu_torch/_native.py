@@ -13,9 +13,10 @@ Each C entry point launches on the stream it is given and returns the
 `cudaError_t` of the launch; the wrappers in `ops/` raise on a
 non-zero value. `LAUNCHES` counts the launches of each kernel (the wrappers
 add one per launch), so a run can show which kernels its path went through;
-`VARIANT_LAUNCHES` counts the K2, K4 and K5 launches by (kernel, variant,
-dtype), so a run can show that its bf16 convs ran on the tensor cores and
-its farthest-point sampling on the cluster kernel.
+`VARIANT_LAUNCHES` counts the K1, K2, K4 and K5 launches by (kernel,
+variant, dtype), so a run can show that its searches ran on the gallop
+kernel, its bf16 convs on the tensor cores, its f32 convs on the narrow and
+tiled SIMT kernels and its farthest-point sampling on the cluster kernel.
 """
 from __future__ import annotations
 
@@ -33,6 +34,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
+SMS = 132  # streaming multiprocessors of an H100 SXM (launch plans)
 
 # kernel name -> launches since the last `reset_launches()`
 LAUNCHES = {"searchsorted": 0, "gather_gemm": 0, "gather_max": 0,
@@ -141,9 +143,16 @@ def _bind(lib):
     p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     lib.fcaf3d_searchsorted.argtypes = [p, p, p, i64, i64, i64, i, p]
     lib.fcaf3d_searchsorted.restype = i
+    lib.fcaf3d_searchsorted_gallop.argtypes = [
+        p, p, p, i64, i64, i64, i64, i64, i, p]
+    lib.fcaf3d_searchsorted_gallop.restype = i
     lib.fcaf3d_gather_gemm.argtypes = [
         p, p, p, p, p, p, p, p, i64, i64, i64, i64, i64, i64, i64, i64, i, i, p]
     lib.fcaf3d_gather_gemm.restype = i
+    lib.fcaf3d_gather_gemm_simt.argtypes = [
+        p, p, p, p, p, p, p, p, p, i64, i64, i64, i64, i64, i64, i64, i64, i,
+        i, i, i, i, i, p]
+    lib.fcaf3d_gather_gemm_simt.restype = i
     lib.fcaf3d_gather_gemm_tc.argtypes = [
         p, p, p, p, p, p, p, p, p, i64, i64, i64, i64, i64, i64, i, i, i, i,
         i, i64, i64, p]

@@ -4,7 +4,7 @@
   miss (idx == N) adding zero, with the optional inference epilogue
   `act(out * scale + shift [+ add]) * vmask`. Kernel K2: bf16 on the tensor
   cores (`csrc/gather_gemm_tc.cu`), f32 on the CUDA cores
-  (`csrc/gather_gemm.cu`).
+  (`csrc/gather_gemm_simt.cu`).
 - `fused_gather_max`: out[b, m] = max_k feats[b, idx[b, m, k]] per channel,
   a miss being -inf and an all-miss row finfo.min. Kernel K3
   (`csrc/gather_max.cu`).
@@ -13,14 +13,18 @@
   Kernel K4: bf16 on the tensor cores (`csrc/gather_dw_tc.cu`), f32 on the
   CUDA cores (`csrc/gather_dw.cu`).
 
-K2 and K4 each have three variants, picked by `k2_variant` / `k4_variant`
-from (C, E, K, dtype) alone: "tc" (bf16, C % 8 == 0: cp.async row gathers
-into a shared-memory ring, ldmatrix, mma.sync m16n8k16 with f32
-accumulators), "tc_folded" (bf16, C < 16: the K offsets folded into the
-MMA's depth, or into its M for K4) and "simt" (f32, whose gates hold the
-card to the CPU, and any bf16 shape the tensor-core kernels do not take:
-the first kernels: float FMAs on the CUDA cores). Tiles and slices are
-functions of the shapes only (`k2_tiles`, `k4_tiles`, `dw_slices`).
+The variants are picked by `k2_variant` / `k4_variant` from (C, E, K,
+dtype) alone: "tc" (bf16, C % 8 == 0: cp.async row gathers into a
+shared-memory ring, ldmatrix, mma.sync m16n8k16 with f32 accumulators) and
+"tc_folded" (bf16, C < 16: the K offsets folded into the MMA's depth, or
+into its M for K4) for both; K2 in f32 (whose gates hold the card to the
+CPU), and in bf16 at shapes the tensor-core kernels do not take, runs float
+FMAs on the CUDA cores: "simt_narrow" (C < 16, a thread an output row) or
+"simt_tiled" (C >= 16, register-tiled, cp.async ring), with the
+arithmetic of the first SIMT kernel "simt" (`csrc/gather_gemm.cu`), so
+equal to it; only `_variant=` reaches that one. K4 off the tensor cores
+is "simt" (`csrc/gather_dw.cu`). Tiles and slices are functions of the shapes only
+(`k2_tiles`, `k4_tiles`, `dw_slices`).
 
 Each wrapper runs its kernel on a CUDA tensor and its plain PyTorch version
 (`*_plain`, the same function) on a CPU tensor; there is no fallback from
@@ -37,13 +41,17 @@ import numpy as np
 import torch
 
 from ... import _native
+from ..._native import SMS
 
 _ACTS = {None: 0, "relu": 1, "elu": 2}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 N_CHUNKS = 3  # offset chunks summed in order (the JAX fallback's n_chunks)
-VARIANTS = ("simt", "tc", "tc_folded")
+K2_VARIANTS = ("simt_narrow", "simt_tiled", "tc", "tc_folded", "simt")
+K4_VARIANTS = ("simt", "tc", "tc_folded")
 _TC_VARIANT_IDS = {"tc": 1, "tc_folded": 2}
-SMS = 132  # streaming multiprocessors of an H100 SXM
+_SIMT_VARIANT_IDS = {"simt_narrow": 1, "simt_tiled": 2}
+NARROW_MAX_C = 16  # K2 narrow: C below this
+NARROW_ROWS = 128  # K2 narrow: output rows (threads) a block
 K2_FOLD_MAX_DEPTH = 512  # K2 folded: K * C, padded to 16, at most this
 K4_FOLD_ROWS = 128  # K4 folded: K * C rows fit one block tile of this
 
@@ -57,24 +65,32 @@ def k2_variant(c: int, e: int, k: int, dtype) -> str:
     """K2's variant for C input and E output channels over K offsets: bf16
     on the tensor cores ("tc_folded" below 16 channels, "tc" at C % 8 ==
     0), everything else (f32, or E or C off the 8-channel granule) on the
-    SIMT kernel."""
-    if dtype != torch.bfloat16 or e % 8:
-        return "simt"
-    if c < 16 and fold_depth(k, c) <= K2_FOLD_MAX_DEPTH:
-        return "tc_folded"
-    return "tc" if c % 8 == 0 else "simt"
+    CUDA cores ("simt_narrow" below 16 channels, else "simt_tiled")."""
+    if dtype == torch.bfloat16 and e % 8 == 0:
+        if c < 16 and fold_depth(k, c) <= K2_FOLD_MAX_DEPTH:
+            return "tc_folded"
+        if c % 8 == 0:
+            return "tc"
+    return "simt_narrow" if c < NARROW_MAX_C else "simt_tiled"
 
 
 def k2_tiles(variant: str, b: int, m: int, e: int, k: int):
-    """K2's (tile rows, tile channels, offset chunks) on the tensor cores:
+    """K2's (tile rows, tile channels, offset chunks). On the tensor cores
     128 x 128 where those tiles fill the SMs and E > 64, else 64 x 64; the
-    folded variant 128 x 8 for E <= 8. Where even the 64 x 64 tiles do not
-    fill the SMs, the generic variant splits K >= 3 offsets into the
+    folded variant 128 x 8 for E <= 8. "simt_tiled" 128 x 64 where those
+    tiles fill the SMs, else 64 x 64; "simt_narrow" NARROW_ROWS rows by 8
+    channels for E <= 8, else by 16. Where even the 64 x 64 tiles do not
+    fill the SMs, "tc" and "simt_tiled" split K >= 3 offsets into the
     `N_CHUNKS` chunks of the plain version, each in blocks of its own. A
     function of the shapes only, so a shape always sums in one order."""
     if variant == "tc_folded":
         return ((128, 8) if e <= 8 else (64, 64)) + (1,)
-    if e > 64 and b * -(-m // 128) * -(-e // 128) >= SMS:
+    if variant == "simt_narrow":
+        return (NARROW_ROWS, 8 if e <= 8 else 16, 1)
+    if variant == "simt_tiled" and b * -(-m // 128) * -(-e // 64) >= SMS:
+        return (128, 64, 1)
+    if variant == "tc" and e > 64 \
+            and b * -(-m // 128) * -(-e // 128) >= SMS:
         return (128, 128, 1)
     small = b * -(-m // 64) * -(-e // 64) < SMS and k >= N_CHUNKS
     return (64, 64, N_CHUNKS if small else 1)
@@ -226,26 +242,37 @@ def _fused_gather_gemm_cuda(feats, idx, weight, scale, shift, act, vmask, add,
     if not all(t is None or t.is_contiguous() for t in operands):
         raise ValueError("K2 takes contiguous tensors")
     variant = variant or k2_variant(c, e, k, feats.dtype)
-    if variant not in VARIANTS:
-        raise ValueError(f"K2 variant must be one of {VARIANTS}, got "
+    if variant not in K2_VARIANTS:
+        raise ValueError(f"K2 variant must be one of {K2_VARIANTS}, got "
                          f"{variant!r}")
-    out = torch.empty((b, m, e), dtype=feats.dtype, device=dev)
+    if variant == "simt_narrow" and c >= NARROW_MAX_C:
+        raise ValueError(f"K2 simt_narrow takes C < {NARROW_MAX_C}, got {c}")
+    out = feats.new_empty((b, m, e))
+    (_, k1), (_, k2), _ = chunk_bounds(k)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
     if variant == "simt":
-        (_, k1), (_, k2), _ = chunk_bounds(k)
         err = lib.fcaf3d_gather_gemm(
             feats.data_ptr(), idx.data_ptr(), weight.data_ptr(), ptr(scale),
             ptr(shift), ptr(add), ptr(vmask), out.data_ptr(), b, n, m, k, c,
             e, k1, k2, _DTYPES[feats.dtype], _ACTS[act],
             _native.stream_ptr(dev))
+    elif variant in _SIMT_VARIANT_IDS:
+        tile_m, tile_n, n_split = k2_tiles(variant, b, m, e, k)
+        part = (feats.new_empty((n_split, b, m, e), dtype=torch.float32)
+                if n_split > 1 else None)
+        err = lib.fcaf3d_gather_gemm_simt(
+            feats.data_ptr(), idx.data_ptr(), weight.data_ptr(), ptr(scale),
+            ptr(shift), ptr(add), ptr(vmask), out.data_ptr(), ptr(part), b,
+            n, m, k, c, e, k1, k2, _DTYPES[feats.dtype], _ACTS[act],
+            _SIMT_VARIANT_IDS[variant], tile_m, tile_n, n_split,
+            _native.stream_ptr(dev))
     else:
         tile_m, tile_n, n_split = k2_tiles(variant, b, m, e, k)
-        part = (torch.empty((n_split, b, m, e), dtype=torch.float32,
-                            device=dev) if n_split > 1 else None)
-        (_, k1), (_, k2), _ = chunk_bounds(k)
+        part = (feats.new_empty((n_split, b, m, e), dtype=torch.float32)
+                if n_split > 1 else None)
         feats, weight = _aligned(feats), _aligned(weight)
         err = lib.fcaf3d_gather_gemm_tc(
             feats.data_ptr(), idx.data_ptr(), weight.data_ptr(), ptr(scale),
@@ -272,7 +299,8 @@ def fused_gather_gemm(feats, idx, weight, scale=None, shift=None, act=None,
 
     Raises ValueError when act/vmask/add come without scale (the TPU kernel
     silently dropped them). `_variant` forces a kernel variant on a CUDA
-    tensor (a yardstick of the measurements; the path never passes it).
+    tensor (a yardstick of the measurements, "simt" the first SIMT
+    kernel; the path never passes it).
     """
     has_epi = _check_epilogue(scale, shift, act, vmask, add)
     if feats.device.type == "cpu":
@@ -381,8 +409,8 @@ def _fused_gather_dw_cuda(feats, idx, dout, variant=None):
     m, k = idx.shape[1:]
     e = dout.shape[2]
     variant = variant or k4_variant(c, e, k, feats.dtype)
-    if variant not in VARIANTS:
-        raise ValueError(f"K4 variant must be one of {VARIANTS}, got "
+    if variant not in K4_VARIANTS:
+        raise ValueError(f"K4 variant must be one of {K4_VARIANTS}, got "
                          f"{variant!r}")
     per, n_slices = dw_slices(b, m, k, c, e, variant)
     out = torch.empty((k, c, e), dtype=torch.float32, device=dev)

@@ -7,14 +7,33 @@ that is absent, or is the SENTINEL, returns N). Queries come in "sm"
 layout only names the shape.
 
 On a CUDA tensor the search is kernel K1 (`csrc/search.cu`); on a CPU tensor
-it is the plain PyTorch version, `searchsorted_segments_plain`.
+it is the plain PyTorch version, `searchsorted_segments_plain`. K1's
+variants: "gallop" (the path's: a thread walks one segment of the queries
+over consecutive rows, each search starting from its previous answer) and
+"binary" (the first kernel, a thread's binary search over the keys in
+global memory), reachable only through `_variant=`, as the yardstick of the
+measurements. `k1_gallop_plan` sets the gallop launch from the shapes
+alone.
 """
 from __future__ import annotations
 
 import torch
 
 from ... import _native
+from ..._native import SMS
 from .tensor import SENTINEL
+
+K1_VARIANTS = ("gallop", "binary")
+K1_THREADS = 256  # a CTA of the gallop kernel (kThreads there)
+K1_RESIDENT = SMS * 2048  # threads the card holds at once
+
+
+def k1_gallop_plan(b: int, m: int, s: int) -> int:
+    """The gallop kernel's rows a thread for B samples of M rows of S
+    segments: one while every (row, segment) can have a resident thread of
+    its own, else as many as spread the queries over the resident threads
+    (each search after a thread's first starts from the one before)."""
+    return max(1, -(-b * m * s // K1_RESIDENT))
 
 
 def searchsorted_segments_plain(keys: torch.Tensor, queries: torch.Tensor,
@@ -30,7 +49,7 @@ def searchsorted_segments_plain(keys: torch.Tensor, queries: torch.Tensor,
     return idx.int().reshape(queries.shape)
 
 
-def _searchsorted_cuda(keys, queries, with_miss):
+def _searchsorted_cuda(keys, queries, with_miss, variant=None, plan=None):
     lib = _native.load()
     if keys.device.type != "cuda" or queries.device != keys.device:
         raise ValueError("K1 needs keys and queries on one CUDA device, got "
@@ -43,19 +62,31 @@ def _searchsorted_cuda(keys, queries, with_miss):
                          f"queries {tuple(queries.shape)}")
     if not (keys.is_contiguous() and queries.is_contiguous()):
         raise ValueError("K1 takes contiguous keys and queries")
+    variant = variant or "gallop"
+    if variant not in K1_VARIANTS:
+        raise ValueError(f"K1 variant must be one of {K1_VARIANTS}, got "
+                         f"{variant!r}")
     b, n = keys.shape
-    out = torch.empty(queries.shape, dtype=torch.int32, device=keys.device)
-    err = lib.fcaf3d_searchsorted(
-        keys.data_ptr(), queries.data_ptr(), out.data_ptr(), b, n,
-        queries.numel() // max(b, 1), int(with_miss),
-        _native.stream_ptr(keys.device))
-    _native.LAUNCHES["searchsorted"] += 1
-    _native.check(err, "searchsorted")
+    q = queries.numel() // max(b, 1)
+    # segments: the last axis of [B, M, S] queries; else one segment
+    s = queries.shape[-1] if queries.dim() == 3 else 1
+    out = queries.new_empty(queries.shape, dtype=torch.int32)
+    args = (keys.data_ptr(), queries.data_ptr(), out.data_ptr(), b, n)
+    stream = _native.stream_ptr(keys.device)
+    if variant == "gallop":
+        per_run = plan or k1_gallop_plan(b, q // max(s, 1), s)
+        err = lib.fcaf3d_searchsorted_gallop(
+            *args, q // max(s, 1), s, per_run, int(with_miss), stream)
+    else:
+        err = lib.fcaf3d_searchsorted(*args, q, int(with_miss), stream)
+    _native.count_launch("searchsorted", variant, keys.dtype)
+    _native.check(err, f"searchsorted ({variant})")
     return out
 
 
 def searchsorted_segments(keys: torch.Tensor, queries: torch.Tensor,
-                          with_miss: bool = False, layout: str = "sm"):
+                          with_miss: bool = False, layout: str = "sm", *,
+                          _variant=None, _plan=None):
     """Per-sample searchsorted(side='left') of segmented query arrays.
 
     Args:
@@ -65,9 +96,13 @@ def searchsorted_segments(keys: torch.Tensor, queries: torch.Tensor,
 
     Returns:
         int32 in [0, N], same shape as `queries`.
+
+    `_variant` (one of K1_VARIANTS) and `_plan` (the gallop kernel's rows a
+    thread) force the kernel and its launch on a CUDA tensor (the yardstick
+    and the edge clouds of the measurements; the path never passes them).
     """
     if layout not in ("sm", "ms"):
         raise ValueError(f"layout must be 'sm' or 'ms', got {layout!r}")
     if keys.device.type == "cpu":
         return searchsorted_segments_plain(keys, queries, with_miss)
-    return _searchsorted_cuda(keys, queries, with_miss)
+    return _searchsorted_cuda(keys, queries, with_miss, _variant, _plan)

@@ -1,10 +1,12 @@
-"""What surrounds the tensor-core kernels of K2 and K4 (the kernels run only
-on a GPU, where `chip_smoke.py` holds them against their plain versions):
-the variant rules, the tile and slice choices, `chip_smoke`'s work counter
-that its bounds rest on, and the build's source hash.
+"""What surrounds the kernels of K2 and K4 (the kernels run only on a GPU,
+where `chip_smoke.py` holds them against their plain versions): the variant
+rules, the tile and slice choices and what the wrapper hands the kernel,
+`chip_smoke`'s work counter that its bounds rest on, and the build's source
+hash.
 """
 import ast
 import os
+import re
 import shutil
 
 import numpy as np
@@ -25,10 +27,12 @@ DFEATS_SHAPES = ((64, 64, 27), (128, 64, 27))
     DFEATS_SHAPES))
 def test_k2_variant_rules(c, e, k):
     """bf16 goes to the tensor cores (folded below 16 channels), f32 to the
-    SIMT kernel, at every K2 shape of the path and both dFeats products."""
+    CUDA cores (narrow below 16 channels, else tiled), at every K2 shape of
+    the path and both dFeats products; never to the first SIMT kernel."""
     want = "tc_folded" if c < 16 else "tc"
     assert tg.k2_variant(c, e, k, torch.bfloat16) == want
-    assert tg.k2_variant(c, e, k, torch.float32) == "simt"
+    want = "simt_narrow" if c < 16 else "simt_tiled"
+    assert tg.k2_variant(c, e, k, torch.float32) == want
 
 
 @pytest.mark.parametrize("shape", sorted({s for s, _ in chip_smoke.K4_SHAPES}))
@@ -42,12 +46,16 @@ def test_k4_variant_rules(shape):
 @pytest.mark.parametrize("pick", [tg.k2_variant, tg.k4_variant])
 def test_variants_off_the_granule_stay_simt(pick):
     """bf16 with E, or C >= 16, off the 8-channel (16-byte) granule of
-    cp.async stays on the SIMT kernel; C < 16 folds whatever C is."""
+    cp.async stays on the CUDA cores (K2 on its narrow or tiled kernel, K4
+    on its SIMT one); C < 16 folds whatever C is."""
     bf = torch.bfloat16
-    assert pick(64, 18, 27, bf) == "simt"
-    assert pick(20, 64, 27, bf) == "simt"
+    k2 = pick is tg.k2_variant
+    assert pick(64, 18, 27, bf) == ("simt_tiled" if k2 else "simt")
+    assert pick(20, 64, 27, bf) == ("simt_tiled" if k2 else "simt")
     assert pick(3, 64, 27, bf) == "tc_folded"
     assert pick(24, 64, 1, bf) == "tc"
+    if k2:
+        assert pick(3, 18, 27, bf) == "simt_narrow"
 
 
 def test_fold_limits():
@@ -56,7 +64,7 @@ def test_fold_limits():
     bf = torch.bfloat16
     assert tg.fold_depth(27, 3) == 96 and tg.fold_depth(27, 1) == 32
     assert tg.k2_variant(15, 64, 27, bf) == "tc_folded"  # depth 416
-    assert tg.k2_variant(15, 64, 40, bf) == "simt"  # depth 608
+    assert tg.k2_variant(15, 64, 40, bf) == "simt_narrow"  # depth 608
     assert tg.k4_variant(4, 64, 27, bf) == "tc_folded"  # 108 rows
     assert tg.k4_variant(5, 64, 27, bf) == "simt"  # 135 rows
 
@@ -221,3 +229,140 @@ def test_variant_counts_reset_with_the_launches():
     _native.reset_launches()
     assert _native.VARIANT_LAUNCHES == {}
     assert _native.LAUNCHES["gather_gemm"] == 0
+
+
+def _simt_source():
+    with open(os.path.join(REPO, "fcaf3d_tpu_torch", "csrc",
+                           "gather_gemm_simt.cu")) as f:
+        return f.read()
+
+
+def _constant(src, name):
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+
+@pytest.mark.parametrize("b,m", [(1, 43520), (1, 1024), (8, 30720), (1, 5)])
+@pytest.mark.parametrize("c,e,k", list(chip_smoke.K2_SHAPES) + list(
+    DFEATS_SHAPES))
+def test_k2_simt_grids_cover_every_output_once(b, m, c, e, k):
+    """The f32 K2 grids, replayed with the kernel's own constants and index
+    rules (read from `csrc/gather_gemm_simt.cu`), produce every (sample,
+    row, channel) exactly once in each offset chunk they run: a narrow
+    thread one row by its block's NE channels, a tiled thread kTM rows by
+    kTN channels of its block's BM x kBN tile; the split runs each of the
+    plain version's chunks once, and the chunks partition the offsets."""
+    src = _simt_source()
+    variant = tg.k2_variant(c, e, k, torch.float32)
+    tm, tn, split = tg.k2_tiles(variant, b, m, e, k)
+    assert tg.k2_tiles(variant, b, m, e, k) == (tm, tn, split)
+    cover = np.zeros((b, m, e), np.int64)
+    if variant == "simt_narrow":
+        assert c < tg.NARROW_MAX_C and split == 1
+        assert tm == _constant(src, "kNarrowThreads") == tg.NARROW_ROWS
+        assert f"if (tile_n == {tn}) return launch_narrow_c<T, {tn}>(a);" in src
+        # W's [K, C, NE] slice fits a block's shared memory
+        assert k * c * tn * 4 <= 227 * 1024
+        for bx in range(-(-m // tm)):
+            rows = bx * tm + np.arange(tm)
+            rows = rows[rows < m]
+            for by in range(-(-e // tn)):
+                cols = by * tn + np.arange(tn)
+                cols = cols[cols < e]
+                cover[:, rows[:, None], cols[None, :]] += 1
+    else:
+        assert variant == "simt_tiled" and c >= tg.NARROW_MAX_C
+        tile_m, tile_n = _constant(src, "kTM"), _constant(src, "kTN")
+        bn = _constant(src, "kBN")
+        assert tn == bn and f"if (tile_m == {tm})" in src \
+            and f"launch_tiled<T, {tm}, true>(a)" in src
+        if tm == 128:
+            assert b * -(-m // 128) * -(-e // bn) >= tg.SMS
+        threads = (tm // tile_m) * (bn // tile_n)
+        assert threads in (128, 256)
+        # the (row, channel) pairs of one block tile that each thread
+        # covers: rows ty + i * (BM / kTM), channels tx * kTN + j
+        assert "const int m = m0 + ty + i * P::kRowStep;" in src
+        assert "static constexpr int kRowStep = BM / kTM;" in src
+        tile = np.zeros((tm, bn), np.int64)
+        for t in range(threads):
+            tx, ty = t % (bn // tile_n), t // (bn // tile_n)
+            tile[ty + np.arange(tile_m) * (tm // tile_m),
+                 tx * tile_n:(tx + 1) * tile_n] += 1
+        for _ in range(split):  # blockIdx.z = sample x chunk
+            for by in range(-(-m // tm)):
+                for bx in range(-(-e // bn)):  # masked at M and E
+                    r0, c0 = by * tm, bx * bn
+                    rows, cols = min(tm, m - r0), min(bn, e - c0)
+                    cover[:, r0:r0 + rows, c0:c0 + cols] += \
+                        tile[:rows, :cols]
+        if split > 1:
+            assert b * -(-m // 64) * -(-e // 64) < tg.SMS and k >= split
+            bounds = tg.chunk_bounds(k)
+            assert bounds[0][0] == 0 and bounds[-1][1] == k
+            assert all(lo < hi for lo, hi in bounds)
+            assert all(a[1] == b_[0] for a, b_ in zip(bounds, bounds[1:]))
+    assert (cover == split).all()
+
+
+def test_k2_simt_split_at_the_stride64_convs():
+    """f32 s64 C512 E512 at batch 1 splits its offsets in 64 x 64 tiles;
+    the s8 conv and the batch-8 s64 conv fill the SMs without."""
+    assert tg.k2_tiles("simt_tiled", 1, 1024, 512, 27) == (64, 64, 3)
+    assert tg.k2_tiles("simt_tiled", 1, 30720, 64, 27) == (128, 64, 1)
+    assert tg.k2_tiles("simt_tiled", 8, 1024, 512, 27) == (128, 64, 1)
+    assert tg.k2_tiles("simt_tiled", 1, 1024, 512, 1) == (64, 64, 1)
+    assert tg.k2_tiles("simt_narrow", 1, 20000, 8, 27) == (128, 8, 1)
+    assert tg.k2_tiles("simt_narrow", 1, 43520, 64, 27) == (128, 16, 1)
+
+
+class _FakeSimtLibrary:
+    """Records the arguments of each C call instead of launching."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        if not name.startswith("fcaf3d_"):
+            raise AttributeError(name)
+        return lambda *args: self.calls.append((name, args)) or 0
+
+
+@pytest.mark.parametrize("c,e,k,b,m", [(1, 8, 27, 1, 300), (3, 64, 27, 2, 40),
+                                       (512, 512, 27, 1, 1024),
+                                       (64, 64, 27, 1, 30720),
+                                       (256, 512, 1, 1, 70)])
+def test_k2_simt_kernels_receive_the_plain_chunks(monkeypatch, c, e, k, b, m):
+    """What the f32 wrapper hands `fcaf3d_gather_gemm_simt`: the chunk
+    boundaries are `chunk_bounds(K)`'s (the plain version's summation
+    chunks, where `gather_gemm.cu` closes them), the variant and tile are
+    `k2_variant` / `k2_tiles`, the split gets its [3, B, M, E] f32
+    partials; each launch is counted by variant. `_variant="simt"` reaches
+    the first SIMT kernel with the same boundaries."""
+    from tests.test_torch_kernels import _cuda_looking
+
+    lib = _FakeSimtLibrary()
+    monkeypatch.setattr(_native, "load", lambda: lib)
+    monkeypatch.setattr(_native, "stream_ptr", lambda dev: 0)
+    _native.reset_launches()
+    n = 2 * m
+    feats = _cuda_looking(torch.zeros(b, n, c))
+    idx = _cuda_looking(torch.full((b, m, k), n, dtype=torch.int32))
+    w = _cuda_looking(torch.zeros(k, c, e))
+    with torch.no_grad():
+        tg.fused_gather_gemm(feats, idx, w)
+        tg.fused_gather_gemm(feats, idx, w, _variant="simt")
+    (name, args), (old_name, old_args) = lib.calls
+    (_, k1), (_, k2), (_, last) = tg.chunk_bounds(k)
+    assert last == k
+    variant = tg.k2_variant(c, e, k, torch.float32)
+    tile_m, tile_n, split = tg.k2_tiles(variant, b, m, e, k)
+    assert name == "fcaf3d_gather_gemm_simt"
+    assert args[9:17] == (b, n, m, k, c, e, k1, k2)
+    assert args[17:23] == (0, 0, {"simt_narrow": 1, "simt_tiled": 2}[variant],
+                           tile_m, tile_n, split)
+    assert (args[8] is None) == (split == 1)
+    assert old_name == "fcaf3d_gather_gemm" and old_args[14:16] == (k1, k2)
+    assert _native.VARIANT_LAUNCHES == {
+        ("gather_gemm", variant, "float32"): 1,
+        ("gather_gemm", "simt", "float32"): 1}
+    _native.reset_launches()
