@@ -16,15 +16,18 @@ Phases (any failure raises and the script exits non-zero):
    equal keys across every L-th key, a compaction cumsum, random-order and
    all-SENTINEL queries, both K1 variants), K2 in f32 and bf16 with every
    epilogue (f32, and bf16 off the tensor cores' granule, equal to the
-   earlier kernel), K3 exact. Device times (CUDA events behind a sleep
+   earlier kernel), K3 exact (`torch.equal`) and equal to the first,
+   scalar kernel on the stem pool maps of batch 1 and batch 8 in f32 and
+   bf16, and on edge cases (C off the 16-byte vector, all-miss rows, ties,
+   K = 27). Device times (CUDA events behind a sleep
    kernel, so that the host's enqueue rate does not set them), timed in
    turns with the plain version and the yardsticks: for K1 the binary-search
    kernel and, for positions, `torch.searchsorted(out_int32=True)`;
    for f32 K2 the earlier kernel, for bf16 K2 and K4 the SIMT kernel, and one
    matmul on the pre-gathered rows (not the same function: it shows what
-   the GEMM alone costs). Each time is printed beside its bound (FLOPs
-   over the peak, bytes over the memory rate, from the real map's hits)
-   and its share of it.
+   the GEMM alone costs), for K3 the scalar kernel. Each time is printed
+   beside its bound (FLOPs over the peak, bytes over the memory rate, from
+   the real map's hits) and its share of it.
 4. The backward kernels, the same way, on the maps of one scan (batch 1)
    and of the batch-8 training batch: K4 (weight gradient) at every
    (C, E, K) of the training path in f32 and bf16, bitwise equal over two
@@ -34,8 +37,9 @@ Phases (any failure raises and the script exits non-zero):
 5. Inference: `init_detector(fcaf3d_scannet())` in bf16 and
    `inference_detector` on three 100 000-point scans, with zero overflow,
    every inference kernel launched, every bf16 K2 launch on the tensor
-   cores, every f32 K2 launch on the narrow or tiled kernel and every K1
-   launch on the gallop kernel (launches by variant printed); the warm-up
+   cores, every f32 K2 launch on the narrow or tiled kernel, every K1
+   launch on the gallop kernel and every K3 launch on the vector kernel
+   (launches by variant printed); the warm-up
    scan's K1 calls, each distinct one exact against plain and the
    earlier kernel and timed beside them; then one scan in f32 on the card
    against the plain path on the CPU (voxel keys and backbone kernel maps exactly
@@ -58,25 +62,31 @@ Phases (any failure raises and the script exits non-zero):
    batch 2 with a valid mask: exactly equal; plus S above the valid count,
    N beyond shared memory, N beyond the K5 cluster's registers, lattice tie
    clouds (SA1 and each side of every `fps_plan` boundary), every K5
-   cluster size of the sweep at SA1, and centres without a hit. Times at
-   batch 1; K5's beside its single-CTA kernel (the earlier one), the
-   operations bound and the serial floor (the cluster kernel at the
-   plan's cluster and CTA size with one point a thread, on a cloud with
-   one valid point a CTA: S - 1 steps of the protocol alone).
+   cluster size of the sweep at SA1; K6 also equal to its first kernel at
+   every shape, and on edge clouds (N % 4 != 0, N below one tile, M off
+   the CTA's centres, nsample above N, points at exactly r^2, masked and
+   not, centres without a hit). Times at batch 1; K5's beside its
+   single-CTA kernel (the earlier one), the operations bound and the
+   serial floor (the cluster kernel at the plan's cluster and CTA size
+   with one point a thread, on a cloud with one valid point a CTA: S - 1
+   steps of the protocol alone); K6's beside its first kernel (one warp a
+   centre), summed over a scan's five calls, and each call's host enqueue
+   time beside the first kernel's.
 8. VoteNet-v2 inference: `init_votenet(votenet_sunrgbd())` in f32 and
    `inference_votenet` on three 20 000-point scans, non-empty detections,
    five K5 and five K6 launches per scan, every K5 launch on the cluster
-   kernel; then one scan in f32 on the card against the CPU (every FPS and
-   SA1-SA4 group exactly equal, aggregation groups equal but for members
-   within 1e-4 of r^2, detections within tolerance), one scan in "vote"
-   mode, and the scans' wall and FPS device time with K5 against its single-CTA
-   kernel, in turns.
+   kernel and every K6 launch on the tiled kernel; then one scan in f32 on
+   the card against the CPU (every FPS and SA1-SA4 group exactly equal,
+   aggregation groups equal but for members within 1e-4 of r^2, detections
+   within tolerance), one scan in "vote" mode, and the scans' wall, FPS and
+   ball-query device time with K5 and K6 against the kernels they replaced,
+   in turns.
 
 Output: progress lines, then a JSON line of per-kernel results (launches
 of each main path: FCAF3D inference, FCAF3D training, VoteNet inference;
-K1, K2, K4 and K5 also by variant; the recorded shape's times, bound and
-share; K1 at every distinct call of the two FCAF3D paths, K2 at every f32
-path shape and over the f32 scan),
+K1-K6 also by variant; the recorded shape's times, bound and share; K1 at
+every distinct call of the two FCAF3D paths, K2 at every f32 path shape and
+over the f32 scan, K3 at both stem pool maps, K6 at every VoteNet shape),
 the `nvidia-smi` name/power-limit line, and last `{"ok": true, ...}`.
 
 Two further modes measure instead of checking (device and build first):
@@ -157,6 +167,9 @@ AGG_D2_TOL = 1e-4
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}
 HBM_BYTES_PER_S = 3.35e12
 SLEEP_CYCLES = 20_000_000  # ~10 ms of device clock ahead of timed launches
+# a sleep ahead of each timed FPS / ball query in a VoteNet scan, longer
+# than the host's enqueue of one call
+TURN_SLEEP_CYCLES = 1_000_000
 FPS_OPS = 9  # per K5 distance update: 3 sub, 3 mul, 2 add, 1 min
 FPS_SWEEP = (2, 4, 8, 16)  # K5 cluster sizes tried at SA1
 K1_EDGE_RUN = 7  # K1 gallop rows a thread on the edge clouds
@@ -309,6 +322,30 @@ def cuda_ms(torch, fn, reps=10):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def enqueue_us(torch, fn, reps=50):
+    """Host microseconds that a call of `fn` takes to return (its enqueue),
+    after one warm-up, while a sleep kernel holds the device so that no call
+    waits for the card."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / reps * 1e6
+
+
+def host_turns(torch, fns, reps=50):
+    """`enqueue_us` of each of `fns` (name -> callable), in turns as
+    `timed_turns` takes them. Returns name -> (mean, first, second)."""
+    times = {name: [] for name in fns}
+    for name in list(fns) + list(reversed(fns)):
+        times[name].append(enqueue_us(torch, fns[name], reps))
+    return {name: (sum(t) / len(t), t[0], t[1]) for name, t in times.items()}
 
 
 def timed_turns(torch, fns, reps=10):
@@ -541,7 +578,7 @@ def k1_phase(torch, cfg, maps):
     return rec
 
 
-def kernel_phase(torch, cfg, maps):
+def kernel_phase(torch, cfg, maps, maps8):
     from fcaf3d_tpu_torch.ops.sparse import gather_kernel as gk
 
     dev = maps["voxel_keys"][0].device
@@ -612,33 +649,83 @@ def kernel_phase(torch, cfg, maps):
     rec["gather_gemm"]["f32_shapes"] = f32_shapes
     k2_off_granule(torch, maps, gen)
 
-    # K3 on the stem pool map
-    idx, n = maps["s2_pool_k2s2"]
-    k3_err = 0.0
-    for dname in ("float32", "bfloat16"):
-        feats = torch.randn(idx.shape[0], n, 64, generator=gen,
-                            device=dev).to(getattr(torch, dname))
+    rec["gather_max"] = k3_phase(torch, maps, maps8, gen)
+    return rec
+
+
+def k3_phase(torch, maps, maps8, gen):
+    """K3 (the vector kernel) exactly equal (`torch.equal`) to its plain
+    version and to the first kernel (`_variant="scalar"`) on the stem pool
+    map at batch 1 and batch 8, in f32 and bf16, timed in turns beside both;
+    then on edge cases: C off the 16-byte vector, all-miss rows and ties.
+    Returns the batch-1 bf16 record with every shape's times."""
+    from fcaf3d_tpu_torch.ops.sparse import gather_kernel as gk
+
+    def exact(feats, idx, what):
         got = gk.fused_gather_max(feats, idx)
         want = gk.fused_gather_max_plain(feats, idx)
+        old = gk.fused_gather_max(feats, idx, _variant="scalar")
         torch.cuda.synchronize()
-        k3_err = max(k3_err, float((got.float() - want.float()).abs().max()))
-        if not torch.equal(got, want):
-            raise AssertionError(f"K3 {dname}: kernel != plain")
-        times = timed_turns(torch, {
-            "plain": lambda: gk.fused_gather_max_plain(feats, idx),
-            "kernel": lambda: gk.fused_gather_max(feats, idx)})
-        # bytes: feats, the map and out; operations: one max per gathered
-        # element, on the CUDA cores
-        b, m, k = idx.shape
-        elt = feats.element_size()
-        r = timing_record(times, (b * m * k * 64, b * n * 64 * elt
-                                  + b * m * k * 4 + b * m * 64 * elt),
-                          PEAK_OPS["float32"])
-        log(f"   K3 {dname} idx {tuple(idx.shape)} N={n} C=64: exact; "
-            f"{report(r)}")
-        if dname == "bfloat16":
-            rec["gather_max"] = r
-    rec["gather_max"]["max_abs_err"] = k3_err
+        err = float((got.float() - want.float()).abs().max())
+        if not (torch.equal(got, want) and torch.equal(old, want)):
+            raise AssertionError(f"K3 {what}: kernel != plain (max abs diff "
+                                 f"{err}) or the first kernel != plain")
+        return err
+
+    k3_err, shapes, rec = 0.0, {}, None
+    for batch, (idx, n) in ((1, maps["s2_pool_k2s2"]),
+                            (TRAIN_BATCH, maps8["s2_pool_k2s2"])):
+        for dname in ("float32", "bfloat16"):
+            dt = getattr(torch, dname)
+            feats = torch.randn(idx.shape[0], n, 64, generator=gen,
+                                device=idx.device).to(dt)
+            k3_err = max(k3_err, exact(feats, idx, f"B={batch} {dname}"))
+            times = timed_turns(torch, {
+                "plain": lambda: gk.fused_gather_max_plain(feats, idx),
+                "kernel": lambda: gk.fused_gather_max(feats, idx),
+                "earlier": lambda: gk.fused_gather_max(feats, idx,
+                                                       _variant="scalar")})
+            # bytes: feats, the map and out; operations: one max per gathered
+            # element, on the CUDA cores
+            b, m, k = idx.shape
+            elt = feats.element_size()
+            r = timing_record(times, (b * m * k * 64, b * n * 64 * elt
+                                      + b * m * k * 4 + b * m * 64 * elt),
+                              PEAK_OPS["float32"])
+            r["variant"] = gk.k3_plan(64, k, dt).variant
+            log(f"   K3 {dname} idx {tuple(idx.shape)} N={n} C=64: exact (and "
+                f"the first kernel); {r['variant']}: {report(r)}")
+            shapes[f"B{batch} {dname}"] = {key: r[key] for key in (
+                "variant", "ms", "earlier_ms", "plain_ms", "bound_ms",
+                "bound_by", "share")}
+            if r["ms"] >= r["earlier_ms"]:
+                NOT_FASTER.append((f"K3 B={batch} {dname}", r["ms"],
+                                   r["earlier_ms"], r["plain_ms"]))
+                log(f"   NOT FASTER than the first kernel: K3 B={batch} "
+                    f"{dname}")
+            if (batch, dname) == (1, "bfloat16"):
+                rec = r
+    # edge cases on the batch-1 map: C off the 16-byte vector (every narrower
+    # vector width), all-miss rows, ties (few distinct values), and K = 27
+    idx, n = maps["s2_pool_k2s2"]
+    idx27, n27 = maps["s1_k3s2"]
+    cases = 0
+    for dname, channels in (("float32", (1, 3, 6, 10, 64)),
+                            ("bfloat16", (1, 3, 12, 20, 68))):
+        dt = getattr(torch, dname)
+        for c in channels:
+            for kidx, kn in ((idx, n), (idx27, n27)):
+                miss = kidx.clone()
+                miss[:, ::7] = kn  # every 7th row: all miss
+                ties = torch.randint(-2, 3, (1, kn, c), generator=gen,
+                                     device=idx.device).to(dt)
+                k3_err = max(k3_err, exact(ties, miss, f"{dname} C={c} K="
+                                           f"{kidx.shape[2]} edge"))
+                cases += 1
+    log(f"   K3 edge cases exact (and the first kernel): {cases} (C off the "
+        "16-byte vector, every 7th row all miss, values in -2..2, K 8 and 27)")
+    rec["max_abs_err"] = k3_err
+    rec["shapes"] = shapes
     return rec
 
 
@@ -859,16 +946,18 @@ def check_variants(what, tc_kernels=(), f32=False):
     path's kernels: every bf16 K2 and K4 launch through a tensor-core
     variant (and each of `tc_kernels` had one), every f32 K2 launch through
     "simt_narrow" / "simt_tiled" (never the first "simt"), every K1 launch
-    through the gallop kernel; with `f32`, at least one f32 K2 and one K1
+    through the gallop kernel, every K3 launch through the vector kernel
+    (never the first "scalar"); with `f32`, at least one f32 K2 and one K1
     launch. Logs and returns the launches by "kernel/variant/dtype"."""
     from fcaf3d_tpu_torch import _native
 
     counts = {"/".join(key): n
               for key, n in sorted(_native.VARIANT_LAUNCHES.items())}
-    log(f"   {what}: K1 / K2 / K4 launches by variant: {counts}")
+    log(f"   {what}: K1-K4 launches by variant: {counts}")
     off = {key: n for key, n in counts.items()
            if key.endswith("/simt/bfloat16")
            or key == "gather_gemm/simt/float32"
+           or key.startswith("gather_max/scalar/")
            or (key.startswith("searchsorted/")
                and key != "searchsorted/gallop/int64")}
     if off:
@@ -1572,7 +1661,7 @@ def pointnet_kernel_phase(torch, cfg, device):
     each kernel and its plain version; K5 also beside its single-CTA kernel
     (the earlier one), its operations bound and its serial floor."""
     from fcaf3d_tpu_torch.ops.pointnet.ball_query import (
-        ball_query, ball_query_plain)
+        ball_query, ball_query_plain, ball_query_plan)
     from fcaf3d_tpu_torch.ops.pointnet.fps import (
         CLUSTER_SIZE, MAX_CTA_POINTS, fps_plan, furthest_point_sample,
         furthest_point_sample_plain)
@@ -1640,35 +1729,88 @@ def pointnet_kernel_phase(torch, cfg, device):
     rec["fps"]["sweep"] = fps_sweeps(torch, fps_cases, check, device)
     fps_ties(torch, fps_cases[0], check, device)
 
+    shapes = {}
     for what, cent, pts, r, ns in ballq_cases:
         m, n = cent.shape[1], pts.shape[1]
         for b in (1, 2):
             c, x = cent[:b].contiguous(), pts[:b].contiguous()
             v = None if b == 1 else mask_of(torch, b, n, device)
+            want = ball_query_plain(c, x, r, ns, v)
             check("ball_query", f"{what} B={b}", ball_query(c, x, r, ns, v),
-                  ball_query_plain(c, x, r, ns, v))
+                  want)
+            check("ball_query", f"{what} B={b} first kernel",
+                  ball_query(c, x, r, ns, v, _variant="warp"), want)
         c, x = cent[:1].contiguous(), pts[:1].contiguous()
         times = timed_turns(torch, {
             "plain": lambda: ball_query_plain(c, x, r, ns),
-            "kernel": lambda: ball_query(c, x, r, ns)})
+            "kernel": lambda: ball_query(c, x, r, ns),
+            "earlier": lambda: ball_query(c, x, r, ns, _variant="warp")})
         # each centre scans its points in index order up to its ns-th hit
         # (or all N); centres and points read once, the indices written
         rt = timing_record(times, (ballq_scanned(torch, c, x, r, ns)
                                    * BALLQ_OPS, (m + n) * 12 + m * ns * 4),
                            PEAK_OPS["float32"])
+        rt["plan"] = list(ball_query_plan(1, m, n))
+        host = host_turns(torch, {
+            "kernel": lambda: ball_query(c, x, r, ns),
+            "earlier": lambda: ball_query(c, x, r, ns, _variant="warp")})
+        rt["enqueue_us"], rt["earlier_enqueue_us"] = (
+            host["kernel"][0], host["earlier"][0])
         log(f"   K6 {what} M={m} N={n} r={r} ns={ns}: exact at B=1 and B=2 "
-            f"(masked); {report(rt)}")
+            f"(masked), and the first kernel; plan {tuple(rt['plan'])}; "
+            f"{report(rt)}; host enqueue {rt['enqueue_us']:.1f} us a call "
+            f"(the first kernel {rt['earlier_enqueue_us']:.1f})")
+        shapes[what] = {k: rt[k] for k in (
+            "ms", "earlier_ms", "plain_ms", "bound_ms", "share", "plan",
+            "enqueue_us", "earlier_enqueue_us")}
+        if rt["ms"] >= rt["earlier_ms"]:
+            NOT_FASTER.append((f"K6 {what}", rt["ms"], rt["earlier_ms"],
+                               rt["plain_ms"]))
+            log(f"   NOT FASTER than the first kernel: K6 {what}")
         if "ms" not in rec["ball_query"]:
             rec["ball_query"].update(rt)
-    for what, c, x, r, ns, v in extra_ballq:
-        got = ball_query(c, x, r, ns, v)
-        check("ball_query", what, got, ball_query_plain(c, x, r, ns, v))
-        if got[:, 8:].any():
+    scan = {k: sum(r[k] for r in shapes.values())
+            for k in ("ms", "earlier_ms")}
+    log(f"   K6 over a scan's {len(shapes)} calls: {scan['ms']:.4f} ms of "
+        f"device time (the first kernel {scan['earlier_ms']:.4f})")
+    rec["ball_query"].update(shapes=shapes, scan_ms=scan["ms"],
+                             earlier_scan_ms=scan["earlier_ms"])
+    for what, c, x, r, ns, v in extra_ballq + ballq_edges(torch, gen,
+                                                          device):
+        want = ball_query_plain(c, x, r, ns, v)
+        b, m, n = c.shape[0], c.shape[1], x.shape[1]
+        check("ball_query", what, ball_query(c, x, r, ns, v), want)
+        if what == "centres without a hit" and want[:, 8:].any():
             raise AssertionError(f"K6 {what}: a centre without a hit is not "
                                  "all zeros")
-        log(f"   K6 {what} (M={c.shape[1]}, N={x.shape[1]}, B=2, masked): "
-            "exact")
+        log(f"   K6 {what} (M={m}, N={n}, ns={ns}, B={b}"
+            f"{', masked' if v is not None else ''}): exact")
     return rec
+
+
+def ballq_edges(torch, gen, device):
+    """K6's edge clouds (name, centres, points, radius, nsample, valid), B=2:
+    N % 4 != 0 beyond one tile, N below one tile, M not a multiple of the
+    CTA's centres, nsample above N, each masked and not; and a lattice
+    cloud where points lie at exactly r^2 (r = 1, and sqrt 2, whose f32 r^2
+    is 2.0), masked."""
+    from fcaf3d_tpu_torch.ops.pointnet.ball_query import (
+        BQ_TILE_POINTS, squared_radius)
+
+    out = []
+    for n, m in ((4099, 70), (BQ_TILE_POINTS * 2 + 1, 129), (1000, 33),
+                 (7, 5)):
+        x = torch.rand(2, n, 3, generator=gen, device=device) * 2
+        c = torch.rand(2, m, 3, generator=gen, device=device) * 2
+        for ns in (16, n + 5):
+            for v in (None, mask_of(torch, 2, n, device)):
+                out.append((f"N={n} M={m}", c, x, 0.3, ns, v))
+    x = lattice_cloud(torch, 2, 3001, device)
+    for r in (1.0, 2.0 ** 0.5):
+        out.append((f"lattice r^2={squared_radius(r)}",
+                    x[:, :50].contiguous(), x, r, 32,
+                    mask_of(torch, 2, 3001, device)))
+    return out
 
 
 def fps_sweeps(torch, fps_cases, check, device):
@@ -1847,44 +1989,54 @@ def compare_votenet_f32(torch, model, cfg, scan_xyz, device):
 
 
 def votenet_turns(torch, model, scans):
-    """Per-scan wall ms of `inference_votenet` and device ms of its five
-    FPS calls (CUDA events around each), with K5 as planned ("cluster") and
-    with the single-CTA kernel wrapped in ("earlier"), in turns: cluster,
-    earlier, earlier, cluster. Returns variant -> (wall ms, FPS ms)
-    lists."""
+    """Per-scan wall ms of `inference_votenet` and device ms of its FPS and
+    of its ball-query calls, with K5 and K6 as planned ("new") and with the
+    kernels they replaced wrapped in ("earlier": K5's single-CTA kernel,
+    K6's first kernel, one warp a centre), in turns: new, earlier, earlier,
+    new. Each scan runs twice: bare for the wall time, then with CUDA events
+    around each call behind a sleep kernel (TURN_SLEEP_CYCLES), so that an
+    event times the kernel and not the host's enqueue of it. Returns
+    variant -> (wall ms, FPS ms, ball-query ms) lists."""
     from fcaf3d_tpu_torch.apis import inference_votenet
 
-    spans = []
+    spans = {"fps": [], "ball_query": []}
+    earlier = {"fps": "single", "seed_fps": "single", "ball_query": "warp"}
 
-    def wrap_with(variant):
+    def wrap_with(old, timed):
         def wrap(kind, fn):
-            if kind == "ball_query":
-                return fn
+            key = "ball_query" if kind == "ball_query" else "fps"
 
             def call(*args):
+                variant = earlier[kind] if old else None
+                if not timed:
+                    return fn(*args, _variant=variant)
                 start = torch.cuda.Event(enable_timing=True)
                 end = torch.cuda.Event(enable_timing=True)
+                torch.cuda._sleep(TURN_SLEEP_CYCLES)
                 start.record()
                 out = fn(*args, _variant=variant)
                 end.record()
-                spans.append((start, end))
+                spans[key].append((start, end))
                 return out
             return call
         return wrap
 
-    res = {"cluster": ([], []), "earlier": ([], [])}
-    for variant in ("cluster", "earlier", "earlier", "cluster"):
-        with wrapped_selections(wrap_with(
-                "single" if variant == "earlier" else None)):
-            for pts in scans:
-                spans.clear()
+    res = {"new": ([], [], []), "earlier": ([], [], [])}
+    for variant in ("new", "earlier", "earlier", "new"):
+        for pts in scans:
+            with wrapped_selections(wrap_with(variant == "earlier", False)):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 inference_votenet(model, pts)
                 res[variant][0].append((time.perf_counter() - t0) * 1e3)
-                torch.cuda.synchronize()
-                res[variant][1].append(sum(a.elapsed_time(b)
-                                           for a, b in spans))
+            for kept in spans.values():
+                kept.clear()
+            with wrapped_selections(wrap_with(variant == "earlier", True)):
+                inference_votenet(model, pts)
+            torch.cuda.synchronize()
+            for i, key in ((1, "fps"), (2, "ball_query")):
+                res[variant][i].append(sum(a.elapsed_time(b)
+                                           for a, b in spans[key]))
     return res
 
 
@@ -1892,10 +2044,12 @@ def votenet_phase(torch, cfg, device):
     """`init_votenet(cfg)` in f32 and `inference_votenet` on VOTE_SCANS
     scans: per-scan wall time, non-empty finite detections, five K5 and five
     K6 launches per scan, every K5 launch on the cluster kernel (SA1 on a
-    cluster of more than one CTA). Then the f32 card-vs-CPU comparison, one
-    scan in "vote" mode (launches and finiteness), and the scans' wall and
-    FPS device time with K5 against the single-CTA kernel, in turns. Returns
-    launches per kernel and K5 launches by variant over the timed scans."""
+    cluster of more than one CTA) and every K6 launch on the tiled kernel.
+    Then the f32 card-vs-CPU comparison, one scan in "vote" mode (launches
+    by variant and finiteness), and the scans' wall, FPS and ball-query
+    device time with K5 and K6 against the kernels they replaced, in turns.
+    Returns launches per kernel and by variant over the timed scans, and the
+    turns' medians."""
     from fcaf3d_tpu_torch import _native
     from fcaf3d_tpu_torch.apis import inference_votenet, init_votenet
     from fcaf3d_tpu_torch.ops.pointnet.fps import fps_plan
@@ -1927,31 +2081,43 @@ def votenet_phase(torch, cfg, device):
                 for key, n in sorted(_native.VARIANT_LAUNCHES.items())}
     for i, (dt, n) in enumerate(zip(times, counts)):
         log(f"   scan {i}: {dt * 1e3:.1f} ms wall, {n} detections")
-    log(f"   launches over {len(scans)} scans: {launches}; K5 by variant "
-        f"{variants}")
+    log(f"   launches over {len(scans)} scans: {launches}; K5 / K6 by "
+        f"variant {variants}")
     want = {k: 5 * len(scans) if k in PATH_KERNELS["votenet_inference"]
             else 0 for k in launches}
     if launches != want:
         raise AssertionError(f"VoteNet launches {launches}, expected {want}")
     sa1 = fps_plan(1, cfg.num_points, cfg.backbone_num_points[0])
-    if variants != {"fps/cluster/float32": want["fps"]} or sa1.cs < 2:
-        raise AssertionError(f"VoteNet: K5 launches {variants}, SA1 plan "
-                             f"{sa1}: expected every launch on the cluster "
-                             "kernel, SA1 on a cluster of more than one CTA")
+    on_path = {"fps/cluster/float32": want["fps"],
+               "ball_query/tiled/float32": want["ball_query"]}
+    if variants != on_path or sa1.cs < 2:
+        raise AssertionError(f"VoteNet: K5 / K6 launches {variants}, SA1 "
+                             f"plan {sa1}: expected every K5 launch on the "
+                             "cluster kernel, SA1 on a cluster of more than "
+                             "one CTA, every K6 launch on the tiled kernel")
     compare_votenet_f32(torch, model, cfg, scans[0], device)
     _native.reset_launches()
     n = checked(inference_votenet(model, scans[1], sample_mod="vote"),
                 "vote mode")
     vote_launches = dict(_native.LAUNCHES)
-    if vote_launches != {k: v // len(scans) for k, v in want.items()}:
-        raise AssertionError(f"VoteNet vote mode launches {vote_launches}")
+    vote_variants = {"/".join(key): n
+                     for key, n in sorted(_native.VARIANT_LAUNCHES.items())}
+    if vote_launches != {k: v // len(scans) for k, v in want.items()} \
+            or vote_variants != {k: v // len(scans)
+                                 for k, v in on_path.items()}:
+        raise AssertionError(f"VoteNet vote mode launches {vote_launches}, "
+                             f"by variant {vote_variants}")
     log(f"   \"vote\" mode, scan 1: {n} detections, launches {vote_launches}")
     turns = votenet_turns(torch, model, scans)
-    for variant, (wall, fps) in turns.items():
-        log(f"   K5 {variant}: scan wall ms "
-            + " ".join(f"{t:.1f}" for t in wall) + "; FPS stage device ms "
-            + " ".join(f"{t:.3f}" for t in fps))
-    return launches, variants
+    for variant, (wall, fps, ballq) in turns.items():
+        log(f"   K5 / K6 {variant}: scan wall ms "
+            + " ".join(f"{t:.1f}" for t in wall) + "; FPS device ms "
+            + " ".join(f"{t:.3f}" for t in fps) + "; ball-query device ms "
+            + " ".join(f"{t:.4f}" for t in ballq))
+    medians = {variant: {k: float(np.median(v)) for k, v in zip(
+        ("wall_ms", "fps_ms", "ball_query_ms"), lists)}
+        for variant, lists in turns.items()}
+    return launches, variants, medians
 
 
 KERNELS = (
@@ -1999,12 +2165,13 @@ def main():
     scans = [scan(seed) for seed in range(3)]
     log("== 3 kernels against their plain versions, main-path shapes")
     maps = backbone_maps(sample(scans[0], cfg)[None], cfg, "cuda")
-    rec = kernel_phase(torch, cfg, maps)
+    clouds = np.concatenate([batch["points"], batch["colors"]], axis=-1)
+    maps8 = backbone_maps(clouds, cfg, "cuda")
+    rec = kernel_phase(torch, cfg, maps, maps8)
     log(f"== 4 backward kernels against their plain versions, training "
         f"shapes, batch 1 and batch {TRAIN_BATCH}")
-    clouds = np.concatenate([batch["points"], batch["colors"]], axis=-1)
-    rec.update(backward_kernel_phase(
-        torch, cfg, [maps, backbone_maps(clouds, cfg, "cuda")]))
+    rec.update(backward_kernel_phase(torch, cfg, [maps, maps8]))
+    del maps8  # phase 6's peak memory counts no map of phases 3-4
     log("== 5 inference: fcaf3d_scannet, bf16, batch 1, 100000 points per "
         "scan")
     infer_launches, infer_variants, k1_infer = slice_phase(torch, cfg, scans,
@@ -2025,7 +2192,12 @@ def main():
     rec.update(pointnet_kernel_phase(torch, vcfg, "cuda"))
     log(f"== 8 inference: votenet_sunrgbd, f32, batch 1, {vcfg.num_points} "
         "points per scan")
-    vote_launches, vote_variants = votenet_phase(torch, vcfg, "cuda")
+    vote_launches, vote_variants, turns = votenet_phase(torch, vcfg, "cuda")
+    rec["fps"]["scan_turns"] = {v: {k: t[k] for k in ("wall_ms", "fps_ms")}
+                                for v, t in turns.items()}
+    rec["ball_query"]["scan_turns"] = {
+        v: {k: t[k] for k in ("wall_ms", "ball_query_ms")}
+        for v, t in turns.items()}
     log(f"== all phases passed in {time.perf_counter() - t_start:.1f} s")
     for what, ms, first, second in NOT_FASTER:
         log(f"   not faster than a yardstick: {what}: kernel {ms:.4f} ms, "
@@ -2042,11 +2214,10 @@ def main():
              "launches": sum(p[name] for p in by_path.values()),
              "launches_by_path": {k: p[name] for k, p in by_path.items()},
              **rec[name]}
-        if name in ("searchsorted", "gather_gemm", "gather_dw", "fps"):
-            k["launches_by_variant"] = {
-                path: {key: n for key, n in v.items()
-                       if key.startswith(name + "/")}
-                for path, v in variants.items()}
+        k["launches_by_variant"] = {
+            path: {key: n for key, n in v.items()
+                   if key.startswith(name + "/")}
+            for path, v in variants.items()}
         kernels.append(k)
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -13,10 +13,11 @@ Each C entry point launches on the stream it is given and returns the
 `cudaError_t` of the launch; the wrappers in `ops/` raise on a
 non-zero value. `LAUNCHES` counts the launches of each kernel (the wrappers
 add one per launch), so a run can show which kernels its path went through;
-`VARIANT_LAUNCHES` counts the K1, K2, K4 and K5 launches by (kernel,
+`VARIANT_LAUNCHES` counts the launches of every kernel by (kernel,
 variant, dtype), so a run can show that its searches ran on the gallop
 kernel, its bf16 convs on the tensor cores, its f32 convs on the narrow and
-tiled SIMT kernels and its farthest-point sampling on the cluster kernel.
+tiled SIMT kernels, its max-pool on the vector kernel, its farthest-point
+sampling on the cluster kernel and its ball queries on the tiled kernel.
 """
 from __future__ import annotations
 
@@ -160,6 +161,9 @@ def _bind(lib):
     lib.fcaf3d_gather_max.argtypes = [
         p, p, p, i64, i64, i64, i64, i64, i, ctypes.c_float, p]
     lib.fcaf3d_gather_max.restype = i
+    lib.fcaf3d_gather_max_vec.argtypes = [
+        p, p, p, i64, i64, i64, i64, i64, i, i, i, ctypes.c_float, p]
+    lib.fcaf3d_gather_max_vec.restype = i
     lib.fcaf3d_gather_dw.argtypes = [
         p, p, p, p, p, i64, i64, i64, i64, i64, i64, i64, i64, i, p]
     lib.fcaf3d_gather_dw.restype = i
@@ -173,6 +177,9 @@ def _bind(lib):
     lib.fcaf3d_ball_query.argtypes = [
         p, p, p, p, i64, i64, i64, i64, ctypes.c_float, p]
     lib.fcaf3d_ball_query.restype = i
+    lib.fcaf3d_ball_query_tiled.argtypes = [
+        p, p, p, p, i64, i64, i64, i64, ctypes.c_float, p]
+    lib.fcaf3d_ball_query_tiled.restype = i
 
 
 def load():

@@ -77,6 +77,8 @@
 #include <mutex>
 #include <vector>
 
+#include "mbarrier.cuh"
+
 namespace {
 
 constexpr int kThreads = 1024;
@@ -207,7 +209,7 @@ struct MaxThreads {
   static constexpr int value = P <= 4 ? 1024 : 512;
 };
 
-// distributed shared memory and mbarriers, in PTX
+// distributed shared memory, in PTX (the mbarriers: mbarrier.cuh)
 __device__ __forceinline__ unsigned cluster_rank() {
   unsigned r;
   asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
@@ -254,37 +256,6 @@ __device__ __forceinline__ void async_store(unsigned addr, float4 v,
 __device__ __forceinline__ void cluster_sync() {
   asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
   asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
-}
-
-__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-// one arrival that also expects `bytes` of st.async on the current phase
-__device__ __forceinline__ void mbar_expect(unsigned bar, unsigned bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.release.cta.shared::cta.b64 _, [%0], %1;" ::
-          "r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
-  unsigned done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
-        "%2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
 }
 
 template <int P>

@@ -15,16 +15,42 @@ rounded one operation at a time: the two forms can disagree on a point
 within an ulp of r^2.
 
 On a CUDA tensor the query is kernel K6 (`csrc/ball_query.cu`); on a CPU
-tensor it is the plain PyTorch version, `ball_query_plain`.
+tensor it is the plain PyTorch version, `ball_query_plain`. K6 runs the
+tiled kernel: a CTA of BQ_WARPS warps owns BQ_WARPS centres, one a warp
+(the CTAs are `ball_query_plan`), and stages the cloud in shared memory
+once for all of them, BQ_TILE_POINTS points a tile. The first kernel, one
+warp a centre reading the cloud from global memory, runs only through
+`_variant="warp"`.
 """
 from __future__ import annotations
 
-from typing import Optional
+import math
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from ... import _native
+
+# the tiled kernel's CTA and staged tile (kWarps, kTilePoints in
+# csrc/ball_query.cu)
+BQ_WARPS = 4
+BQ_TILE_POINTS = 2048
+BQ_VARIANTS = ("tiled", "warp")
+
+
+class BallQueryPlan(NamedTuple):
+    ctas: int  # B x CTAs a cloud
+    tiles: int  # tiles of BQ_TILE_POINTS points a cloud
+
+
+def ball_query_plan(b: int, m: int, n: int) -> BallQueryPlan:
+    """The tiled kernel's launch for B clouds of M centres in N points, from
+    the shape alone: one centre a warp, BQ_WARPS centres a CTA. One centre a
+    warp gives the most warps, which hide each other's latency (the fastest
+    at SA1 on the H100: PERF.md)."""
+    return BallQueryPlan(b * math.ceil(m / BQ_WARPS),
+                         math.ceil(n / BQ_TILE_POINTS))
 
 
 def squared_radius(radius: float) -> float:
@@ -60,7 +86,7 @@ def ball_query_plain(centers: torch.Tensor, points: torch.Tensor,
     return torch.where(first >= n, 0, idx).int()
 
 
-def _ball_query_cuda(centers, points, radius, nsample, valid):
+def _ball_query_cuda(centers, points, radius, nsample, valid, variant=None):
     lib = _native.load()
     dev = points.device
     if dev.type != "cuda" or centers.device != dev or (
@@ -83,28 +109,37 @@ def _ball_query_cuda(centers, points, radius, nsample, valid):
             valid is not None and not valid.is_contiguous()):
         raise ValueError("K6 takes contiguous centres, points and valid mask")
     m = centers.shape[1]
-    out = torch.empty((b, m, nsample), dtype=torch.int32, device=dev)
-    err = lib.fcaf3d_ball_query(
-        centers.data_ptr(), points.data_ptr(),
-        None if valid is None else valid.data_ptr(), out.data_ptr(), b, m, n,
-        nsample, squared_radius(radius), _native.stream_ptr(dev))
-    _native.LAUNCHES["ball_query"] += 1
-    _native.check(err, "ball_query")
+    variant = variant or "tiled"
+    if variant not in BQ_VARIANTS:
+        raise ValueError(f"K6 variant must be one of {BQ_VARIANTS}, got "
+                         f"{variant!r}")
+    out = points.new_empty((b, m, nsample), dtype=torch.int32)
+    args = (centers.data_ptr(), points.data_ptr(),
+            None if valid is None else valid.data_ptr(), out.data_ptr(), b, m,
+            n, nsample, squared_radius(radius))
+    entry = lib.fcaf3d_ball_query if variant == "warp" \
+        else lib.fcaf3d_ball_query_tiled
+    err = entry(*args, _native.stream_ptr(dev))
+    _native.count_launch("ball_query", variant, points.dtype)
+    _native.check(err, f"ball_query ({variant})")
     return out
 
 
 def ball_query(centers: torch.Tensor, points: torch.Tensor, radius: float,
-               nsample: int, valid: Optional[torch.Tensor] = None
-               ) -> torch.Tensor:
+               nsample: int, valid: Optional[torch.Tensor] = None, *,
+               _variant: Optional[str] = None) -> torch.Tensor:
     """Fixed-radius neighbours.
 
     Args:
         centers: [B, M, 3] f32; points: [B, N, 3] f32.
         valid: optional [B, N] bool; invalid points are never returned.
+        _variant: "warp" forces the first kernel on the card (a yardstick;
+            the path never asks for it).
 
     Returns:
         [B, M, nsample] int32.
     """
     if points.device.type == "cpu":
         return ball_query_plain(centers, points, radius, nsample, valid)
-    return _ball_query_cuda(centers, points, radius, nsample, valid)
+    return _ball_query_cuda(centers, points, radius, nsample, valid,
+                            _variant)

@@ -7,7 +7,9 @@
   (`csrc/gather_gemm_simt.cu`).
 - `fused_gather_max`: out[b, m] = max_k feats[b, idx[b, m, k]] per channel,
   a miss being -inf and an all-miss row finfo.min. Kernel K3
-  (`csrc/gather_max.cu`).
+  (`csrc/gather_max.cu`): a thread a vector of channels of one output row,
+  16 bytes where C fills them, else 8, 4 or 2 (`k3_plan`); the first
+  kernel (a thread a channel) only through `_variant="scalar"`.
 - `fused_gather_dw`: dW[k] = sum_{b,m} feats[b, idx[b, m, k]]^T dout[b, m]
   in f32, a miss adding zero: the weight gradient of `fused_gather_gemm`.
   Kernel K4: bf16 on the tensor cores (`csrc/gather_dw_tc.cu`), f32 on the
@@ -35,7 +37,7 @@ gradient.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -310,6 +312,25 @@ def fused_gather_gemm(feats, idx, weight, scale=None, shift=None, act=None,
                                    vmask, add, has_epi, _variant)
 
 
+K3_VARIANTS = ("vec16", "vec8", "vec4", "vec2", "scalar")
+
+
+class K3Plan(NamedTuple):
+    variant: str  # "vec<vector_bytes>"
+    vector_bytes: int  # channels a thread: 16, 8, 4 or (bf16) 2 bytes
+    map_vector: int  # map entries a load: 4 (int4) where K % 4 == 0, else 1
+
+
+def k3_plan(c: int, k: int, dtype) -> K3Plan:
+    """K3's vector kernel for C channels over K offsets: the widest vector
+    of 16, 8, 4 or 2 bytes (never narrower than one element) that divides a
+    row of C channels, so every thread holds whole channels of one row and
+    no thread straddles two rows; the map read by int4 where K % 4 == 0."""
+    elt = 2 if dtype == torch.bfloat16 else 4
+    vb = next(v for v in (16, 8, 4, 2) if v >= elt and c * elt % v == 0)
+    return K3Plan(f"vec{vb}", vb, 4 if k % 4 == 0 else 1)
+
+
 def fused_gather_max_plain(feats: torch.Tensor, idx: torch.Tensor):
     """Plain PyTorch version of K3, same arguments and result."""
     b, _, c = feats.shape
@@ -321,7 +342,7 @@ def fused_gather_max_plain(feats: torch.Tensor, idx: torch.Tensor):
     return g.reshape(b, m, k, c).amax(dim=2)
 
 
-def _fused_gather_max_cuda(feats, idx):
+def _fused_gather_max_cuda(feats, idx, variant=None):
     _check_no_grad("K3", feats)
     lib = _native.load()
     dev = feats.device
@@ -337,26 +358,43 @@ def _fused_gather_max_cuda(feats, idx):
         raise ValueError("K3 takes contiguous tensors")
     b, n, c = feats.shape
     m, k = idx.shape[1:]
-    out = torch.empty((b, m, c), dtype=feats.dtype, device=dev)
-    err = lib.fcaf3d_gather_max(
-        feats.data_ptr(), idx.data_ptr(), out.data_ptr(), b, n, m, k, c,
-        _DTYPES[feats.dtype], torch.finfo(feats.dtype).min,
-        _native.stream_ptr(dev))
-    _native.LAUNCHES["gather_max"] += 1
-    _native.check(err, "gather_max")
+    out = feats.new_empty((b, m, c))
+    lowest = torch.finfo(feats.dtype).min
+    if variant == "scalar":
+        err = lib.fcaf3d_gather_max(
+            feats.data_ptr(), idx.data_ptr(), out.data_ptr(), b, n, m, k, c,
+            _DTYPES[feats.dtype], lowest, _native.stream_ptr(dev))
+    elif variant is None:
+        plan = k3_plan(c, k, feats.dtype)
+        variant = plan.variant
+        feats, idx = _aligned(feats), _aligned(idx)
+        err = lib.fcaf3d_gather_max_vec(
+            feats.data_ptr(), idx.data_ptr(), out.data_ptr(), b, n, m, k, c,
+            _DTYPES[feats.dtype], plan.vector_bytes, plan.map_vector, lowest,
+            _native.stream_ptr(dev))
+    else:
+        raise ValueError(f"K3 variant must be None (the vector kernel) or "
+                         f"'scalar', got {variant!r}")
+    _native.count_launch("gather_max", variant, feats.dtype)
+    _native.check(err, f"gather_max ({variant})")
     return out
 
 
-def fused_gather_max(feats: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+def fused_gather_max(feats: torch.Tensor, idx: torch.Tensor, *,
+                     _variant: Optional[str] = None) -> torch.Tensor:
     """out[b, m] = max_k feats[b, idx[b, m, k]] per channel; a miss
     (idx == N) is -inf and an all-miss row returns finfo.min (callers mask).
 
     Args:
         feats: [B, N, C]; idx: [B, M, K] int32 in [0, N].
+
+    `_variant="scalar"` runs the first kernel, a thread a channel, on a
+    CUDA tensor (a yardstick of the measurements; the path never passes
+    it).
     """
     if feats.device.type == "cpu":
         return fused_gather_max_plain(feats, idx)
-    return _fused_gather_max_cuda(feats, idx)
+    return _fused_gather_max_cuda(feats, idx, _variant)
 
 
 def fused_gather_dw_plain(feats: torch.Tensor, idx: torch.Tensor,

@@ -7,6 +7,7 @@ against its plain version there.
 """
 import dataclasses
 import os
+import re
 import subprocess
 import sys
 
@@ -166,6 +167,113 @@ def test_k3_plain_matches_pallas():
     assert (idx == 320).all(axis=-1).any()  # padding rows: all miss
 
 
+def _gather_max_source():
+    with open(os.path.join(REPO, "fcaf3d_tpu_torch", "csrc",
+                           "gather_max.cu")) as f:
+        return f.read()
+
+
+def k3_vector_replay(feats, idx, chunk):
+    """K3's vector kernel in torch: a row's offsets walked `chunk` at a
+    time, misses (idx == N) skipped, the max taken in float, `lowest` for a
+    row with no hit, the result cast back."""
+    b, n, c = feats.shape
+    f = feats.float()
+    best = torch.full((b, idx.shape[1], c), -torch.inf)
+    hit_any = torch.zeros(idx.shape[:2], dtype=torch.bool)
+    for k0 in range(0, idx.shape[2], chunk):
+        for r in idx[:, :, k0:k0 + chunk].unbind(-1):
+            hit = r < n
+            g = torch.take_along_dim(f, r.clamp(max=n - 1).long()[..., None],
+                                     dim=1)
+            best = torch.where(hit[..., None], torch.maximum(best, g), best)
+            hit_any |= hit
+    lowest = torch.finfo(feats.dtype).min
+    return torch.where(hit_any[..., None], best, lowest).to(feats.dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k3_vector_plan_covers_every_channel_once(dtype):
+    """For every C from 1 to 80 and K of 8, 12 and 27: the plan's vector is
+    the widest of 16, 8, 4 and 2 bytes (never narrower than one element)
+    that divides a row, so that a thread holds whole channels of one row;
+    the threads of a row (thread i: row i // vecs, vector i % vecs) cover
+    each channel exactly once; the map is read by int4 exactly where
+    K % 4 == 0; and the kernel's walk over the offsets, kChunk at a time
+    (read from `csrc/gather_max.cu`), gives exactly `fused_gather_max_plain`
+    on maps with misses, all-miss rows and ties."""
+    chunk = int(re.search(r"constexpr int kChunk = (\d+);",
+                          _gather_max_source()).group(1))
+    elt = torch.finfo(dtype).bits // 8
+    rng = np.random.default_rng(7)
+    b, n, m = 2, 11, 6
+    for c in range(1, 81):
+        for k in (8, 12, 27):
+            plan = tg.k3_plan(c, k, dtype)
+            vb = plan.vector_bytes
+            assert plan.variant == f"vec{vb}" and plan.variant in tg.K3_VARIANTS
+            assert vb in (16, 8, 4, 2) and vb >= elt and c * elt % vb == 0
+            assert not any(c * elt % w == 0 for w in (16, 8, 4, 2) if w > vb)
+            assert plan.map_vector == (4 if k % 4 == 0 else 1)
+            per, vecs = vb // elt, c * elt // vb
+            i = np.arange(m * vecs)
+            cover = np.zeros((m, c), np.int64)
+            np.add.at(cover, (i[:, None] // vecs,
+                              (i % vecs)[:, None] * per + np.arange(per)), 1)
+            assert (cover == 1).all()
+            idx = rng.integers(0, n + 1, (b, m, k)).astype(np.int32)
+            idx[:, 0] = n  # an all-miss row
+            feats = torch.as_tensor(
+                rng.integers(-3, 4, (b, n, c)).astype(np.float32)).to(dtype)
+            want = tg.fused_gather_max_plain(feats, torch.as_tensor(idx))
+            got = k3_vector_replay(feats, torch.as_tensor(idx), chunk)
+            assert torch.equal(got, want), (c, k)
+
+
+@pytest.mark.parametrize("c,k,dtype", [(64, 8, torch.bfloat16),
+                                       (64, 8, torch.float32),
+                                       (3, 27, torch.bfloat16),
+                                       (6, 12, torch.float32)])
+def test_k3_wrapper_hands_the_kernel_its_plan(monkeypatch, c, k, dtype):
+    """On a CUDA tensor the wrapper hands `fcaf3d_gather_max_vec` the shapes,
+    the dtype code, `k3_plan`'s vector bytes and map vector and finfo.min,
+    counts the launch by variant, and reaches the first kernel only through
+    `_variant="scalar"`; the C entry takes exactly the plan's vector widths,
+    and `_native` binds both entries."""
+    lib = _Recorder()
+    monkeypatch.setattr(_native, "load", lambda: lib)
+    monkeypatch.setattr(_native, "stream_ptr", lambda dev: 0)
+    _native.reset_launches()
+    b, n, m = 2, 50, 40
+    feats = _cuda_looking(torch.zeros(b, n, c, dtype=dtype))
+    idx = _cuda_looking(torch.full((b, m, k), n, dtype=torch.int32))
+    out = tg.fused_gather_max(feats, idx)
+    assert out.shape == (b, m, c) and out.dtype == dtype
+    tg.fused_gather_max(feats, idx, _variant="scalar")
+    (name, args), (old_name, old_args) = lib.calls
+    plan = tg.k3_plan(c, k, dtype)
+    code, lowest = int(dtype == torch.bfloat16), torch.finfo(dtype).min
+    assert name == "fcaf3d_gather_max_vec" and old_name == "fcaf3d_gather_max"
+    assert args[3:] == (b, n, m, k, c, code, plan.vector_bytes,
+                        plan.map_vector, lowest, 0)
+    assert old_args[3:] == (b, n, m, k, c, code, lowest, 0)
+    dname = str(dtype).replace("torch.", "")
+    assert _native.VARIANT_LAUNCHES == {("gather_max", plan.variant, dname): 1,
+                                        ("gather_max", "scalar", dname): 1}
+    with pytest.raises(ValueError, match="variant"):
+        tg.fused_gather_max(feats, idx, _variant="vec16")
+    _native.reset_launches()
+    src = _gather_max_source()
+    entry = src[src.index('extern "C" int fcaf3d_gather_max_vec('):]
+    widths = re.search(r"\(vector_bytes != 16 && vector_bytes != 8 && "
+                       r"vector_bytes != 4 &&\s*vector_bytes != 2\)", entry)
+    assert widths and tuple(f"vec{w}" for w in (16, 8, 4, 2)) \
+        == tg.K3_VARIANTS[:-1]
+    bound = re.findall(r"lib\.(fcaf3d_gather_max\w*)\.argtypes",
+                       open(_native.__file__).read())
+    assert sorted(bound) == ["fcaf3d_gather_max", "fcaf3d_gather_max_vec"]
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_k4_plain_matches_pallas(dtype):
     """dW within f32 rtol/atol 2e-3 of the Pallas kernel in interpret mode
@@ -231,6 +339,18 @@ class _CudaLooking(torch.Tensor):
 
 def _cuda_looking(t):
     return torch.Tensor._make_subclass(_CudaLooking, t)
+
+
+class _Recorder:
+    """A kernel library that records the arguments of each C call."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        if not name.startswith("fcaf3d_"):
+            raise AttributeError(name)
+        return lambda *args: self.calls.append((name, args)) or 0
 
 
 def test_cuda_wrappers_raise_without_kernel(monkeypatch):

@@ -19,7 +19,7 @@ import torch
 from fcaf3d_tpu.ops.sparse.search import searchsorted_segments as j_search
 from fcaf3d_tpu_torch import _native
 from fcaf3d_tpu_torch.ops.sparse import search as ts
-from tests.test_torch_kernels import _cuda_looking
+from tests.test_torch_kernels import _cuda_looking, _Recorder
 from tests.test_torch_ops import jax_without_persistent_cache  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -242,16 +242,6 @@ def test_gallop_plan_covers_every_query_once(b, m, s, n):
         covered[run * per_run:min((run + 1) * per_run, m)] += 1
     assert (covered == 1).all()
     assert n < 2 ** 30
-
-
-class _Recorder:
-    def __init__(self):
-        self.calls = []
-
-    def __getattr__(self, name):
-        if not name.startswith("fcaf3d_"):
-            raise AttributeError(name)
-        return lambda *args: self.calls.append((name, args)) or 0
 
 
 @pytest.mark.parametrize("b,n,m,s", [(1, 300, 40, 27), (2, 1000, 45, 1),
