@@ -48,7 +48,8 @@ Phases (any failure raises and the script exits non-zero):
 6. Training: `create_train_state` / `make_train_step` at `fcaf3d_scannet`
    in bf16, batch 8 of crowded synthetic scenes (50 000 raw points each,
    sampled to 100 000): one warm-up step (its K1 calls checked and timed
-   as in phase 5), five timed steps with finite losses, a live box loss,
+   as in phase 5, its K2 and K3 calls held to plain and its K4 calls to
+   float64, `hold_calls_to_plain`), five timed steps with finite losses, a live box loss,
    zero overflow, finite non-zero gradients on every conv kernel, K1-K4
    launched and the variant gate of phase 5; then f32 steps on the card
    against the CPU plain path: `fcaf3d_tiny` at batch 2 (every gradient
@@ -81,9 +82,26 @@ Phases (any failure raises and the script exits non-zero):
    within tolerance), one scan in "vote" mode, and the scans' wall, FPS and
    ball-query device time with K5 and K6 against the kernels they replaced,
    in turns.
+9. The other FCAF3D configs: `fcaf3d_scannet_3scales`,
+   `fcaf3d_scannet_2scales` (2 cm voxels), `fcaf3d_s3dis` (5 classes) and
+   `fcaf3d_sunrgbd` (10 classes, rotated boxes), each as phase 5 runs
+   ScanNet: `init_detector` in bf16 and `inference_detector` on two scans
+   of the config's own acquisition model (ScanNet's 50 000-point scans, a
+   dense 1M-point room sampled to 100 000 points for S3DIS, one z-buffered
+   Kinect frame for SUN RGB-D), zero overflow, K1-K3 launched, the variant
+   gate, the warm-up scan's K1 calls exact and timed and its K2 and K3
+   calls held to their plain versions; K2 at the stem and K3 at the s2
+   pool of SUN RGB-D and S3DIS timed with bound and share; the rotated BEV
+   NMS of a SUN RGB-D scan timed beside the axis-aligned one, with its peak
+   memory; one SUN RGB-D scan in f32 on the card against the CPU (maps,
+   rotated NMS keep masks, detections with yaw); SUN RGB-D training in
+   bf16 at batch 8 of crowded scenes with yawed boxes (a warm-up step, then
+   three timed steps with the checks of phase 6, K1-K4 launched); and the
+   tight f32 gate of phase 6 at `fcaf3d_tiny(with_yaw=True)`.
 
 Output: progress lines, then a JSON line of per-kernel results (launches
-of each main path: FCAF3D inference, FCAF3D training, VoteNet inference;
+of each main path: FCAF3D inference, FCAF3D training, VoteNet inference,
+the inference of each phase-9 config and SUN RGB-D training;
 K1-K6 also by variant; the recorded shape's times, bound and share; K1 at
 every distinct call of the two FCAF3D paths, K2 at every f32 path shape and
 over the f32 scan, K3 at both stem pool maps, K6 at every VoteNet shape),
@@ -144,6 +162,14 @@ K4_SHAPES = (
 # K4 tolerance relative to the largest |dW|, both dtypes: both sides sum f32
 # products of the same (bf16-exact) inputs, in another order
 K4_RTOL = 1e-4
+# The tensor-core K4 sums a slice's rows (`dw_slices`) in one chain of
+# mma.sync steps, 16 rows a step, into f32 accumulators that the tensor
+# cores add with truncation, not rounding: its distance from the exact dW
+# grows with the chain, by about one f32 ulp (K4_ULP) of the accumulated
+# value a step. The replay of a full-size step holds each K4 call against
+# float64 within max(K4_RTOL, K4_ULP x steps) of the largest |dW|, and the
+# f32 plain version within K4_RTOL; a wrong tile or offset is off by O(1).
+K4_ULP = 2.0 ** -23
 TRAIN_BATCH, TRAIN_STEPS = 8, 5
 TRAIN_BOXES, TRAIN_BOX_POINTS, TRAIN_FLOOR_POINTS = 20, 2400, 2000
 # f32 train steps on the card against the CPU plain path. At fcaf3d_tiny
@@ -180,12 +206,21 @@ BALLQ_OPS = 9  # per K6 point scanned: 3 sub, 3 mul, 2 add, 1 compare
 # the tensor-core kernel is not faster than its plain version and the SIMT
 # one: printed at the end, for PERF.md
 NOT_FASTER = []
+# the other FCAF3D configs of phase 9: bf16 inference scans of each after
+# a warm-up scan, and SUN RGB-D's timed batch-8 train steps
+OTHER_CONFIGS = ("fcaf3d_scannet_3scales", "fcaf3d_scannet_2scales",
+                 "fcaf3d_s3dis", "fcaf3d_sunrgbd")
+OTHER_SCANS, SUN_TRAIN_STEPS = 2, 3
+NMS_REPS = 5  # timed calls of the rotated and the axis-aligned BEV NMS
 # which kernels each main path runs
+INFERENCE_KERNELS = ("searchsorted", "gather_gemm", "gather_max")
+TRAINING_KERNELS = INFERENCE_KERNELS + ("gather_dw",)
 PATH_KERNELS = {
-    "fcaf3d_inference": ("searchsorted", "gather_gemm", "gather_max"),
-    "fcaf3d_training": ("searchsorted", "gather_gemm", "gather_max",
-                        "gather_dw"),
+    "fcaf3d_inference": INFERENCE_KERNELS,
+    "fcaf3d_training": TRAINING_KERNELS,
     "votenet_inference": ("fps", "ball_query"),
+    **{f"{name}_inference": INFERENCE_KERNELS for name in OTHER_CONFIGS},
+    "fcaf3d_sunrgbd_training": TRAINING_KERNELS,
 }
 
 
@@ -680,19 +715,7 @@ def k3_phase(torch, maps, maps8, gen):
             feats = torch.randn(idx.shape[0], n, 64, generator=gen,
                                 device=idx.device).to(dt)
             k3_err = max(k3_err, exact(feats, idx, f"B={batch} {dname}"))
-            times = timed_turns(torch, {
-                "plain": lambda: gk.fused_gather_max_plain(feats, idx),
-                "kernel": lambda: gk.fused_gather_max(feats, idx),
-                "earlier": lambda: gk.fused_gather_max(feats, idx,
-                                                       _variant="scalar")})
-            # bytes: feats, the map and out; operations: one max per gathered
-            # element, on the CUDA cores
-            b, m, k = idx.shape
-            elt = feats.element_size()
-            r = timing_record(times, (b * m * k * 64, b * n * 64 * elt
-                                      + b * m * k * 4 + b * m * 64 * elt),
-                              PEAK_OPS["float32"])
-            r["variant"] = gk.k3_plan(64, k, dt).variant
+            r = k3_timing(torch, feats, idx)
             log(f"   K3 {dname} idx {tuple(idx.shape)} N={n} C=64: exact (and "
                 f"the first kernel); {r['variant']}: {report(r)}")
             shapes[f"B{batch} {dname}"] = {key: r[key] for key in (
@@ -727,6 +750,26 @@ def k3_phase(torch, maps, maps8, gen):
     rec["max_abs_err"] = k3_err
     rec["shapes"] = shapes
     return rec
+
+
+def k3_timing(torch, feats, idx):
+    """K3 timed in turns with its plain version and the first kernel, with
+    its bound (bytes: feats, the map and out; operations: one max per
+    gathered element, on the CUDA cores) and its variant."""
+    from fcaf3d_tpu_torch.ops.sparse import gather_kernel as gk
+
+    times = timed_turns(torch, {
+        "plain": lambda: gk.fused_gather_max_plain(feats, idx),
+        "kernel": lambda: gk.fused_gather_max(feats, idx),
+        "earlier": lambda: gk.fused_gather_max(feats, idx,
+                                               _variant="scalar")})
+    b, m, k = idx.shape
+    n, c = feats.shape[1:]
+    elt = feats.element_size()
+    r = timing_record(times, (b * m * k * c, b * n * c * elt + b * m * k * 4
+                              + b * m * c * elt), PEAK_OPS["float32"])
+    r["variant"] = gk.k3_plan(c, k, feats.dtype).variant
+    return r
 
 
 def k2_equal_simt(torch, got, feats, idx, w, kw, what):
@@ -818,9 +861,11 @@ def k2_timing(torch, feats, idx, w, kw, dname):
 
 
 def compare_f32(torch, cfg, points, device):
-    """One scan in f32: the card against the plain path on the CPU, every
-    f32 K2 launch on the narrow and tiled kernels and every K1 launch on
-    the gallop kernel. Returns the scan's K2 device time (`k2_scan_times`)."""
+    """One scan in f32: the card against the plain path on the CPU (voxel
+    keys and backbone maps exactly, every BEV NMS keep mask exactly,
+    detections within BOX_ATOL / SCORE_ATOL), every f32 K2 launch on the
+    narrow and tiled kernels and every K1 launch on the gallop kernel.
+    Returns the scan's K2 device time (`k2_scan_times`)."""
     from fcaf3d_tpu_torch import _native
     from fcaf3d_tpu_torch.apis import inference_detector, init_detector
 
@@ -835,12 +880,18 @@ def compare_f32(torch, cfg, points, device):
         "card vs CPU")
     model = init_detector(cfg32, 0, device=device)
     _native.reset_launches()
-    k2_calls = []
-    with recorded_k2_calls(k2_calls):
+    k2_calls, keep_got, keep_want = {"fused_gather_gemm": []}, [], []
+    with recorded_conv_calls(k2_calls), recorded_nms(keep_got):
         got, got_ovf = inference_detector(model, points)
-    check_variants("f32 inference scan", f32=True)
-    want, want_ovf = inference_detector(init_detector(cfg32, 0, device="cpu"),
-                                        points)
+    check_variants(f"f32 inference scan, {cfg.n_classes} classes", f32=True)
+    with recorded_nms(keep_want):
+        want, want_ovf = inference_detector(
+            init_detector(cfg32, 0, device="cpu"), points)
+    if len(keep_got) != len(keep_want) or not all(
+            torch.equal(g[1].cpu(), w[1]) for g, w in zip(keep_got,
+                                                        keep_want)):
+        raise AssertionError("f32 slice: the NMS keep masks differ card vs "
+                             "CPU")
     n_got, n_want = len(got["scores_3d"]), len(want["scores_3d"])
     if n_got != n_want or got_ovf != want_ovf:
         raise AssertionError(f"f32 slice: {n_got} detections on the card, "
@@ -855,29 +906,138 @@ def compare_f32(torch, cfg, points, device):
                              f"{np.array_equal(got['labels_3d'], want['labels_3d'])}"
                              f", box err {box_err} (tol {BOX_ATOL}), score "
                              f"err {score_err} (tol {SCORE_ATOL})")
-    log(f"   f32: {n_got} detections equal card vs CPU; max box err "
-        f"{box_err:.3g} (tol {BOX_ATOL}), max score err {score_err:.3g} "
-        f"(tol {SCORE_ATOL})")
-    return k2_scan_times(torch, k2_calls, "the f32 inference scan")
+    kept = sum(int(k.sum()) for _, k in keep_want)
+    log(f"   f32: {n_got} detections equal card vs CPU; "
+        f"{'rotated' if cfg.with_yaw else 'axis-aligned'} NMS keep masks "
+        f"equal ({kept} kept of {keep_want[0][1].numel()} candidates); max "
+        f"box err {box_err:.3g} (tol {BOX_ATOL}), max score err "
+        f"{score_err:.3g} (tol {SCORE_ATOL})")
+    return k2_scan_times(torch, k2_calls["fused_gather_gemm"],
+                         f"the f32 inference scan, {cfg.n_classes} classes")
 
 
 @contextlib.contextmanager
-def recorded_k2_calls(calls):
-    """Every K2 call of the sparse convs made inside (through
-    `ops.sparse.conv`) is appended to `calls` as (args, kwargs)."""
+def recorded_conv_calls(calls):
+    """Every call of a kernel named in `calls` ("fused_gather_gemm", K2;
+    "fused_gather_max", K3; "fused_gather_dw", K4) that the sparse convs and
+    pools make inside (through `ops.sparse.conv`) is appended to
+    calls[name] as (args, kwargs)."""
     from fcaf3d_tpu_torch.ops.sparse import conv as sconv
 
-    real = sconv.fused_gather_gemm
+    real = {name: getattr(sconv, name) for name in calls}
 
-    def call(*args, **kw):
-        calls.append((args, kw))
-        return real(*args, **kw)
+    def recorder(name):
+        def call(*args, **kw):
+            calls[name].append((args, kw))
+            return real[name](*args, **kw)
+        return call
 
-    sconv.fused_gather_gemm = call
+    for name in calls:
+        setattr(sconv, name, recorder(name))
     try:
         yield
     finally:
-        sconv.fused_gather_gemm = real
+        for name, fn in real.items():
+            setattr(sconv, name, fn)
+
+
+@contextlib.contextmanager
+def recorded_nms(calls):
+    """Every BEV NMS of `fcaf3d_get_bboxes` made inside is appended to
+    `calls` as ((boxes7, scores, iou_thr, valid, rotated), keep)."""
+    from fcaf3d_tpu_torch.models import fcaf3d_head
+
+    real = fcaf3d_head.nms_bev
+
+    def call(boxes7, scores, iou_thr, valid=None, rotated=True):
+        keep = real(boxes7, scores, iou_thr, valid=valid, rotated=rotated)
+        calls.append(((boxes7, scores, iou_thr, valid, rotated), keep))
+        return keep
+
+    fcaf3d_head.nms_bev = call
+    try:
+        yield
+    finally:
+        fcaf3d_head.nms_bev = real
+
+
+def k4_float64(torch, feats, idx, dout):
+    """K4 in float64, one offset at a time (the gathered rows of every
+    offset at once would not fit at batch 8): [K, C, E]."""
+    from fcaf3d_tpu_torch.ops.sparse import gather_kernel as gk
+
+    d = dout.double()
+    return torch.stack([
+        torch.einsum("bmc,bme->ce",
+                     gk.gather_rows(feats, idx[..., k:k + 1])[:, :, 0].double(),
+                     d) for k in range(idx.shape[-1])])
+
+
+def hold_calls_to_plain(torch, calls, what):
+    """Every K2, K3 and K4 call a run made (`recorded_conv_calls`), replayed
+    on its own inputs: K2 within K2_RTOL of the largest plain value, K3
+    exactly equal to plain, K4 and its f32 plain version against float64
+    (`k4_float64`, K4_ULP). Logs the counts, the worst readings and the K2
+    (C, E, K) shapes by variant; returns the worst readings."""
+    from fcaf3d_tpu_torch.ops.sparse import gather_kernel as gk
+
+    worst, by_variant = {}, {}
+
+    def fail(name, args, err, tol):
+        raise AssertionError(
+            f"{what}: {name} {tuple(args[0].shape)} {tuple(args[1].shape)} "
+            f"{args[0].dtype}: max abs diff {err} of the largest value > {tol}")
+
+    with torch.inference_mode():
+        for args, kw in calls.get("fused_gather_gemm", ()):
+            got = gk.fused_gather_gemm(*args, **kw).float()
+            want = gk.fused_gather_gemm_plain(*args, **kw).float()
+            err = (float((got - want).abs().max())
+                   / max(float(want.abs().max()), 1.0))
+            tol = K2_RTOL[str(args[0].dtype).split(".")[1]]
+            if not (err <= tol and torch.isfinite(got).all()):
+                fail("K2", args, err, tol)
+            worst["K2"] = max(worst.get("K2", 0.0), err)
+            k, c, e = args[2].shape
+            by_variant.setdefault(gk.k2_variant(c, e, k, args[0].dtype),
+                                  set()).add((c, e, k))
+        for args, kw in calls.get("fused_gather_dw", ()):
+            feats, idx, dout = args
+            b, m, k = idx.shape
+            c, e = feats.shape[-1], dout.shape[-1]
+            variant = gk.k4_variant(c, e, k, feats.dtype)
+            steps = 0 if variant == "simt" else -(-gk.dw_slices(
+                b, m, k, c, e, variant)[0] // 16)
+            tol = max(K4_RTOL, K4_ULP * steps)
+            ref = k4_float64(torch, *args)
+            scale = max(float(ref.abs().max()), 1e-30)
+            got = gk.fused_gather_dw(*args, **kw)
+            err = float((got.double() - ref).abs().max()) / scale
+            if not (err <= tol and torch.isfinite(got).all()):
+                fail("K4 (against float64)", args, err, tol)
+            plain = float((gk.fused_gather_dw_plain(*args, **kw).double()
+                           - ref).abs().max()) / scale
+            if not plain <= K4_RTOL:
+                fail("K4's f32 plain version (against float64)", args, plain,
+                     K4_RTOL)
+            worst["K4"] = max(worst.get("K4", 0.0), err)
+            worst["K4 f32 plain"] = max(worst.get("K4 f32 plain", 0.0), plain)
+            if err / tol > worst.get("K4 of its limit", 0.0):
+                worst["K4 of its limit"] = err / tol
+                worst["its mma steps"] = steps
+        for args, kw in calls.get("fused_gather_max", ()):
+            if not torch.equal(gk.fused_gather_max(*args, **kw),
+                               gk.fused_gather_max_plain(*args, **kw)):
+                raise AssertionError(f"{what}: K3 {tuple(args[1].shape)} "
+                                     "differs from plain")
+    log(f"   {what}: "
+        + ", ".join(f"its {len(v)} {k} calls" for k, v in calls.items())
+        + " held (largest diff of the largest value: K2 from plain, K4 and "
+        "its f32 plain from float64: "
+        + ", ".join(f"{k} {v:.4g}" for k, v in worst.items())
+        + "); K2 (C, E, K) by variant: "
+        + "; ".join(f"{v} {sorted(cek)}" for v, cek in by_variant.items()))
+    return worst
 
 
 def k2_scan_times(torch, calls, what):
@@ -903,19 +1063,26 @@ def k2_scan_times(torch, calls, what):
     return rec
 
 
-def slice_phase(torch, cfg, scans, device):
+def slice_phase(torch, cfg, scans, device, path="fcaf3d_inference"):
     """bf16 inference on every scan after a warm-up scan whose K1 calls are
-    checked and timed (`k1_path_phase`); returns launches per kernel, the
-    launches by variant (`check_variants`) and the K1 record."""
+    checked and timed (`k1_path_phase`) and whose K2 and K3 calls are held
+    to their plain versions (`hold_calls_to_plain`); zero overflow and
+    well-formed detections (with rotated boxes, some yaw non-zero) on every
+    scan. Returns launches per kernel, the launches by variant
+    (`check_variants`) and the K1 record."""
     from fcaf3d_tpu_torch import _native
     from fcaf3d_tpu_torch.apis import inference_detector, init_detector
 
     model = init_detector(cfg, seed=0, device=device)
     calls = {}
-    with recorded_k1_calls(calls):  # warm-up: cuBLAS and allocator
-        inference_detector(model, scans[0])
+    conv_calls = {"fused_gather_gemm": [], "fused_gather_max": []}
+    with recorded_k1_calls(calls), recorded_conv_calls(conv_calls):
+        inference_detector(model, scans[0])  # warm-up: cuBLAS and allocator
     torch.cuda.synchronize()
-    k1 = k1_path_phase(torch, calls, 1, "one bf16 inference scan")
+    k1 = k1_path_phase(torch, calls, 1, f"one bf16 {path} scan")
+    hold_calls_to_plain(torch, conv_calls, f"one bf16 {path} scan")
+    calls.clear()
+    conv_calls.clear()
     _native.reset_launches()
     results = []
     for pts in scans:
@@ -934,11 +1101,13 @@ def slice_phase(torch, cfg, scans, device):
         if n == 0 or boxes.shape != (n, 7) or not np.isfinite(boxes).all() \
                 or not np.isfinite(dets["scores_3d"]).all() \
                 or not ((dets["labels_3d"] >= 0)
-                        & (dets["labels_3d"] < cfg.n_classes)).all():
+                        & (dets["labels_3d"] < cfg.n_classes)).all() \
+                or (np.abs(boxes[:, 6]) > 0).any() != cfg.with_yaw:
             raise AssertionError(f"scan {i}: malformed detections")
     log(f"   launches over {len(scans)} scans: {launches}")
-    check_path_launches(launches, "fcaf3d_inference")
-    return launches, check_variants("bf16 inference", ("gather_gemm",)), k1
+    check_path_launches(launches, path)
+    return (launches, check_variants(f"bf16 {path}", ("gather_gemm",)),
+            k1)
 
 
 def check_variants(what, tc_kernels=(), f32=False):
@@ -1154,7 +1323,8 @@ def k2_train_case(torch, idx_n, c, e, how):
 def train_batch(cfg, batch, seed0):
     """`batch` crowded synthetic scenes (`data.synth`), each 50 000 raw
     points sampled to `cfg.num_points` as `inference_detector` samples,
-    with GT boxes padded to `cfg.max_gt_boxes`."""
+    with GT boxes (yawed with `cfg.with_yaw`) padded to
+    `cfg.max_gt_boxes`."""
     from fcaf3d_tpu_torch.data.synth import crowded_scene, densify
 
     out = {"points": [], "colors": [], "gt_boxes": [], "gt_labels": [],
@@ -1163,7 +1333,7 @@ def train_batch(cfg, batch, seed0):
     for i in range(batch):
         rng = np.random.default_rng(seed0 + i)
         scene = densify(crowded_scene(TRAIN_BOXES, cfg.n_classes, rng,
-                                      extent=5.0),
+                                      extent=5.0, with_yaw=cfg.with_yaw),
                         TRAIN_BOX_POINTS, TRAIN_FLOOR_POINTS, rng)
         pts = scene["points"]
         pick = np.random.default_rng(0).choice(
@@ -1182,26 +1352,35 @@ def train_batch(cfg, batch, seed0):
     return batch_np
 
 
-def train_phase(torch, cfg, batch, device):
+def train_phase(torch, cfg, batch, device, steps=TRAIN_STEPS,
+                path="fcaf3d_training"):
     """bf16 training at batch 8: a warm-up step whose K1 calls are checked
-    and timed (`k1_path_phase`), then five timed steps. Returns launches per
-    kernel over the timed steps, the launches by variant
-    (`check_variants`) and the K1 record."""
+    and timed (`k1_path_phase`) and whose K2 and K3 calls are held to
+    their plain versions and K4 calls to float64 (`hold_calls_to_plain`),
+    then `steps` timed steps.
+    Returns launches per kernel over the timed steps, the launches by
+    variant (`check_variants`) and the K1 record."""
     from fcaf3d_tpu_torch import _native
     from fcaf3d_tpu_torch.train import create_train_state, make_train_step
 
     model, opt, _ = create_train_state(cfg, seed=0, device=device)
     step = make_train_step(model, cfg, opt)
     calls = {}
-    with recorded_k1_calls(calls):  # warm-up: cuBLAS and the allocator
-        step(batch)
+    conv_calls = {"fused_gather_gemm": [], "fused_gather_max": [],
+                  "fused_gather_dw": []}
+    with recorded_k1_calls(calls), recorded_conv_calls(conv_calls):
+        step(batch)  # warm-up: cuBLAS and the allocator
     torch.cuda.synchronize()
-    k1 = k1_path_phase(torch, calls, 1, f"one batch-{TRAIN_BATCH} train step")
-    calls.clear()  # the recorded copies must not count in the peak memory
+    what = f"one batch-{TRAIN_BATCH} {path} step"
+    k1 = k1_path_phase(torch, calls, 1, what)
+    hold_calls_to_plain(torch, conv_calls, what)
+    # the recorded inputs must not count in the peak memory
+    calls.clear()
+    conv_calls.clear()
     torch.cuda.reset_peak_memory_stats()
     _native.reset_launches()
     times, metrics = [], []
-    for _ in range(TRAIN_STEPS):
+    for _ in range(steps):
         t0 = time.perf_counter()
         m = {k: float(v) for k, v in step(batch).items()}
         torch.cuda.synchronize()
@@ -1225,12 +1404,12 @@ def train_phase(torch, cfg, batch, device):
                     or not p.grad.abs().max() > 0:
                 raise AssertionError(f"{name}: gradient missing, non-finite "
                                      "or zero")
-    log(f"   {TRAIN_STEPS} steps at batch {TRAIN_BATCH}: mean "
+    log(f"   {steps} steps at batch {TRAIN_BATCH}: mean "
         f"{np.mean(times) * 1e3:.1f} ms/step (min {min(times) * 1e3:.1f}); "
         f"peak memory {peak / 2**30:.2f} GiB; {n_conv} conv kernels with "
         f"finite non-zero gradients; launches {launches}")
-    check_path_launches(launches, "fcaf3d_training")
-    return launches, check_variants("bf16 training",
+    check_path_launches(launches, path)
+    return launches, check_variants(f"bf16 {path}",
                                     ("gather_gemm", "gather_dw")), k1
 
 
@@ -1238,7 +1417,8 @@ def head_batch(torch, cfg, extent, b=2, boxes_per_scene=3, seed=0):
     """B `data.synth.synth_scene` scans of `extent` for a miniature config, with
     GT boxes of ~0.2 m around level-0 head locations of the training
     forward (on the CPU; weights and pruning are the same on the card), so
-    that the assigner finds positives and the box loss is live."""
+    that the assigner finds positives and the box loss is live; with
+    `cfg.with_yaw` the boxes get random yaws."""
     from fcaf3d_tpu_torch.data.synth import synth_scene
     from fcaf3d_tpu_torch.train import create_train_state
 
@@ -1262,8 +1442,9 @@ def head_batch(torch, cfg, extent, b=2, boxes_per_scene=3, seed=0):
         for j, h in enumerate(heads[rng.choice(len(heads), boxes_per_scene,
                                                replace=False)]):
             dims = rng.uniform(0.18, 0.26, 3).astype(np.float32)
+            yaw = rng.uniform(-np.pi, np.pi) if cfg.with_yaw else 0.0
             batch["gt_boxes"][i, j] = [h[0], h[1], h[2] - dims[2] / 2,
-                                       *dims, 0.0]
+                                       *dims, yaw]
             batch["gt_labels"][i, j] = rng.integers(0, cfg.n_classes)
             batch["gt_valid"][i, j] = True
     return batch
@@ -1318,25 +1499,26 @@ def report_errs(errs):
             + ", ".join(f"{n} {a:.3g} ({b:.3g})" for a, b, n in errs[-3:]))
 
 
-def compare_train_tiny(torch, device):
-    """One f32 train step at `fcaf3d_tiny`, batch 2, card against CPU, with
+def compare_train_tiny(torch, device, with_yaw=False):
+    """One f32 train step at `fcaf3d_tiny` (`with_yaw`: rotated boxes, 8
+    regression outputs, yawed GT boxes), batch 2, card against CPU, with
     the tight per-element gate."""
     from fcaf3d_tpu_torch.configs import fcaf3d_tiny
 
-    cfg = fcaf3d_tiny()
+    cfg = fcaf3d_tiny(with_yaw=with_yaw)
+    what = f"f32 tiny{' with_yaw' if with_yaw else ''} train"
     batch = head_batch(torch, cfg, TINY_EXTENT)
-    loss_g, loss_c, _, errs = card_vs_cpu(torch, cfg, batch, device,
-                                          "f32 tiny train")
+    loss_g, loss_c, _, errs = card_vs_cpu(torch, cfg, batch, device, what)
     loss_err = max(abs(loss_g[k] / loss_c[k] - 1) for k in loss_c)
     worst = max(errs, key=lambda x: x[1])
-    log(f"   f32 tiny train, batch 2: head-level maps equal card vs CPU; "
+    log(f"   {what}, batch 2: head-level maps equal card vs CPU; "
         f"losses {loss_c} (max rel err {loss_err:.3g}, tol "
         f"{TRAIN_LOSS_RTOL}); gradient leaves, largest-element rel err: "
         f"worst {worst[2]} {worst[1]:.3g} (tol {TINY_GRAD_RTOL}); norm rel "
         f"err {report_errs(errs)}")
     if loss_c["loss_bbox"] <= 0 or loss_err > TRAIN_LOSS_RTOL \
             or worst[1] > TINY_GRAD_RTOL:
-        raise AssertionError("f32 tiny train: card and CPU disagree")
+        raise AssertionError(f"{what}: card and CPU disagree")
 
 
 def compare_train_f32(torch, cfg, device):
@@ -2120,6 +2302,145 @@ def votenet_phase(torch, cfg, device):
     return launches, variants, medians
 
 
+def config_scan(name, seed):
+    """One scan [N, 6] (xyz + rgb) of a config's own acquisition model
+    (`data.synth`): for the ScanNet variants the 50 000-point synthetic
+    scans of phase 5, for S3DIS a dense 1M-point room sampled to 100 000
+    points, for SUN RGB-D one z-buffered Kinect frame sampled to 100 000
+    points; colours drawn from the seed."""
+    from fcaf3d_tpu_torch.data.synth import synth_s3dis, synth_sunrgbd
+
+    if name.startswith("fcaf3d_scannet"):
+        return scan(seed)
+    rng = np.random.RandomState(seed)
+    xyz = synth_sunrgbd(rng) if name == "fcaf3d_sunrgbd" else synth_s3dis(rng)
+    rgb = rng.uniform(0, 255, xyz.shape).astype(np.float32)
+    return np.concatenate([xyz, rgb], axis=1)
+
+
+def stem_rows(torch, cfg, points, gen):
+    """K2 at the stem (C3 E64 K27, as the path runs it: the plain sum) and
+    K3 at the s2 pool, bf16, on the stride-1 and stride-2 maps of one of
+    the config's scans: within K2_RTOL of / exactly equal to plain, timed
+    in turns (`k2_timing`; K3 beside its plain version and the first
+    kernel), with bound and share. Returns {"gather_gemm": record,
+    "gather_max": record}."""
+    from fcaf3d_tpu_torch.ops.sparse import gather_kernel as gk
+
+    maps = backbone_maps(sample(points, cfg)[None], cfg, "cuda")
+    idx, n = maps["s1_k3s2"]
+    feats = torch.randn(1, n, 3, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    w = (torch.randn(27, 3, 64, generator=gen, device="cuda")
+         / np.sqrt(81)).to(torch.bfloat16)
+    got = gk.fused_gather_gemm(feats, idx, w).float()
+    want = gk.fused_gather_gemm_plain(feats, idx, w).float()
+    diff = float((got - want).abs().max())
+    if not diff <= K2_RTOL["bfloat16"] * max(float(want.abs().max()), 1.0):
+        raise AssertionError(f"K2 stem {tuple(idx.shape)}: max abs diff "
+                             f"{diff}")
+    k2 = k2_timing(torch, feats, idx, w, {}, "bfloat16")
+    k2["max_abs_err"] = diff
+    k2["shape"] = [list(idx.shape), n, 3, 64]
+    log(f"   K2 stem C=3 E=64 K=27 bf16 idx {tuple(idx.shape)} N={n}: "
+        f"within tolerance of plain (max abs diff {diff:.3g}); "
+        f"{k2['variant']}: {report(k2)}")
+    idx, n = maps["s2_pool_k2s2"]
+    feats = torch.randn(1, n, 64, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    if not torch.equal(gk.fused_gather_max(feats, idx),
+                       gk.fused_gather_max_plain(feats, idx)):
+        raise AssertionError(f"K3 pool {tuple(idx.shape)}: kernel != plain")
+    k3 = k3_timing(torch, feats, idx)
+    k3["max_abs_err"] = 0.0
+    k3["shape"] = [list(idx.shape), n, 64]
+    log(f"   K3 pool bf16 idx {tuple(idx.shape)} N={n} C=64: exact; "
+        f"{k3['variant']}: {report(k3)}")
+    return {"gather_gemm": k2, "gather_max": k3}
+
+
+def rotated_nms_cost(torch, cfg, points):
+    """The BEV NMS of one bf16 scan replayed on its own candidates
+    ([1, C, nms_cap] boxes): device-synchronised wall ms over NMS_REPS calls
+    and the peak memory above what was allocated before, rotated (the
+    path's) and axis-aligned, in turns; the rotated keep mask equal to the
+    path's. Returns {"rotated": (ms, peak bytes), "aligned": ...}."""
+    from fcaf3d_tpu_torch.apis import inference_detector, init_detector
+    from fcaf3d_tpu_torch.core.nms import nms_bev
+
+    calls = []
+    with recorded_nms(calls):
+        inference_detector(init_detector(cfg, seed=0, device="cuda"), points)
+    (boxes, scores, thr, valid, rotated), keep = calls[0]
+    if not rotated or not torch.equal(
+            nms_bev(boxes, scores, thr, valid=valid, rotated=True), keep):
+        raise AssertionError("rotated NMS: replay != the path's keep mask")
+
+    def run(rot):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(NMS_REPS):
+            nms_bev(boxes, scores, thr, valid=valid, rotated=rot)
+        torch.cuda.synchronize()
+        return ((time.perf_counter() - t0) / NMS_REPS * 1e3,
+                torch.cuda.max_memory_allocated() - base)
+
+    run(True)  # warm-up
+    got = {"rotated": [], "aligned": []}
+    for rot in (True, False, False, True):
+        got["rotated" if rot else "aligned"].append(run(rot))
+    out = {k: (float(np.mean([t for t, _ in v])), max(b for _, b in v))
+           for k, v in got.items()}
+    b, c, k = boxes.shape[:-1]
+    log(f"   BEV NMS of one scan, [{b}, {c}, {k}] candidates ({b * c * k * k} "
+        f"pairs, 24 vertex candidates a pair rotated): rotated "
+        f"{out['rotated'][0]:.2f} ms, peak "
+        f"{out['rotated'][1] / 2**20:.0f} MiB above the scan's; axis-aligned "
+        f"{out['aligned'][0]:.2f} ms, {out['aligned'][1] / 2**20:.0f} MiB "
+        "(readings " + ", ".join(f"{k} " + "/".join(f"{t:.2f}" for t, _ in v)
+                                 for k, v in got.items()) + ")")
+    return out
+
+
+def other_configs_phase(torch, device):
+    """Phase 9: the other FCAF3D configs (module docstring). Returns
+    (launches by path, launches by variant by path, K1 records by path,
+    {config: `stem_rows`} for SUN RGB-D and S3DIS)."""
+    from fcaf3d_tpu_torch import _native, configs
+
+    launches, variants, k1 = {}, {}, {}
+    gen = torch.Generator(device=device).manual_seed(0)
+    rows = {}
+    for name in OTHER_CONFIGS:
+        cfg = getattr(configs, name)()
+        path = f"{name}_inference"
+        log(f"   -- {name}: {cfg.n_classes} classes, {cfg.n_reg_outs} "
+            f"regression outputs, {cfg.n_outs} scales, "
+            f"{cfg.voxel_size * 100:g} cm voxels, with_yaw {cfg.with_yaw}")
+        scans = [config_scan(name, seed) for seed in range(OTHER_SCANS)]
+        launches[path], variants[path], k1[path] = slice_phase(
+            torch, cfg, scans, device, path)
+        if name in ("fcaf3d_sunrgbd", "fcaf3d_s3dis"):
+            rows[name] = stem_rows(torch, cfg, scans[0], gen)
+    sun = configs.fcaf3d_sunrgbd()
+    sun_scan = config_scan("fcaf3d_sunrgbd", 0)
+    rotated_nms_cost(torch, sun, sun_scan)
+    log("   -- fcaf3d_sunrgbd f32, one scan, card against the CPU")
+    compare_f32(torch, sun, sun_scan, device)
+    log(f"   -- fcaf3d_sunrgbd training, bf16, batch {TRAIN_BATCH} of "
+        f"crowded scenes with yawed boxes")
+    path = "fcaf3d_sunrgbd_training"
+    batch = train_batch(sun, TRAIN_BATCH, seed0=0)
+    launches[path], variants[path], k1[path] = train_phase(
+        torch, sun, batch, device, steps=SUN_TRAIN_STEPS, path=path)
+    _native.reset_launches()
+    compare_train_tiny(torch, device, with_yaw=True)
+    check_variants("f32 tiny with_yaw train step", f32=True)
+    return launches, variants, k1, rows
+
+
 KERNELS = (
     ("searchsorted", "fcaf3d_tpu_torch/csrc/search.cu",
      "fcaf3d_tpu/ops/sparse/search.py:149"),
@@ -2198,16 +2519,25 @@ def main():
     rec["ball_query"]["scan_turns"] = {
         v: {k: t[k] for k in ("wall_ms", "ball_query_ms")}
         for v, t in turns.items()}
+    log("== 9 the other FCAF3D configs: " + ", ".join(OTHER_CONFIGS)
+        + f"; bf16 inference, {OTHER_SCANS} scans each; SUN RGB-D f32 card "
+        f"vs CPU and bf16 training at batch {TRAIN_BATCH}")
+    other_launches, other_variants, other_k1, rows = other_configs_phase(
+        torch, "cuda")
+    rec["searchsorted"]["path_calls"].update(other_k1)
+    for kernel in ("gather_gemm", "gather_max"):
+        rec[kernel]["other_configs"] = {name: r[kernel]
+                                        for name, r in rows.items()}
     log(f"== all phases passed in {time.perf_counter() - t_start:.1f} s")
     for what, ms, first, second in NOT_FASTER:
         log(f"   not faster than a yardstick: {what}: kernel {ms:.4f} ms, "
             f"yardsticks {first} and {second} ms")
     by_path = {"fcaf3d_inference": infer_launches,
                "fcaf3d_training": train_launches,
-               "votenet_inference": vote_launches}
+               "votenet_inference": vote_launches, **other_launches}
     variants = {"fcaf3d_inference": infer_variants,
                 "fcaf3d_training": train_variants,
-                "votenet_inference": vote_variants}
+                "votenet_inference": vote_variants, **other_variants}
     kernels = []
     for name, src, tpu in KERNELS:
         k = {"name": name, "route": "cuda", "source": src, "replaces": tpu,

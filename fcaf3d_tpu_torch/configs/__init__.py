@@ -1,7 +1,12 @@
 from .fcaf3d import (  # noqa: F401
     FCAF3DConfig,
+    config_from_dict,
     fcaf3d_nano,
+    fcaf3d_s3dis,
     fcaf3d_scannet,
+    fcaf3d_scannet_2scales,
+    fcaf3d_scannet_3scales,
+    fcaf3d_sunrgbd,
     fcaf3d_tiny,
 )
 from .votenet import (  # noqa: F401

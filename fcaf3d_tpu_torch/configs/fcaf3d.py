@@ -2,8 +2,11 @@
 `fcaf3d_tpu/configs/fcaf3d.py` (a test holds them equal), kept here so the
 port loads without the JAX package.
 
-Only the configs the port runs are here: ScanNet 18-class (the main path)
-and the two CPU-test sizes.
+The north-star configs (ScanNet 18-class with its 3- and 2-scale variants,
+SUN RGB-D 10-class with rotated boxes, S3DIS 5-class) and the two CPU-test
+sizes. Each config's budgets hold its dataset's acquisition model
+(`data.synth`: ScanNet's 50k-point scans, a z-buffered Kinect frame for SUN
+RGB-D, a dense 1M-point room sampled to 100k for S3DIS).
 """
 from __future__ import annotations
 
@@ -50,6 +53,22 @@ class FCAF3DConfig:
     batch_size: int = 16
 
 
+def config_from_dict(d: dict) -> FCAF3DConfig:
+    """Rebuild a config from a JSON round-trip (`dataclasses.asdict` ->
+    json -> here): unknown keys are dropped and lists become the tuples the
+    dataclass declares."""
+    fields = {f.name for f in dataclasses.fields(FCAF3DConfig)}
+    default = FCAF3DConfig()
+    kw = {}
+    for k, v in d.items():
+        if k not in fields:
+            continue
+        if isinstance(getattr(default, k), tuple) and isinstance(v, list):
+            v = tuple(v)
+        kw[k] = v
+    return FCAF3DConfig(**kw)
+
+
 def fcaf3d_scannet() -> FCAF3DConfig:
     """ScanNet 18-class, axis-aligned, HDResNet34, 4 scales. Budgets hold
     the reference's ScanNet detection scans (50k raw points sampled to 100k
@@ -61,6 +80,52 @@ def fcaf3d_scannet() -> FCAF3DConfig:
         input_budget=45056,
         backbone_budgets=(43520, 39936, 30720, 13312, 3584, 1024),
         neck_budgets=(32768, 16384, 6144, 1024),
+    )
+
+
+def fcaf3d_scannet_3scales() -> FCAF3DConfig:
+    """HDResNet34:3, ScanNet's fast variant: 3 output scales, 1 cm
+    voxels."""
+    return dataclasses.replace(fcaf3d_scannet(), n_outs=3)
+
+
+def fcaf3d_scannet_2scales() -> FCAF3DConfig:
+    """HDResNet34:2: 2 output scales at 2 cm voxels, budgets from the 2 cm
+    cascade of the 50k-point scans."""
+    return dataclasses.replace(
+        fcaf3d_scannet(),
+        n_outs=2,
+        voxel_size=0.02,
+        input_budget=46592,
+        backbone_budgets=(42496, 30720, 13312, 3584, 1024, 512),
+        neck_budgets=(16384, 8192),
+    )
+
+
+def fcaf3d_sunrgbd() -> FCAF3DConfig:
+    """SUN RGB-D 10-class, rotated boxes (8 regression outputs, Mobius yaw).
+    One Kinect view back-projects every depth pixel, so the 100k sample
+    stays ~98% unique at 1 cm."""
+    return FCAF3DConfig(
+        n_classes=10,
+        n_reg_outs=8,
+        with_yaw=True,
+        input_budget=100352,
+        backbone_budgets=(96768, 62976, 24064, 6656, 2048, 1024),
+        neck_budgets=(28672, 9728, 4096, 1024),
+    )
+
+
+def fcaf3d_s3dis() -> FCAF3DConfig:
+    """S3DIS 5-class, axis-aligned. Dense Matterport rooms (~1M raw points,
+    100k sample) keep the deeper levels fuller than ScanNet's."""
+    return FCAF3DConfig(
+        n_classes=5,
+        n_reg_outs=6,
+        with_yaw=False,
+        input_budget=100352,
+        backbone_budgets=(98304, 85504, 46592, 13824, 3584, 1024),
+        neck_budgets=(56320, 16896, 4608, 1024),
     )
 
 

@@ -1,5 +1,5 @@
-"""Box and rotation helpers of the assigner (port of part of
-`fcaf3d_tpu/core/geometry.py`).
+"""Box and rotation helpers of the assigner and the rotated IoU (port of
+part of `fcaf3d_tpu/core/geometry.py`).
 
 Canonical box layout, as in the JAX package: box7 = (cx, cy, cz_bottom, dx,
 dy, dz, yaw); `gravity_center` lifts z by dz / 2.
@@ -46,6 +46,21 @@ def box7_corners(boxes7: torch.Tensor) -> torch.Tensor:
                         device=boxes7.device)
     corners = rotate_points_z(unit * boxes7[..., None, 3:6], boxes7[..., 6])
     return corners + boxes7[..., None, 0:3]
+
+
+def bev_corners(boxes5: torch.Tensor) -> torch.Tensor:
+    """BEV rectangles (x, y, dx, dy, yaw) [..., 5] -> corners [..., 4, 2],
+    counter-clockwise in the box frame from (+dx/2, +dy/2), rotated as
+    `rotate_points_z` rotates (clockwise for a positive yaw)."""
+    sx = torch.tensor((0.5, -0.5, -0.5, 0.5), dtype=boxes5.dtype,
+                      device=boxes5.device)
+    sy = torch.tensor((0.5, 0.5, -0.5, -0.5), dtype=boxes5.dtype,
+                      device=boxes5.device)
+    cx = sx * boxes5[..., 2:3]  # [..., 4]
+    cy = sy * boxes5[..., 3:4]
+    c, s = torch.cos(boxes5[..., 4:5]), torch.sin(boxes5[..., 4:5])
+    return torch.stack([cx * c + cy * s + boxes5[..., 0:1],
+                        -cx * s + cy * c + boxes5[..., 1:2]], dim=-1)
 
 
 def points_in_boxes(points: torch.Tensor, boxes7: torch.Tensor

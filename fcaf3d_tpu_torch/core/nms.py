@@ -1,11 +1,12 @@
-"""Fixed-shape NMS (port of the axis-aligned BEV path and of
-`aligned_3d_nms` of `fcaf3d_tpu/core/nms.py`): a static [K, K] IoU matrix
-and a greedy suppression loop over score-sorted candidates, batched over any
-leading dims (the classes of `fcaf3d_get_bboxes`, the clouds of
+"""Fixed-shape NMS (port of `fcaf3d_tpu/core/nms.py`): a static [K, K] IoU
+matrix and a greedy suppression loop over score-sorted candidates, batched
+over any leading dims (the classes of `fcaf3d_get_bboxes`, the clouds of
 `votenet_get_bboxes`)."""
 from __future__ import annotations
 
 import torch
+
+from .rotated_iou import pairwise_iou_bev
 
 
 def _greedy_suppress(iou: torch.Tensor, order_valid: torch.Tensor,
@@ -32,36 +33,45 @@ def nms_bev(boxes7: torch.Tensor, scores: torch.Tensor, iou_thr: float,
     """BEV NMS on 7-DoF boxes (x, y, z, dx, dy, dz, yaw), pcdet semantics.
 
     Args:
-        boxes7: [..., K, 7] candidates (only x, y, dx, dy are read).
+        boxes7: [..., K, 7] candidates (only x, y, dx, dy and yaw are
+            read).
         scores: [..., K].
         valid: optional [..., K] bool candidate mask.
-        rotated: must be False: the axis-aligned overlap of
-            `pcdet_nms_normal_gpu` (yaw ignored). Rotated IoU is not ported.
+        rotated: True, the rotated BEV IoU (`pcdet_nms_gpu`); False, the
+            axis-aligned overlap of `pcdet_nms_normal_gpu` (yaw ignored).
 
     Returns:
         keep [..., K] bool in the original candidate order.
     """
-    if rotated:
-        raise NotImplementedError("rotated BEV NMS is not ported yet")
     if valid is None:
         valid = torch.ones_like(scores, dtype=torch.bool)
     masked = torch.where(valid, scores, -torch.inf)
     order = torch.argsort(-masked, dim=-1, stable=True)
     sboxes = torch.take_along_dim(boxes7, order[..., None], dim=-2)
     svalid = torch.gather(valid, -1, order)
+    keep_sorted = _greedy_suppress(
+        _rotated_bev_iou(sboxes) if rotated else _aligned_bev_iou(sboxes),
+        svalid, iou_thr)
+    return torch.zeros_like(keep_sorted).scatter(-1, order, keep_sorted)
 
-    lo = sboxes[..., 0:2] - sboxes[..., 3:5] * 0.5
-    hi = sboxes[..., 0:2] + sboxes[..., 3:5] * 0.5
+
+def _rotated_bev_iou(boxes7: torch.Tensor) -> torch.Tensor:
+    """[..., K, K] rotated BEV IoU of box7 [..., K, 7]."""
+    bev = boxes7[..., [0, 1, 3, 4, 6]]
+    return pairwise_iou_bev(bev, bev)
+
+
+def _aligned_bev_iou(boxes7: torch.Tensor) -> torch.Tensor:
+    """[..., K, K] BEV IoU of box7 [..., K, 7] with the yaw ignored."""
+    lo = boxes7[..., 0:2] - boxes7[..., 3:5] * 0.5
+    hi = boxes7[..., 0:2] + boxes7[..., 3:5] * 0.5
     inter = torch.clamp(
         torch.minimum(hi[..., :, None, :], hi[..., None, :, :])
         - torch.maximum(lo[..., :, None, :], lo[..., None, :, :]), min=0.0)
     inter_a = inter[..., 0] * inter[..., 1]
-    area = sboxes[..., 3] * sboxes[..., 4]
+    area = boxes7[..., 3] * boxes7[..., 4]
     union = area[..., :, None] + area[..., None, :] - inter_a
-    iou = inter_a / torch.clamp_min(union, 1e-8)
-
-    keep_sorted = _greedy_suppress(iou, svalid, iou_thr)
-    return torch.zeros_like(keep_sorted).scatter(-1, order, keep_sorted)
+    return inter_a / torch.clamp_min(union, 1e-8)
 
 
 def aligned_3d_nms(boxes6: torch.Tensor, scores: torch.Tensor,

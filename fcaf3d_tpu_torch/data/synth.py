@@ -7,10 +7,19 @@
   geometry and labels are exact.
 - `synth_scene`: a room-like cloud without annotations (a copy of the JAX
   benchmark's `bench.synth_scene`, held equal to it by a test).
+- `synth_room`, `synth_sunrgbd`, `synth_s3dis`: the acquisition models that
+  set the budgets of the SUN RGB-D and S3DIS configs (copies of
+  `tools/calibrate_budgets.py`'s generators, held equal to them by a test):
+  a room's surfaces (floor, walls, furniture shells) sampled with scanner
+  noise; one z-buffered Kinect frame of such a room; a dense 1M-point room
+  sampled to 100k.
 """
 from __future__ import annotations
 
 import numpy as np
+
+S3DIS_RAW_POINTS = 1000000  # a dense Matterport room before the sample
+
 
 def sample_box_surface(box, n, rng):
     """n points on the surfaces of a (possibly yawed) box7 (bottom-center)."""
@@ -101,3 +110,99 @@ def synth_scene(rng, n_points, extent=(6.0, 6.0, 2.8)):
     pts[n_planes:] = centers[blob] + rng.normal(0, 0.25, (n_blobs, 3))
     colors = rng.uniform(0, 255, (n_points, 3)).astype(np.float32)
     return pts, colors
+
+
+def synth_room(rng, n_points=100000, size=None):
+    """Point cloud of a room interior: floor, partial ceiling, partially
+    observed walls and 5-13 furniture boxes (top + sides), sampled by area
+    x density, with 4 mm noise. `rng` is a `np.random.RandomState`; returns
+    [n_points, 3] float32 metres (z up, origin at a floor corner)."""
+    if size is None:
+        size = rng.uniform([4.0, 4.0, 2.4], [9.0, 9.0, 3.2])
+    sx, sy, sz = size
+    patches = []
+    weights = []
+
+    def rect(origin, u, v, density):
+        patches.append((np.asarray(origin, np.float64),
+                        np.asarray(u, np.float64), np.asarray(v, np.float64)))
+        weights.append(np.linalg.norm(u) * np.linalg.norm(v) * density)
+
+    rect([0, 0, 0], [sx, 0, 0], [0, sy, 0], 1.0)  # floor
+    if rng.rand() < 0.5:
+        rect([0, 0, sz], [sx, 0, 0], [0, sy, 0], 0.3)  # ceiling
+    for origin, u in [([0, 0, 0], [sx, 0, 0]), ([0, sy, 0], [sx, 0, 0]),
+                      ([0, 0, 0], [0, sy, 0]), ([sx, 0, 0], [0, sy, 0])]:
+        rect(origin, u, [0, 0, sz], rng.uniform(0.4, 0.9))
+    for _ in range(rng.randint(5, 14)):  # tables, cabinets, beds
+        w, d, h = rng.uniform([0.3, 0.3, 0.3], [2.0, 2.0, 1.2])
+        x0, y0 = rng.uniform([0.2, 0.2], [sx - w - 0.2, sy - d - 0.2])
+        rect([x0, y0, h], [w, 0, 0], [0, d, 0], 1.2)  # top
+        for o, u in [([x0, y0, 0], [w, 0, 0]), ([x0, y0 + d, 0], [w, 0, 0]),
+                     ([x0, y0, 0], [0, d, 0]), ([x0 + w, y0, 0], [0, d, 0])]:
+            rect(o, u, [0, 0, h], rng.uniform(0.3, 0.9))
+
+    w = np.asarray(weights)
+    counts = rng.multinomial(n_points, w / w.sum())
+    pts = []
+    for (o, u, v), c in zip(patches, counts):
+        a = rng.rand(c, 1)
+        b = rng.rand(c, 1)
+        pts.append(o + a * u + b * v)
+    p = np.concatenate(pts, 0)
+    p += rng.randn(*p.shape) * 0.004  # scanner noise
+    return p.astype(np.float32)
+
+
+def synth_sunrgbd(rng, n_points=100000, width=640, height=480, fx=570.0):
+    """One Kinect depth frame of a `synth_room` (SUN RGB-D back-projects
+    every valid depth pixel, without ScanNet's 50k cap): dense room samples
+    z-buffered into a 640 x 480 frame, the nearest sample a pixel kept,
+    then `n_points` sampled (with replacement when fewer). Returns
+    [n_points, 3] float32."""
+    pts = synth_room(rng, n_points=700000)
+    # the camera in a corner region at sensor height, looking into the room
+    ext = pts.max(0)
+    cam = np.array([rng.uniform(0.2, 0.8), rng.uniform(0.2, 0.8),
+                    rng.uniform(0.9, 1.7)])
+    target = np.array([ext[0] * rng.uniform(0.4, 0.8),
+                       ext[1] * rng.uniform(0.4, 0.8),
+                       rng.uniform(0.6, 1.4)])
+    f = target - cam
+    f = f / np.linalg.norm(f)
+    r = np.cross(f, np.array([0.0, 0.0, 1.0]))
+    r = r / np.linalg.norm(r)
+    u = np.cross(r, f)
+    # camera frame: x right, y down, z forward
+    rel = pts - cam
+    xc = rel @ r
+    yc = -(rel @ u)
+    zc = rel @ f
+    vis = zc > 0.4
+    ui = np.floor(fx * xc[vis] / zc[vis] + width / 2).astype(np.int64)
+    vi = np.floor(fx * yc[vis] / zc[vis] + height / 2).astype(np.int64)
+    inb = (ui >= 0) & (ui < width) & (vi >= 0) & (vi < height)
+    pix = vi[inb] * width + ui[inb]
+    depth = zc[vis][inb]
+    src = np.where(vis)[0][inb]
+    order = np.lexsort((depth, pix))  # the nearest sample a pixel first
+    pix_s = pix[order]
+    first = np.ones(len(pix_s), bool)
+    first[1:] = pix_s[1:] != pix_s[:-1]
+    cloud = pts[src[order][first]]
+    cloud = cloud[rng.choice(len(cloud), n_points,
+                             replace=len(cloud) < n_points)]
+    return cloud.astype(np.float32)
+
+
+def synth_s3dis(rng, n_points=100000):
+    """A dense Matterport room (S3DIS): a `synth_room` of 1M raw points in
+    a room of sides drawn from [4, 9] m, sampled to `n_points`. Returns
+    [n_points, 3] float32."""
+    size = rng.uniform([4.0, 4.0, 2.4], [9.0, 9.0, 3.2])
+    p = synth_room(rng, max(S3DIS_RAW_POINTS, n_points), size=size)
+    if S3DIS_RAW_POINTS < len(p):
+        p = p[rng.choice(len(p), S3DIS_RAW_POINTS, replace=False)]
+    if len(p) != n_points:
+        p = p[rng.choice(len(p), n_points, replace=len(p) < n_points)]
+    return p

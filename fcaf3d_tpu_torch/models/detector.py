@@ -61,4 +61,5 @@ def loss_config(cfg: FCAF3DConfig) -> FcafLossConfig:
 def infer_config(cfg: FCAF3DConfig) -> FcafTestConfig:
     return FcafTestConfig(
         nms_pre=cfg.nms_pre, iou_thr=cfg.iou_thr, score_thr=cfg.score_thr,
-        nms_cap=cfg.nms_cap, with_yaw=cfg.with_yaw)
+        nms_cap=cfg.nms_cap, with_yaw=cfg.with_yaw,
+        yaw_parametrization=cfg.yaw_parametrization)

@@ -8,10 +8,11 @@ prune-early path of `fcaf3d_tpu/models/fcaf3d_head.py`).
 - Per level: out conv3 (+BN, ELU folded), shared 1x1 head convs
   (centerness 1, reg n_reg_outs, cls n_classes), exp(scale * reg[:6]).
 - `fcaf3d_loss`: focal cls over all valid locations, BCE centerness and
-  centerness-weighted axis-aligned IoU over the assigned positives;
-  normalisers are batch means.
-- `fcaf3d_get_bboxes`: per-level top `nms_pre`, box decode, per-class
-  top `nms_cap`, axis-aligned BEV NMS.
+  centerness-weighted 3D IoU (rotated with `with_yaw`, else axis-aligned)
+  over the assigned positives; normalisers are batch means.
+- `fcaf3d_get_bboxes`: per-level top `nms_pre`, box decode (the yaw by
+  the config's parametrization), per-class top `nms_cap`, BEV NMS (rotated
+  with `with_yaw`).
 
 In training (`module.train()`) the BNs normalise with batch statistics and
 run as separate ops; in evaluation they fold into the convs' epilogues.
@@ -41,6 +42,7 @@ from .blocks import (
     sparse_elu,
 )
 from .losses import bce_loss_sum, focal_loss_sum, iou3d_loss_sum
+from .votenet import _atan2_safe_x
 
 
 class HeadLevelOutput(NamedTuple):
@@ -187,23 +189,49 @@ class Fcaf3DNeckWithHead(nn.Module):
         return tuple(outs), overflow
 
 
-def bbox_pred_to_bbox(points: torch.Tensor,
-                      bbox_pred: torch.Tensor) -> torch.Tensor:
-    """Decode 6 distance outputs to gravity-centred axis-aligned boxes
-    [..., 6] = (x, y, z, w, l, h). The yaw parametrizations (7/8 outputs)
-    are not ported yet."""
-    if bbox_pred.shape[-1] != 6:
-        raise NotImplementedError("only the 6-output (axis-aligned) decode "
-                                  "is ported")
+def bbox_pred_to_bbox(points: torch.Tensor, bbox_pred: torch.Tensor,
+                      yaw_parametrization: str = "fcaf3d") -> torch.Tensor:
+    """Decode head regressions to gravity-centred boxes: 6 outputs to
+    axis-aligned [..., 6] = (x, y, z, w, l, h); 7 or 8 outputs to [..., 7]
+    with the yaw of `yaw_parametrization`: "naive" (output 6 is the yaw),
+    "sin-cos" (outputs 6, 7 are its sine and cosine) or "fcaf3d" (Mobius:
+    outputs 6, 7 are (sin 2a, cos 2a) ln q for the w / l ratio q, and w + l
+    is the sum of the four horizontal distances)."""
     x = points[..., 0] + (bbox_pred[..., 1] - bbox_pred[..., 0]) / 2
     y = points[..., 1] + (bbox_pred[..., 3] - bbox_pred[..., 2]) / 2
     z = points[..., 2] + (bbox_pred[..., 5] - bbox_pred[..., 4]) / 2
-    return torch.stack([
+    base = torch.stack([
         x, y, z,
         bbox_pred[..., 0] + bbox_pred[..., 1],
         bbox_pred[..., 2] + bbox_pred[..., 3],
         bbox_pred[..., 4] + bbox_pred[..., 5],
     ], dim=-1)
+    if bbox_pred.shape[-1] == 6:
+        return base
+    if yaw_parametrization == "naive":
+        return torch.cat([base, bbox_pred[..., 6:7]], dim=-1)
+    s, c = bbox_pred[..., 6], bbox_pred[..., 7]
+    if yaw_parametrization == "sin-cos":
+        norm = torch.sqrt(s ** 2 + c ** 2 + 1e-12)
+        yaw = torch.atan2(s / norm, _atan2_safe_x(s, c) / norm)
+        return torch.cat([base, yaw[..., None]], dim=-1)
+    # "fcaf3d"; the epsilon and the safe x keep the sqrt and atan2
+    # gradients finite at (0, 0), as in the JAX package
+    scale = (bbox_pred[..., 0] + bbox_pred[..., 1] + bbox_pred[..., 2]
+             + bbox_pred[..., 3])
+    q = torch.exp(torch.sqrt(s ** 2 + c ** 2 + 1e-12))
+    alpha = 0.5 * torch.atan2(s, _atan2_safe_x(s, c))
+    return torch.stack([
+        x, y, z, scale / (1 + q), scale / (1 + q) * q,
+        bbox_pred[..., 5] + bbox_pred[..., 4], alpha,
+    ], dim=-1)
+
+
+def _box7(boxes: torch.Tensor) -> torch.Tensor:
+    """Decoded boxes as box7: a zero yaw column appended to [..., 6]."""
+    if boxes.shape[-1] == 7:
+        return boxes
+    return torch.cat([boxes, torch.zeros_like(boxes[..., :1])], dim=-1)
 
 
 def _concat_levels(outs: Tuple[HeadLevelOutput, ...]):
@@ -243,8 +271,6 @@ def fcaf3d_loss(outs: Tuple[HeadLevelOutput, ...], gt_boxes: torch.Tensor,
         sums are divided by batch-mean normalisers (positive count, and the
         sum of positive centerness targets for the box term).
     """
-    if cfg.with_yaw:
-        raise NotImplementedError("rotated boxes are not ported yet")
     centerness, bbox_pred, cls_scores, points, valid, scales = \
         _concat_levels(outs)
     b, p = valid.shape
@@ -264,13 +290,12 @@ def fcaf3d_loss(outs: Tuple[HeadLevelOutput, ...], gt_boxes: torch.Tensor,
     ctr_t_k = torch.gather(assign.centerness, 1, pos_idx)
     ctr_sum = bce_loss_sum(ctr_k, ctr_t_k, pos_k)
 
-    pred_boxes = bbox_pred_to_bbox(_take(points, pos_idx),
-                                   _take(bbox_pred, pos_idx))
-    pred_boxes = torch.cat([pred_boxes, torch.zeros_like(pred_boxes[..., :1])],
-                           dim=-1)
+    pred_boxes = _box7(bbox_pred_to_bbox(_take(points, pos_idx),
+                                         _take(bbox_pred, pos_idx),
+                                         cfg.yaw_parametrization))
     w = torch.where(pos_k, ctr_t_k, 0.0)
     bbox_sum = iou3d_loss_sum(pred_boxes, _take(assign.bbox_targets, pos_idx),
-                              w, with_yaw=False)
+                              w, with_yaw=cfg.with_yaw)
     n_pos_avg = torch.clamp_min(n_pos.mean(), 1.0)
     denorm = torch.clamp_min(w.sum(dim=1).mean(), 1e-6)
     return {
@@ -285,7 +310,8 @@ class FcafTestConfig(NamedTuple):
     iou_thr: float = 0.5
     score_thr: float = 0.01
     nms_cap: int = 256  # per-class candidate cap fed to the NMS matrix
-    with_yaw: bool = False  # rotated boxes: not ported yet
+    with_yaw: bool = False  # rotated BEV NMS
+    yaw_parametrization: str = "fcaf3d"
 
 
 class Detections(NamedTuple):
@@ -305,10 +331,9 @@ def fcaf3d_get_bboxes(outs: Tuple[HeadLevelOutput, ...],
                       cfg: FcafTestConfig) -> Detections:
     """Batched inference post-processing with static shapes: per level the
     top `nms_pre` rows by max class score, decoded; per class the top
-    `nms_cap` candidates, axis-aligned BEV NMS. Every sort is stable, so
-    ties (padding rows all score 0) resolve by row order."""
-    if cfg.with_yaw:
-        raise NotImplementedError("rotated boxes are not ported yet")
+    `nms_cap` candidates, BEV NMS (rotated with `cfg.with_yaw`, else
+    axis-aligned). Every sort is stable, so ties (padding rows all score 0)
+    resolve by row order."""
     cand_boxes, cand_scores = [], []
     for o in outs:
         score = torch.sigmoid(o.cls_scores) * torch.sigmoid(o.centerness)
@@ -316,9 +341,9 @@ def fcaf3d_get_bboxes(outs: Tuple[HeadLevelOutput, ...],
         max_score = score.amax(dim=-1)
         k = min(cfg.nms_pre, max_score.shape[1])
         ids = torch.argsort(-max_score, dim=1, stable=True)[:, :k]
-        boxes = bbox_pred_to_bbox(_take(o.points, ids), _take(o.bbox_pred, ids))
-        cand_boxes.append(torch.cat([boxes, torch.zeros_like(boxes[..., :1])],
-                                    dim=-1))
+        cand_boxes.append(_box7(bbox_pred_to_bbox(
+            _take(o.points, ids), _take(o.bbox_pred, ids),
+            cfg.yaw_parametrization)))
         cand_scores.append(_take(score, ids))
     boxes = torch.cat(cand_boxes, dim=1)  # [B, Ct, 7] gravity-centred
     scores = torch.cat(cand_scores, dim=1)  # [B, Ct, C]
@@ -329,7 +354,8 @@ def fcaf3d_get_bboxes(outs: Tuple[HeadLevelOutput, ...],
     ids = torch.argsort(-per_class, dim=-1, stable=True)[..., :kc]
     s = torch.gather(per_class, 2, ids)  # [B, C, kc]
     cb = torch.take_along_dim(boxes[:, None], ids[..., None], dim=2)
-    keep = nms_bev(cb, s, cfg.iou_thr, valid=s > cfg.score_thr, rotated=False)
+    keep = nms_bev(cb, s, cfg.iou_thr, valid=s > cfg.score_thr,
+                   rotated=cfg.with_yaw)
     labels = torch.arange(n_classes, dtype=torch.int32, device=scores.device)
     labels = labels[None, :, None].expand(b, n_classes, kc)
     flat = cb.reshape(b, n_classes * kc, 7)

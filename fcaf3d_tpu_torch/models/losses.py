@@ -1,5 +1,5 @@
-"""Detection losses of FCAF3D (port of the focal, BCE and IoU losses of
-`fcaf3d_tpu/models/losses.py`).
+"""Detection losses of FCAF3D (port of the focal, BCE, IoU and GIoU losses
+of `fcaf3d_tpu/models/losses.py`).
 
 Each is a masked sum over the row axis (and the class axis), keeping any
 leading batch axes: on one sample's [P, ...] inputs it returns the JAX
@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from ..core.rotated_iou import axis_aligned_iou
+from ..core.rotated_iou import axis_aligned_iou, giou_3d, iou_3d
 
 
 def _stable_bce_with_logits(logits: torch.Tensor,
@@ -50,9 +50,18 @@ def bce_loss_sum(logits: torch.Tensor, targets: torch.Tensor,
 def iou3d_loss_sum(pred_boxes7: torch.Tensor, target_boxes7: torch.Tensor,
                    weight: torch.Tensor, with_yaw: bool) -> torch.Tensor:
     """(1 - IoU3D) * weight summed over gravity-centred box pairs
-    [..., P, 7]. The axis-aligned IoU drops the yaw column; `with_yaw=True`
-    (the rotated IoU) raises NotImplementedError."""
+    [..., P, 7]: the rotated 3D IoU with `with_yaw`, else the axis-aligned
+    IoU, which drops the yaw column."""
     if with_yaw:
-        raise NotImplementedError("the rotated 3D IoU is not ported yet")
-    iou = axis_aligned_iou(pred_boxes7[..., :6], target_boxes7[..., :6])
+        iou = iou_3d(pred_boxes7, target_boxes7)
+    else:
+        iou = axis_aligned_iou(pred_boxes7[..., :6], target_boxes7[..., :6])
     return ((1.0 - iou) * weight).sum(dim=-1)
+
+
+def giou3d_loss_sum(pred_boxes7: torch.Tensor, target_boxes7: torch.Tensor,
+                    weight: torch.Tensor) -> torch.Tensor:
+    """GIoU3D loss * weight summed over gravity-centred box pairs
+    [..., P, 7], with the smallest enclosing rectangle."""
+    loss, _ = giou_3d(pred_boxes7, target_boxes7)
+    return (loss * weight).sum(dim=-1)

@@ -120,12 +120,16 @@ def k4_tiles(variant: str, c: int, e: int):
 
 
 def _apply_act(x: torch.Tensor, act: Optional[str]) -> torch.Tensor:
-    """Epilogue activation in f32. ELU is exp(min(x, 0)) - 1, as in the
-    TPU kernel's epilogue (`sparse_elu` uses expm1 instead)."""
+    """Epilogue activation in f32. ELU's negative branch is
+    expm1(min(x, 0)), which ATen computes with its own vectorised code: on
+    a float32 CPU tensor `torch.exp` runs MKL's VML, whose result on one
+    intra-op thread's share of a tensor once came out ~4e-5 off in a long
+    test run (ROADMAP Queue 3). The kernels compute exp(min(x, 0)) - 1, as
+    the TPU kernel does; the two agree within 1e-7."""
     if act == "relu":
         return torch.clamp_min(x, 0.0)
     if act == "elu":
-        return torch.where(x > 0, x, torch.exp(torch.clamp_max(x, 0.0)) - 1.0)
+        return torch.where(x > 0, x, torch.expm1(torch.clamp_max(x, 0.0)))
     if act is not None:
         raise ValueError(f"act must be None, 'relu' or 'elu', got {act!r}")
     return x

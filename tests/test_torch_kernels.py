@@ -151,6 +151,31 @@ def test_k2_plain_matches_pallas(c, e, k, act, with_add, capfd):
                         k2_float64(feats, idx, w), capfd)
 
 
+@pytest.mark.parametrize("threads", [1, 3, 8])
+def test_elu_epilogue_matches_float64(threads):
+    """The plain epilogue's ELU within 1e-7 of float64 at every element,
+    with the tensor split over `threads` intra-op threads: the K2 flake
+    (ROADMAP Queue 3) moved the negative outputs of one thread's share of
+    `torch.exp` by up to 1e-4."""
+    rng = np.random.default_rng(0)
+    out = rng.normal(0, 1, (1, 640, 64)).astype(np.float32)
+    out[0, 600:] = 0.0  # all-miss rows: act(shift), as in the flake
+    scale = rng.uniform(0.5, 1.5, 64).astype(np.float32)
+    shift = rng.normal(0, 0.1, 64).astype(np.float32)
+    vmask = np.ones((1, 640), bool)
+    was = torch.get_num_threads()
+    torch.set_num_threads(threads)
+    try:
+        got = tg.apply_epilogue(torch.as_tensor(out), torch.as_tensor(scale),
+                                torch.as_tensor(shift), "elu",
+                                torch.as_tensor(vmask))
+    finally:
+        torch.set_num_threads(was)
+    y = (out * scale + shift).astype(np.float64)  # the f32 pre-activation
+    want = np.where(y > 0, y, np.expm1(np.minimum(y, 0.0)))
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-7)
+
+
 def test_k3_plain_matches_pallas():
     """Stem pool map (k2 s2): exactly equal, all-miss rows included."""
     coords, keys, feats = rand_map(np.random.default_rng(1), 300, 320, grid=9,
@@ -423,7 +448,9 @@ def test_epilogue_arguments_are_checked():
 
 
 @pytest.mark.parametrize("name", ["fcaf3d_scannet", "fcaf3d_tiny",
-                                  "fcaf3d_nano"])
+                                  "fcaf3d_nano", "fcaf3d_scannet_3scales",
+                                  "fcaf3d_scannet_2scales", "fcaf3d_sunrgbd",
+                                  "fcaf3d_s3dis"])
 def test_configs_match_jax(name):
     """The port's copies of the configs equal the JAX package's."""
     assert dataclasses.asdict(getattr(tconfigs, name)()) == \

@@ -130,8 +130,9 @@ def test_assigner_matches_jax(limit, topk):
 
 
 def test_losses_match_jax():
-    """Focal, BCE and axis-aligned IoU loss sums: values and gradients
-    within 1e-6 relative, per sample (batched) and on one sample."""
+    """Focal, BCE, axis-aligned and rotated IoU loss sums: values and
+    gradients within 1e-6 relative (gradients also within 1e-7, the rotated
+    IoU's 1e-6), per sample (batched) and on one sample."""
     rng = np.random.default_rng(3)
     b, p, c = 2, 80, 5
     logits = (rng.standard_normal((b, p, c)) * 3).astype(np.float32)
@@ -145,6 +146,9 @@ def test_losses_match_jax():
     target7 = np.concatenate([target, np.zeros((b * p, 1), np.float32)], 1)
     pred7, target7 = pred7.reshape(b, p, 7), target7.reshape(b, p, 7)
     w = np.where(valid, ctr_t, 0.0).astype(np.float32)
+    yaws = rng.uniform(-np.pi, np.pi, (2, b, p)).astype(np.float32)
+    pred7y, target7y = pred7.copy(), target7.copy()
+    pred7y[..., 6], target7y[..., 6] = yaws
 
     cases = {
         "focal": (lambda x: tl.focal_loss_sum(x, torch.as_tensor(labels),
@@ -158,7 +162,16 @@ def test_losses_match_jax():
                                             torch.as_tensor(w), False),
                 lambda x, i: jl.iou3d_loss_sum(x, target7[i], w[i], False),
                 pred7),
+        "rotated_iou": (
+            lambda x: tl.iou3d_loss_sum(x, torch.as_tensor(target7y),
+                                        torch.as_tensor(w), True),
+            lambda x, i: jl.iou3d_loss_sum(x, jnp.asarray(target7y[i]), w[i],
+                                           True),
+            pred7y),
     }
+    # the rotated IoU's corners take the sine and cosine of the yaw, which
+    # XLA and torch may round an ulp apart
+    grad_atol = {"rotated_iou": 1e-6}
     for name, (fn_t, fn_j, x) in cases.items():
         x_t = torch.tensor(x, requires_grad=True)
         got = fn_t(x_t)
@@ -167,12 +180,10 @@ def test_losses_match_jax():
         for i in range(b):
             want, g = jax.value_and_grad(fn_j)(jnp.asarray(x[i]), i)
             close(got[i].detach(), want, atol=0, what=f"{name} value")
-            close(x_t.grad[i], g, atol=1e-7, what=f"{name} grad")
+            close(x_t.grad[i], g, atol=grad_atol.get(name, 1e-7),
+                  what=f"{name} grad")
         # one sample in, the JAX function's scalar out
         assert fn_t(torch.as_tensor(x))[0].dim() == 0
-    with pytest.raises(NotImplementedError):
-        tl.iou3d_loss_sum(torch.as_tensor(pred7), torch.as_tensor(target7),
-                          torch.as_tensor(w), with_yaw=True)
 
 
 def test_optimizer_matches_optax():

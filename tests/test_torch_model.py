@@ -41,7 +41,10 @@ ATOL = 1e-4
 EXTENT = {"fcaf3d_tiny": (0.6, 0.6, 0.3), "fcaf3d_nano": (0.3, 0.3, 0.15)}
 
 
-@pytest.mark.parametrize("name", ["fcaf3d_scannet", "fcaf3d_tiny"])
+@pytest.mark.parametrize("name", ["fcaf3d_scannet", "fcaf3d_tiny",
+                                  "fcaf3d_scannet_3scales",
+                                  "fcaf3d_scannet_2scales", "fcaf3d_sunrgbd",
+                                  "fcaf3d_s3dis"])
 def test_init_variables_tree_matches_flax(name):
     """Paths and shapes equal `jax.eval_shape(FCAF3D(cfg).init, ...)`."""
     cfg = getattr(jconfigs, name)()

@@ -175,6 +175,44 @@ def test_bound_takes_the_larger_limit():
     assert by == "bytes" and ms == pytest.approx(1.0)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k4_replay_gate_holds_to_float64(monkeypatch, dtype):
+    """`chip_smoke.hold_calls_to_plain` on recorded K4 calls: `k4_float64`
+    equals a numpy float64 contraction, the plain version passes, and a dW
+    off by 1e-3 of its largest value at one element fails (the limit of a
+    tensor-core call, K4_ULP a step of its chain, is below that here)."""
+    idx, n = real_map(5)
+    idx = np.concatenate([idx, idx[:, ::-1]])  # B = 2
+    rng = np.random.default_rng(0)
+    feats = rng.standard_normal((2, n, 8)).astype(np.float32)
+    dout = rng.standard_normal(idx.shape[:2] + (16,)).astype(np.float32)
+    args = (torch.as_tensor(feats).to(dtype), torch.as_tensor(idx),
+            torch.as_tensor(dout).to(dtype))
+    feats, dout = (a.float().numpy() for a in (args[0], args[2]))
+    fpad = np.concatenate([feats, np.zeros((2, 1, 8), np.float32)], 1)
+    g = np.stack([fpad[i][idx[i]] for i in range(2)]).astype(np.float64)
+    want = np.einsum("bmkc,bme->kce", g, dout.astype(np.float64))
+    ref = chip_smoke.k4_float64(torch, *args)
+    assert ref.dtype == torch.float64
+    np.testing.assert_allclose(ref.numpy(), want, rtol=1e-12, atol=1e-12)
+    calls = {"fused_gather_dw": [(args, {})]}
+    worst = chip_smoke.hold_calls_to_plain(torch, calls, "a recorded step")
+    assert worst["K4"] <= chip_smoke.K4_RTOL
+    steps = worst["its mma steps"]
+    assert (steps > 0) == (dtype == torch.bfloat16)
+    assert chip_smoke.K4_ULP * steps < 1e-3
+    real = tg.fused_gather_dw
+
+    def off(*a, **kw):
+        out = real(*a, **kw).clone()
+        out[0, 0, 0] += 1e-3 * float(out.abs().max())
+        return out
+
+    monkeypatch.setattr(tg, "fused_gather_dw", off)
+    with pytest.raises(AssertionError, match="K4"):
+        chip_smoke.hold_calls_to_plain(torch, calls, "a recorded step")
+
+
 def test_ballq_scan_count():
     """Points a ball query scans: up to its nsample-th hit, else all."""
     pts = torch.tensor([[[0.0, 0, 0], [5, 0, 0], [0.1, 0, 0], [0.2, 0, 0],

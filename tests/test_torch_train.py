@@ -40,11 +40,10 @@ from tests.test_torch_ops import jax_without_persistent_cache  # noqa: F401
 LOSSES = ("loss_cls", "loss_centerness", "loss_bbox")
 
 
-@pytest.fixture(scope="module")
-def nano_step():
-    """Both packages' results of one training step at fcaf3d_nano, B = 2."""
-    cfg, jcfg = tconfigs.fcaf3d_nano(), jconfigs.fcaf3d_nano()
-    batch = head_batch(torch, cfg, EXTENT["fcaf3d_nano"])
+def step_on_both_sides(cfg, jcfg, batch):
+    """One training step of each package at the same config, weights and
+    batch: (the port's {metrics, outs, overflow, grads, stats}, the JAX
+    package's {total, losses, stats, overflow, outs, grads, grad_norm})."""
     variables = init_variables(cfg, seed=0)
 
     model = JFCAF3D(jcfg)
@@ -81,6 +80,14 @@ def nano_step():
     return got, want
 
 
+@pytest.fixture(scope="module")
+def nano_step():
+    """Both packages' results of one training step at fcaf3d_nano, B = 2."""
+    cfg, jcfg = tconfigs.fcaf3d_nano(), jconfigs.fcaf3d_nano()
+    return step_on_both_sides(cfg, jcfg,
+                              head_batch(torch, cfg, EXTENT["fcaf3d_nano"]))
+
+
 def test_train_forward_matches_jax(nano_step):
     """Per-level head outputs of the training forward and the overflow
     counts."""
@@ -102,7 +109,14 @@ def test_train_forward_matches_jax(nano_step):
 def test_train_step_losses_and_grads_match_jax(nano_step):
     """Losses (the box loss live on both sides), the gradient norm before
     the clip, every gradient leaf and the updated batch statistics."""
-    got, want = nano_step
+    assert_step_matches(*nano_step)
+
+
+def assert_step_matches(got, want):
+    """`step_on_both_sides`' results agree: losses within 1e-4 relative
+    (the box loss live on both sides), the gradient norm, every gradient
+    element within 1e-4 of its leaf's largest, batch statistics within
+    1e-5."""
     m = got["metrics"]
     for k in LOSSES:
         np.testing.assert_allclose(float(m[k]), float(want["losses"][k]),
