@@ -98,13 +98,38 @@ Phases (any failure raises and the script exits non-zero):
    bf16 at batch 8 of crowded scenes with yawed boxes (a warm-up step, then
    three timed steps with the checks of phase 6, K1-K4 launched); and the
    tight f32 gate of phase 6 at `fcaf3d_tiny(with_yaw=True)`.
+10. The rest of FCAF3D, at `fcaf3d_scannet`'s budgets and widths. The
+   reference-order neck (`neck_mode="reference"`: conv3 over all 8P
+   generated children, union-add, prune): bf16 inference on two of phase
+   5's scans as phase 9 runs its configs (zero overflow, K1-K3, the
+   variant gate, the warm-up scan's K1 calls exact and its K2 calls, the
+   child-map calls among them, held to plain), walls in turns with the
+   prune-early neck on the same scans with each neck's peak memory; one
+   f32 scan card against CPU (maps and child maps exactly, each prune's
+   kept keys exactly but for rows within PRUNE_RTOL of the budget-th
+   score, detections within phase 5's tolerances); bf16 training at batch
+   8 with phase 6's checks (a warm-up step held to plain and to float64,
+   three timed steps, peak memory) and the tight f32 gate at
+   `fcaf3d_tiny(neck_mode="reference")`. Depth 50 and 101 (Bottleneck
+   backbones, outputs up to 2048 wide): two bf16 scans each with phase 9's
+   checks, one f32 depth-50 scan card against CPU, bf16 training at batch
+   8 (depth 50 two timed steps, depth 101 one, each after a held warm-up
+   step, with peak memory), the tight f32 gate at `fcaf3d_tiny(depth=50)`.
+   K2 (batch 1) and K4 (batch 8) timed with bound and share at the child
+   maps' and the widest shapes (REFERENCE_ROWS, DEEP_ROWS).
+   `voxelize_reduce` mean and max on a scan at the ScanNet input budget:
+   keys equal to the CPU's, features within VOXEL_REDUCE_ATOL, two card
+   runs bitwise equal.
 
 Output: progress lines, then a JSON line of per-kernel results (launches
 of each main path: FCAF3D inference, FCAF3D training, VoteNet inference,
-the inference of each phase-9 config and SUN RGB-D training;
+the inference of each phase-9 config and SUN RGB-D training, and phase
+10's reference-neck and depth-50 / 101 inference and training and
+`voxelize_reduce`;
 K1-K6 also by variant; the recorded shape's times, bound and share; K1 at
 every distinct call of the two FCAF3D paths, K2 at every f32 path shape and
-over the f32 scan, K3 at both stem pool maps, K6 at every VoteNet shape),
+over the f32 scan, K3 at both stem pool maps, K6 at every VoteNet shape,
+K2 and K4 at phase 10's rows),
 the `nvidia-smi` name/power-limit line, and last `{"ok": true, ...}`.
 
 Two further modes measure instead of checking (device and build first):
@@ -212,6 +237,24 @@ OTHER_CONFIGS = ("fcaf3d_scannet_3scales", "fcaf3d_scannet_2scales",
                  "fcaf3d_s3dis", "fcaf3d_sunrgbd")
 OTHER_SCANS, SUN_TRAIN_STEPS = 2, 3
 NMS_REPS = 5  # timed calls of the rotated and the axis-aligned BEV NMS
+# phase 10: bf16 scans of the reference neck and of depth 50 / 101 after a
+# warm-up scan, the reference neck's and depth 50's timed batch-8 steps
+# (depth 101: one, for its time and peak memory), reference-neck walls in
+# turns with the prune-early neck (REST_TURNS passes over the scans)
+REST_SCANS, REST_TRAIN_STEPS, REST_TURNS = 2, 3, 2
+DEEP_TRAIN_STEPS = {50: 2, 101: 1}
+# a row kept on one side of an f32 card-vs-CPU prune and not on the other
+# is allowed only where its score lies this close (relative) to the
+# budget-th score
+PRUNE_RTOL = 1e-5
+VOXEL_REDUCE_ATOL = 1e-6  # voxelize_reduce features, card vs CPU
+# K2 (batch 1) and K4 (batch 8) rows timed at phase 10's new shapes, by
+# (M, K, C, E): the reference neck's up-block conv3 on the 8P children of
+# each level, and depth 50's widest neck conv3, out block and downsample
+REFERENCE_ROWS = ((8192, 27, 256, 256), (49152, 27, 128, 128),
+                  (131072, 27, 64, 64))
+DEEP_ROWS = ((6144, 27, 1024, 1024), (1024, 27, 2048, 128),
+             (1024, 1, 1024, 2048))
 # which kernels each main path runs
 INFERENCE_KERNELS = ("searchsorted", "gather_gemm", "gather_max")
 TRAINING_KERNELS = INFERENCE_KERNELS + ("gather_dw",)
@@ -221,6 +264,13 @@ PATH_KERNELS = {
     "votenet_inference": ("fps", "ball_query"),
     **{f"{name}_inference": INFERENCE_KERNELS for name in OTHER_CONFIGS},
     "fcaf3d_sunrgbd_training": TRAINING_KERNELS,
+    "fcaf3d_reference_inference": INFERENCE_KERNELS,
+    "fcaf3d_reference_training": TRAINING_KERNELS,
+    "fcaf3d_depth50_inference": INFERENCE_KERNELS,
+    "fcaf3d_depth101_inference": INFERENCE_KERNELS,
+    "fcaf3d_depth50_training": TRAINING_KERNELS,
+    "fcaf3d_depth101_training": TRAINING_KERNELS,
+    "voxelize_reduce": ("searchsorted",),
 }
 
 
@@ -862,10 +912,11 @@ def k2_timing(torch, feats, idx, w, kw, dname):
 
 def compare_f32(torch, cfg, points, device):
     """One scan in f32: the card against the plain path on the CPU (voxel
-    keys and backbone maps exactly, every BEV NMS keep mask exactly,
-    detections within BOX_ATOL / SCORE_ATOL), every f32 K2 launch on the
-    narrow and tiled kernels and every K1 launch on the gallop kernel.
-    Returns the scan's K2 device time (`k2_scan_times`)."""
+    keys and backbone maps exactly; with the reference neck its child maps
+    exactly and its pruned maps by `check_reference_neck`; every BEV NMS
+    keep mask exactly, detections within BOX_ATOL / SCORE_ATOL), every f32
+    K2 launch on the narrow and tiled kernels and every K1 launch on the
+    gallop kernel. Returns the scan's K2 device time (`k2_scan_times`)."""
     from fcaf3d_tpu_torch import _native
     from fcaf3d_tpu_torch.apis import inference_detector, init_detector
 
@@ -881,12 +932,16 @@ def compare_f32(torch, cfg, points, device):
     model = init_detector(cfg32, 0, device=device)
     _native.reset_launches()
     k2_calls, keep_got, keep_want = {"fused_gather_gemm": []}, [], []
-    with recorded_conv_calls(k2_calls), recorded_nms(keep_got):
+    neck_got, neck_want = [], []
+    with recorded_conv_calls(k2_calls), recorded_nms(keep_got), \
+            recorded_reference_neck(neck_got):
         got, got_ovf = inference_detector(model, points)
     check_variants(f"f32 inference scan, {cfg.n_classes} classes", f32=True)
-    with recorded_nms(keep_want):
+    with recorded_nms(keep_want), recorded_reference_neck(neck_want):
         want, want_ovf = inference_detector(
             init_detector(cfg32, 0, device="cpu"), points)
+    if cfg.neck_mode == "reference":
+        check_reference_neck(torch, neck_got, neck_want, "f32 reference scan")
     if len(keep_got) != len(keep_want) or not all(
             torch.equal(g[1].cpu(), w[1]) for g, w in zip(keep_got,
                                                         keep_want)):
@@ -959,6 +1014,86 @@ def recorded_nms(calls):
         yield
     finally:
         fcaf3d_head.nms_bev = real
+
+
+@contextlib.contextmanager
+def recorded_reference_neck(calls):
+    """Every child map the reference neck expands (`conv.gen_child_idx`) and
+    every prune it makes (`sparse_prune`) inside is appended to `calls`, in
+    order, as ("child", parent map, child map) and ("prune", union keys,
+    scores, budget, kept keys), on the CPU."""
+    from fcaf3d_tpu_torch.models import fcaf3d_head
+    from fcaf3d_tpu_torch.ops.sparse import conv as sconv
+
+    real_child, real_prune = sconv.gen_child_idx, fcaf3d_head.sparse_prune
+
+    def child(parent_idx):
+        out = real_child(parent_idx)
+        calls.append(("child", parent_idx.cpu(), out.cpu()))
+        return out
+
+    def prune(st, scores, budget):
+        out = real_prune(st, scores, budget)
+        calls.append(("prune", st.keys.cpu(), scores.float().cpu(), budget,
+                      out.keys.cpu()))
+        return out
+
+    sconv.gen_child_idx, fcaf3d_head.sparse_prune = child, prune
+    try:
+        yield
+    finally:
+        sconv.gen_child_idx, fcaf3d_head.sparse_prune = real_child, real_prune
+
+
+def check_reference_neck(torch, got, want, what):
+    """The reference neck's maps on the card (`got`) against the CPU's
+    (`want`, `recorded_reference_neck`), level by level: parent and child
+    maps and the union's keys exactly equal, and the kept key sets equal
+    but for rows whose CPU score lies within PRUNE_RTOL (relative) of the
+    budget-th score, where card and CPU scores differ in the last bits.
+    After a level with such a flip the finer levels' maps are other maps
+    and are not compared. Logs the flips; returns their count."""
+    from fcaf3d_tpu_torch.ops.sparse import SENTINEL
+
+    if [c[0] for c in got] != [c[0] for c in want] or not want:
+        raise AssertionError(f"{what}: the neck's calls differ card vs CPU")
+    flips, compared = 0, 0
+    for g, w in zip(got, want):
+        if flips:
+            break
+        compared += 1
+        if g[0] == "child":
+            if not (torch.equal(g[1], w[1]) and torch.equal(g[2], w[2])):
+                raise AssertionError(f"{what}: a parent or child map "
+                                     f"{tuple(w[2].shape)} differs")
+            continue
+        _, keys_g, _, budget, kept_g = g
+        _, keys, scores, _, kept_w = w
+        if not torch.equal(keys_g, keys):
+            raise AssertionError(f"{what}: union keys differ card vs CPU")
+        for b in range(keys.shape[0]):
+            valid = keys[b] != SENTINEL
+            s = scores[b][valid]
+            if s.numel() <= budget:
+                if not torch.equal(kept_g[b], kept_w[b]):
+                    raise AssertionError(f"{what}: unpruned map differs")
+                continue
+            kth = float(torch.sort(s, descending=True).values[budget - 1])
+            a = kept_g[b][kept_g[b] != SENTINEL]
+            c = kept_w[b][kept_w[b] != SENTINEL]
+            flipped = torch.cat([a[~torch.isin(a, c)], c[~torch.isin(c, a)]])
+            row = torch.isin(keys[b], flipped)
+            far = (scores[b][row] - kth).abs() > PRUNE_RTOL * abs(kth)
+            if far.any():
+                raise AssertionError(
+                    f"{what}: {int(far.sum())} kept rows differ card vs CPU "
+                    f"with scores off the budget-th {kth} by more than "
+                    f"{PRUNE_RTOL} relative")
+            flips += int(row.sum())
+    log(f"   {what}: {sum(c[0] == 'child' for c in want)} child maps and "
+        f"{sum(c[0] == 'prune' for c in want)} prunes; {compared} compared "
+        f"card vs CPU, equal; {flips} rows flipped at a prune boundary")
+    return flips
 
 
 def k4_float64(torch, feats, idx, dout):
@@ -1063,13 +1198,15 @@ def k2_scan_times(torch, calls, what):
     return rec
 
 
-def slice_phase(torch, cfg, scans, device, path="fcaf3d_inference"):
+def slice_phase(torch, cfg, scans, device, path="fcaf3d_inference",
+                on_calls=None):
     """bf16 inference on every scan after a warm-up scan whose K1 calls are
     checked and timed (`k1_path_phase`) and whose K2 and K3 calls are held
-    to their plain versions (`hold_calls_to_plain`); zero overflow and
-    well-formed detections (with rotated boxes, some yaw non-zero) on every
-    scan. Returns launches per kernel, the launches by variant
-    (`check_variants`) and the K1 record."""
+    to their plain versions (`hold_calls_to_plain`), then handed to
+    `on_calls` if given; zero overflow and well-formed detections (with
+    rotated boxes, some yaw non-zero) on every scan. Returns launches per
+    kernel, the launches by variant (`check_variants`) and the K1
+    record."""
     from fcaf3d_tpu_torch import _native
     from fcaf3d_tpu_torch.apis import inference_detector, init_detector
 
@@ -1081,6 +1218,8 @@ def slice_phase(torch, cfg, scans, device, path="fcaf3d_inference"):
     torch.cuda.synchronize()
     k1 = k1_path_phase(torch, calls, 1, f"one bf16 {path} scan")
     hold_calls_to_plain(torch, conv_calls, f"one bf16 {path} scan")
+    if on_calls is not None:
+        on_calls(conv_calls)
     calls.clear()
     conv_calls.clear()
     _native.reset_launches()
@@ -1353,11 +1492,11 @@ def train_batch(cfg, batch, seed0):
 
 
 def train_phase(torch, cfg, batch, device, steps=TRAIN_STEPS,
-                path="fcaf3d_training"):
+                path="fcaf3d_training", on_calls=None):
     """bf16 training at batch 8: a warm-up step whose K1 calls are checked
     and timed (`k1_path_phase`) and whose K2 and K3 calls are held to
     their plain versions and K4 calls to float64 (`hold_calls_to_plain`),
-    then `steps` timed steps.
+    then handed to `on_calls` if given; then `steps` timed steps.
     Returns launches per kernel over the timed steps, the launches by
     variant (`check_variants`) and the K1 record."""
     from fcaf3d_tpu_torch import _native
@@ -1374,6 +1513,8 @@ def train_phase(torch, cfg, batch, device, steps=TRAIN_STEPS,
     what = f"one batch-{TRAIN_BATCH} {path} step"
     k1 = k1_path_phase(torch, calls, 1, what)
     hold_calls_to_plain(torch, conv_calls, what)
+    if on_calls is not None:
+        on_calls(conv_calls)
     # the recorded inputs must not count in the peak memory
     calls.clear()
     conv_calls.clear()
@@ -1499,14 +1640,16 @@ def report_errs(errs):
             + ", ".join(f"{n} {a:.3g} ({b:.3g})" for a, b, n in errs[-3:]))
 
 
-def compare_train_tiny(torch, device, with_yaw=False):
+def compare_train_tiny(torch, device, with_yaw=False, **over):
     """One f32 train step at `fcaf3d_tiny` (`with_yaw`: rotated boxes, 8
-    regression outputs, yawed GT boxes), batch 2, card against CPU, with
-    the tight per-element gate."""
+    regression outputs, yawed GT boxes; `over`: fields replaced, e.g.
+    depth=50), batch 2, card against CPU, with the tight per-element
+    gate."""
     from fcaf3d_tpu_torch.configs import fcaf3d_tiny
 
-    cfg = fcaf3d_tiny(with_yaw=with_yaw)
-    what = f"f32 tiny{' with_yaw' if with_yaw else ''} train"
+    cfg = dataclasses.replace(fcaf3d_tiny(with_yaw=with_yaw), **over)
+    what = (f"f32 tiny{' with_yaw' if with_yaw else ''}"
+            + "".join(f" {k}={v}" for k, v in over.items()) + " train")
     batch = head_batch(torch, cfg, TINY_EXTENT)
     loss_g, loss_c, _, errs = card_vs_cpu(torch, cfg, batch, device, what)
     loss_err = max(abs(loss_g[k] / loss_c[k] - 1) for k in loss_c)
@@ -2441,6 +2584,184 @@ def other_configs_phase(torch, device):
     return launches, variants, k1, rows
 
 
+def shape_rows(torch, calls, k2_shapes, k4_shapes, rows, what):
+    """The first recorded call (`recorded_conv_calls`) of a run at each
+    (M, K, C, E) of `k2_shapes` (K2 on its own inputs and epilogue,
+    `k2_timing`) and of `k4_shapes` (K4 on its map, `k4_case`), timed with
+    bound and share, into rows["gather_gemm"] / rows["gather_dw"] under
+    "`what` M.. K.. C.. E..". Fails unless every shape was found."""
+    found = set()
+    for args, kw in calls.get("fused_gather_gemm", ()):
+        feats, idx, w = args
+        key = (idx.shape[1],) + tuple(w.shape)
+        if key not in k2_shapes or ("K2",) + key in found:
+            continue
+        found.add(("K2",) + key)
+        name = f"{what} M{key[0]} K{key[1]} C{key[2]} E{key[3]}"
+        dname = str(feats.dtype).split(".")[1]
+        with torch.inference_mode():
+            r = k2_timing(torch, feats, idx, w, kw, dname)
+        r["shape"] = [list(idx.shape), feats.shape[1], key[2], key[3]]
+        rows["gather_gemm"][name] = r
+        log(f"   K2 {name} {dname} N={feats.shape[1]}"
+            f"{' with epilogue' if kw else ''}: {r['variant']} "
+            f"{r.get('tile', '')}: {report(r)}")
+        if dname == "bfloat16":
+            tc_yardsticks(f"K2 {name}", r)
+    for args, _ in calls.get("fused_gather_dw", ()):
+        feats, idx, dout = args
+        key = (idx.shape[1], idx.shape[2], feats.shape[2], dout.shape[2])
+        if key not in k4_shapes or ("K4",) + key in found:
+            continue
+        found.add(("K4",) + key)
+        name = f"{what} M{key[0]} K{key[1]} C{key[2]} E{key[3]}"
+        r, _ = k4_case(torch, (idx, feats.shape[1]), key[2], key[3],
+                       "bfloat16", name)
+        r["shape"] = [list(idx.shape), feats.shape[1], key[2], key[3]]
+        rows["gather_dw"][name] = r
+    want = {("K2",) + k for k in k2_shapes} | {("K4",) + k for k in k4_shapes}
+    if found != want:
+        raise AssertionError(f"{what}: no recorded call at {want - found}")
+
+
+def neck_turns(torch, cfg, scans, device):
+    """bf16 walls of `inference_detector` with each neck order on the same
+    scans, in turns (prune-early, reference, then reversed; REST_TURNS
+    passes), after a warm-up scan each, with each order's peak memory above
+    what was allocated before. Returns {mode: (mean ms, [ms], peak
+    bytes)}."""
+    from fcaf3d_tpu_torch.apis import inference_detector, init_detector
+
+    modes = ("prune_early", "reference")
+    models = {m: init_detector(dataclasses.replace(cfg, neck_mode=m), 0,
+                               device=device) for m in modes}
+    walls, peaks = {m: [] for m in modes}, {m: 0 for m in modes}
+    for m in modes:
+        inference_detector(models[m], scans[0])
+    for t in range(REST_TURNS):
+        for m in (modes if t % 2 == 0 else modes[::-1]):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            for pts in scans:
+                t0 = time.perf_counter()
+                inference_detector(models[m], pts)
+                walls[m].append((time.perf_counter() - t0) * 1e3)
+            peaks[m] = max(peaks[m], torch.cuda.max_memory_allocated() - base)
+    out = {m: (float(np.mean(walls[m])), walls[m], peaks[m]) for m in modes}
+    log("   bf16 walls a scan in turns, " + "; ".join(
+        f"{m} mean {v[0]:.1f} ms (" + "/".join(f"{t:.1f}" for t in v[1])
+        + f"), peak {v[2] / 2**20:.0f} MiB above the model's"
+        for m, v in out.items()))
+    return out
+
+
+def voxelize_reduce_phase(torch, cfg, points, device):
+    """`voxelize_reduce`, mean and max, on one scan sampled to
+    `cfg.num_points` at `cfg.input_budget`: keys, coords, shift and
+    `dropped` equal to the CPU's, features within VOXEL_REDUCE_ATOL, and
+    two runs on the card bitwise equal; each timed (CUDA events). Returns
+    the launches of the four checked runs and their launches by variant."""
+    from fcaf3d_tpu_torch import _native
+    from fcaf3d_tpu_torch.ops.sparse import voxelize_reduce
+
+    cloud = sample(points, cfg)[None]
+
+    def run(dev, reduce):
+        p = torch.as_tensor(cloud[..., :3].astype(np.float32), device=dev)
+        c = torch.as_tensor(cloud[..., 3:6].astype(np.float32) / 255.0,
+                            device=dev)
+        v = torch.ones(p.shape[:2], dtype=torch.bool, device=dev)
+        return voxelize_reduce(p, c, v, cfg.voxel_size, cfg.input_budget,
+                               reduce)
+
+    _native.reset_launches()
+    results = {}
+    for reduce in ("mean", "max"):
+        got, again, want = run(device, reduce), run(device, reduce),             run("cpu", reduce)
+        for name in ("keys", "coords", "shift", "dropped"):
+            if not torch.equal(getattr(got, name).cpu(), getattr(want, name)):
+                raise AssertionError(f"voxelize_reduce {reduce}: {name} "
+                                     "differs card vs CPU")
+        err = float((got.feats.cpu() - want.feats).abs().max())
+        if not (err <= VOXEL_REDUCE_ATOL and torch.equal(got.feats,
+                                                         again.feats)):
+            raise AssertionError(f"voxelize_reduce {reduce}: feats err {err}"
+                                 f" (tol {VOXEL_REDUCE_ATOL}), two runs "
+                                 f"bitwise equal {torch.equal(got.feats, again.feats)}")
+        results[reduce] = (err, int((want.keys != (2 ** 32 - 1)).sum()),
+                           int(want.dropped.sum()))
+    launches = dict(_native.LAUNCHES)
+    variants = check_variants("voxelize_reduce")
+    check_path_launches(launches, "voxelize_reduce")
+    for reduce, (err, n, dropped) in results.items():
+        ms = cuda_ms(torch, lambda: run(device, reduce), reps=5)
+        log(f"   voxelize_reduce {reduce}: {n} voxels of {cfg.input_budget} "
+            f"from {cfg.num_points} points, dropped {dropped}; keys equal "
+            f"card vs CPU, feats max abs err {err:.3g} (tol "
+            f"{VOXEL_REDUCE_ATOL}), two card runs bitwise equal; {ms:.3f} "
+            "ms")
+    return launches, variants
+
+
+def rest_of_fcaf3d_phase(torch, cfg, scans, batch, device):
+    """Phase 10: the reference neck, depth 50 and 101 and `voxelize_reduce`
+    (module docstring). Returns (launches by path, launches by variant by
+    path, K1 records by path, {"gather_gemm": rows, "gather_dw": rows} of
+    `shape_rows`)."""
+    from fcaf3d_tpu_torch import _native
+
+    launches, variants, k1 = {}, {}, {}
+    rows = {"gather_gemm": {}, "gather_dw": {}}
+    scans = scans[:REST_SCANS]
+    ref = dataclasses.replace(cfg, neck_mode="reference")
+    log("   -- the reference neck: bf16 inference, batch 1")
+    path = "fcaf3d_reference_inference"
+    launches[path], variants[path], k1[path] = slice_phase(
+        torch, ref, scans, device, path, on_calls=lambda calls: shape_rows(
+            torch, calls, REFERENCE_ROWS, (), rows, "reference up conv"))
+    neck_turns(torch, cfg, scans, device)
+    log("   -- the reference neck, f32, one scan, card against the CPU")
+    compare_f32(torch, ref, scans[0], device)
+    log(f"   -- the reference neck: bf16 training, batch {TRAIN_BATCH}")
+    path = "fcaf3d_reference_training"
+    launches[path], variants[path], k1[path] = train_phase(
+        torch, ref, batch, device, steps=REST_TRAIN_STEPS, path=path,
+        on_calls=lambda calls: shape_rows(
+            torch, calls, (), REFERENCE_ROWS, rows, "reference up conv"))
+    _native.reset_launches()
+    compare_train_tiny(torch, device, neck_mode="reference")
+    check_variants("f32 tiny reference-neck train step", f32=True)
+    for depth in DEEP_TRAIN_STEPS:
+        log(f"   -- depth {depth}: bf16 inference, batch 1")
+        path = f"fcaf3d_depth{depth}_inference"
+        on_calls = None if depth != 50 else (
+            lambda calls: shape_rows(torch, calls, DEEP_ROWS, (), rows,
+                                     "depth 50"))
+        launches[path], variants[path], k1[path] = slice_phase(
+            torch, dataclasses.replace(cfg, depth=depth), scans, device,
+            path, on_calls=on_calls)
+    log("   -- depth 50, f32, one scan, card against the CPU")
+    compare_f32(torch, dataclasses.replace(cfg, depth=50), scans[0], device)
+    for depth, steps in DEEP_TRAIN_STEPS.items():
+        log(f"   -- depth {depth}: bf16 training, batch {TRAIN_BATCH}")
+        path = f"fcaf3d_depth{depth}_training"
+        on_calls = None if depth != 50 else (
+            lambda calls: shape_rows(torch, calls, (), DEEP_ROWS, rows,
+                                     "depth 50"))
+        launches[path], variants[path], k1[path] = train_phase(
+            torch, dataclasses.replace(cfg, depth=depth), batch, device,
+            steps=steps, path=path, on_calls=on_calls)
+    _native.reset_launches()
+    compare_train_tiny(torch, device, depth=50)
+    check_variants("f32 tiny depth-50 train step", f32=True)
+    log("   -- voxelize_reduce at the ScanNet input budget")
+    path = "voxelize_reduce"
+    launches[path], variants[path] = voxelize_reduce_phase(torch, cfg,
+                                                           scans[0], device)
+    return launches, variants, k1, rows
+
+
 KERNELS = (
     ("searchsorted", "fcaf3d_tpu_torch/csrc/search.cu",
      "fcaf3d_tpu/ops/sparse/search.py:149"),
@@ -2528,16 +2849,26 @@ def main():
     for kernel in ("gather_gemm", "gather_max"):
         rec[kernel]["other_configs"] = {name: r[kernel]
                                         for name, r in rows.items()}
+    log("== 10 the rest of FCAF3D: the reference neck (bf16 inference, f32 "
+        f"card vs CPU, bf16 training at batch {TRAIN_BATCH}), depth 50 and "
+        "101, voxelize_reduce")
+    rest_launches, rest_variants, rest_k1, rest_rows = rest_of_fcaf3d_phase(
+        torch, cfg, scans, batch, "cuda")
+    rec["searchsorted"]["path_calls"].update(rest_k1)
+    for kernel, r in rest_rows.items():
+        rec[kernel]["rest_of_fcaf3d"] = r
     log(f"== all phases passed in {time.perf_counter() - t_start:.1f} s")
     for what, ms, first, second in NOT_FASTER:
         log(f"   not faster than a yardstick: {what}: kernel {ms:.4f} ms, "
             f"yardsticks {first} and {second} ms")
     by_path = {"fcaf3d_inference": infer_launches,
                "fcaf3d_training": train_launches,
-               "votenet_inference": vote_launches, **other_launches}
+               "votenet_inference": vote_launches, **other_launches,
+               **rest_launches}
     variants = {"fcaf3d_inference": infer_variants,
                 "fcaf3d_training": train_variants,
-                "votenet_inference": vote_variants, **other_variants}
+                "votenet_inference": vote_variants, **other_variants,
+                **rest_variants}
     kernels = []
     for name, src, tpu in KERNELS:
         k = {"name": name, "route": "cuda", "source": src, "replaces": tpu,

@@ -16,7 +16,13 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..ops.sparse.conv import ConvEpilogue, sparse_conv, sparse_max_pool
+from ..ops.sparse.conv import (
+    ConvEpilogue,
+    gen_gather_gemm,
+    generative_transpose_conv2x2,
+    sparse_conv,
+    sparse_max_pool,
+)
 from ..ops.sparse.neck_ops import gen_children
 from ..ops.sparse.tensor import SparseTensor
 
@@ -46,6 +52,28 @@ class SparseConv(nn.Module):
                            epilogue=epilogue)
 
 
+class SparseGenConv3(SparseConv):
+    """A k3 s1 `SparseConv` (the same `kernel` [27, Cin, Cout]) that also
+    runs on a parent-major generated child map: `forward(child,
+    parent_kmap=...)` is `gen_gather_gemm` over the parent's k3 self map,
+    with the rows of invalid parents zeroed after the product."""
+
+    def __init__(self, in_channels: int, out_channels: int, device=None):
+        super().__init__(in_channels, out_channels, 3, device=device)
+
+    def forward(self, st: SparseTensor, plan=None,
+                epilogue: Optional[ConvEpilogue] = None,
+                parent_kmap: Optional[torch.Tensor] = None) -> SparseTensor:
+        if parent_kmap is None:
+            return super().forward(st, plan=plan, epilogue=epilogue)
+        if plan is not None or epilogue is not None or st.is_sorted:
+            raise ValueError("a conv on a generated child map takes the "
+                             "parent map alone, no plan or epilogue")
+        out = gen_gather_gemm(st.feats, parent_kmap,
+                              self.kernel.to(st.feats.dtype))
+        return st.with_feats(torch.where(st.valid[..., None], out, 0.0))
+
+
 class SparseGenerativeTranspose(nn.Module):
     """MinkowskiGenerativeConvolutionTranspose(kernel=2, stride=2), in the
     parent-major raw form of the prune-early neck: returns (coords, keys,
@@ -58,6 +86,12 @@ class SparseGenerativeTranspose(nn.Module):
 
     def forward(self, st: SparseTensor):
         return gen_children(st, self.kernel.to(st.feats.dtype))
+
+    def generate(self, st: SparseTensor) -> SparseTensor:
+        """The parent-major child map as a SparseTensor (the reference
+        neck's form)."""
+        return generative_transpose_conv2x2(
+            st, self.kernel.to(st.feats.dtype), sort_output=False)
 
 
 class SparseBatchNorm(nn.Module):
@@ -184,3 +218,60 @@ class SparseBasicBlock(nn.Module):
                 st, plan=pds, epilogue=ConvEpilogue(invd, shd, None))
         return self.conv2(out, plan=p2, epilogue=ConvEpilogue(
             inv2, sh2, "relu", add=residual.feats))
+
+
+class SparseBottleneck(nn.Module):
+    """ME `Bottleneck` (expansion 4) of the depth-50/101 backbones:
+    conv1x1-BN-ReLU, conv3(stride)-BN-ReLU, conv1x1(4 x planes)-BN (+skip),
+    ReLU; the skip is conv1(stride)+BN when the stride or width changes.
+    Evaluation folds every BN, activation and the residual add into the
+    convs' epilogues; training runs them as separate ops."""
+
+    expansion = 4
+
+    def __init__(self, inplanes: int, planes: int, stride: int = 1,
+                 out_budget: Optional[int] = None, device=None):
+        super().__init__()
+        out_ch = planes * self.expansion
+        self.conv1 = SparseConv(inplanes, planes, 1, device=device)
+        self.norm1 = SparseBatchNorm(planes, device=device)
+        self.conv2 = SparseConv(planes, planes, 3, stride=stride,
+                                out_budget=out_budget, device=device)
+        self.norm2 = SparseBatchNorm(planes, device=device)
+        self.conv3 = SparseConv(planes, out_ch, 1, device=device)
+        self.norm3 = SparseBatchNorm(out_ch, device=device)
+        self.has_ds = stride != 1 or inplanes != out_ch
+        if self.has_ds:
+            self.downsample_conv = SparseConv(inplanes, out_ch, 1,
+                                              stride=stride,
+                                              out_budget=out_budget,
+                                              device=device)
+            self.downsample_norm = SparseBatchNorm(out_ch, device=device)
+
+    def forward(self, st: SparseTensor, plans=None) -> SparseTensor:
+        """`plans` is an optional (conv2, unused, downsample) triple of
+        precomputed `conv_plan`s (a stage's triple); conv1 and conv3 are
+        k1 on unchanged maps and need none."""
+        p2, _, pds = plans if plans is not None else (None, None, None)
+        if self.training:
+            out = sparse_relu(self.norm1(self.conv1(st)))
+            out = sparse_relu(self.norm2(self.conv2(out, plan=p2)))
+            out = self.norm3(self.conv3(out))
+            residual = st
+            if self.has_ds:
+                residual = self.downsample_norm(
+                    self.downsample_conv(st, plan=pds))
+            return sparse_relu(out.with_feats(out.feats + residual.feats))
+        inv1, sh1 = self.norm1.affine()
+        inv2, sh2 = self.norm2.affine()
+        inv3, sh3 = self.norm3.affine()
+        out = self.conv1(st, epilogue=ConvEpilogue(inv1, sh1, "relu"))
+        out = self.conv2(out, plan=p2,
+                         epilogue=ConvEpilogue(inv2, sh2, "relu"))
+        residual = st
+        if self.has_ds:
+            invd, shd = self.downsample_norm.affine()
+            residual = self.downsample_conv(
+                st, plan=pds, epilogue=ConvEpilogue(invd, shd, None))
+        return self.conv3(out, epilogue=ConvEpilogue(
+            inv3, sh3, "relu", add=residual.feats))

@@ -11,7 +11,7 @@ from torch import nn
 from ..configs.fcaf3d import FCAF3DConfig
 from ..ops.sparse.tensor import voxelize
 from .fcaf3d_head import Fcaf3DNeckWithHead, FcafLossConfig, FcafTestConfig
-from .me_resnet import PLANES, MEResNet3D
+from .me_resnet import MEResNet3D, out_channels
 
 
 class FCAF3D(nn.Module):
@@ -27,7 +27,8 @@ class FCAF3D(nn.Module):
         self.backbone = MEResNet3D(cfg.in_channels, cfg.depth, cfg.n_outs,
                                    cfg.backbone_budgets, device=device)
         self.neck_with_head = Fcaf3DNeckWithHead(
-            in_channels=PLANES[:cfg.n_outs], n_classes=cfg.n_classes,
+            in_channels=out_channels(cfg.depth, cfg.n_outs),
+            n_classes=cfg.n_classes,
             out_channels=cfg.head_out_channels, n_reg_outs=cfg.n_reg_outs,
             voxel_size=cfg.voxel_size,
             neck_budgets=cfg.neck_budgets[:cfg.n_outs],

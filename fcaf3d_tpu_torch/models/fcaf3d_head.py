@@ -1,10 +1,16 @@
-"""FCAF3D neck + anchor-free head, loss and inference (port of the
-prune-early path of `fcaf3d_tpu/models/fcaf3d_head.py`).
+"""FCAF3D neck + anchor-free head, loss and inference (port of
+`fcaf3d_tpu/models/fcaf3d_head.py`).
 
-- Top-down neck, coarsest level first: generative transpose (k2 s2) of the
-  coarser level, children pruned to the level's budget by the coarser
-  level's interpolated max-class score before any conv, then BN -> ELU ->
-  conv3 (+BN, ELU folded) and a scatter-add of the backbone lateral.
+- Top-down neck, coarsest level first, in one of two orders
+  (`neck_mode`, one parameter tree for both):
+  "prune_early": generative transpose (k2 s2) of the coarser level,
+  children pruned to the level's budget by the coarser level's
+  interpolated max-class score before any conv, then BN -> ELU -> conv3
+  (+BN, ELU folded) and a scatter-add of the backbone lateral.
+  "reference" (the released checkpoints' order): the transpose, BN -> ELU
+  -> conv3 over all 8P children (unfolded, also in evaluation) -> BN ->
+  ELU, the union-add of the lateral, then the prune by the interpolated
+  score.
 - Per level: out conv3 (+BN, ELU folded), shared 1x1 head convs
   (centerness 1, reg n_reg_outs, cls n_classes), exp(scale * reg[:6]).
 - `fcaf3d_loss`: focal cls over all valid locations, BCE centerness and
@@ -25,7 +31,13 @@ import torch
 from torch import nn
 
 from ..core.nms import nms_bev
-from ..ops.sparse.conv import ConvEpilogue, build_kernel_map_self
+from ..ops.sparse.conv import (
+    ConvEpilogue,
+    build_kernel_map_self,
+    interpolate_at,
+    sparse_prune,
+    sparse_union_add,
+)
 from ..ops.sparse.neck_ops import (
     child_prune_scores,
     compact_select,
@@ -38,6 +50,7 @@ from .assigner import fcaf3d_assign
 from .blocks import (
     SparseBatchNorm,
     SparseConv,
+    SparseGenConv3,
     SparseGenerativeTranspose,
     sparse_elu,
 )
@@ -54,16 +67,17 @@ class HeadLevelOutput(NamedTuple):
 
 
 class Fcaf3DNeckWithHead(nn.Module):
-    """Prune-early neck and head. `neck_budgets[i]` is the post-prune row
-    budget of level i (i < n_levels - 1); the deepest level keeps its
-    backbone map.
+    """Neck and head. `neck_budgets[i]` is the post-prune row budget of
+    level i (i < n_levels - 1); the deepest level keeps its backbone map.
 
     Args:
         in_channels: backbone widths per level, finest first.
+        neck_mode: "prune_early" or "reference" (module docstring).
 
     `forward` returns (per-level `HeadLevelOutput`s, overflow telemetry
     {"neck_lateral_missed_{i}": [B] int32}: laterals absent from the pruned
-    map, which the reference never loses)."""
+    map in "prune_early"; in "reference" the keys the union-add dropped,
+    zero by construction)."""
 
     def __init__(self, in_channels: Sequence[int], n_classes: int,
                  out_channels: int = 128, n_reg_outs: int = 6,
@@ -71,9 +85,10 @@ class Fcaf3DNeckWithHead(nn.Module):
                  neck_budgets: Sequence[int] = (32768, 16384, 4096, 1024),
                  neck_mode: str = "prune_early", device=None):
         super().__init__()
-        if neck_mode != "prune_early":
-            raise NotImplementedError(
-                f"neck_mode {neck_mode!r} is not ported; use 'prune_early'")
+        if neck_mode not in ("prune_early", "reference"):
+            raise ValueError(f"neck_mode must be 'prune_early' or "
+                             f"'reference', got {neck_mode!r}")
+        self.neck_mode = neck_mode
         self.n_levels = len(in_channels)
         self.voxel_size = voxel_size
         self.neck_budgets = tuple(neck_budgets)
@@ -92,7 +107,7 @@ class Fcaf3DNeckWithHead(nn.Module):
                 self.add_module(f"up_block_{i}_bn1",
                                 SparseBatchNorm(lo, device=device))
                 self.add_module(f"up_block_{i}_conv",
-                                SparseConv(lo, lo, 3, device=device))
+                                SparseGenConv3(lo, lo, device=device))
                 self.add_module(f"up_block_{i}_bn2",
                                 SparseBatchNorm(lo, device=device))
         self.centerness_conv = SparseConv(out_channels, 1, 1, device=device)
@@ -143,6 +158,25 @@ class Fcaf3DNeckWithHead(nn.Module):
         missed = ((lrow >= budget) & lateral.valid).sum(dim=1).int()
         return x, kmap, missed
 
+    def _up_level_reference(self, i, parent, parent_kmap, scores_st,
+                            lateral):
+        """Level i in the reference order: generate all 8P children of
+        `parent` (parent-major), BN -> ELU -> conv3 on the child map that
+        the parent's k3 self map `parent_kmap` gives -> BN -> ELU,
+        union-add the lateral, prune to the level's budget by the
+        interpolated coarse scores (detached: the keep mask takes no
+        gradient). Returns (level map, None: the level's self map is
+        still to build, keys the union dropped)."""
+        x = getattr(self, f"up_block_{i + 1}_tr").generate(parent)
+        x = sparse_elu(getattr(self, f"up_block_{i + 1}_bn1")(x))
+        x = getattr(self, f"up_block_{i + 1}_conv")(x, parent_kmap=parent_kmap)
+        x = sparse_elu(getattr(self, f"up_block_{i + 1}_bn2")(x))
+        x = sparse_union_add(x, lateral)
+        interp = interpolate_at(scores_st.with_feats(scores_st.feats.detach()),
+                                x.coords.float())
+        x_pruned = sparse_prune(x, interp[..., 0], self.neck_budgets[i])
+        return x_pruned, None, x.dropped
+
     def _conv_bn_elu(self, conv, bn, x, plan):
         """conv3 -> BN -> ELU on a shared plan: one conv with the folded
         epilogue in evaluation, three ops in training."""
@@ -161,10 +195,11 @@ class Fcaf3DNeckWithHead(nn.Module):
         kmap = None
         for i in range(n - 1, -1, -1):
             if i < n - 1:
-                x, kmap, missed = self._up_level_pruned(
-                    i, x, kmap, scores_st, inputs[i])
+                up = (self._up_level_pruned if self.neck_mode == "prune_early"
+                      else self._up_level_reference)
+                x, kmap, missed = up(i, x, kmap, scores_st, inputs[i])
                 overflow[f"neck_lateral_missed_{i}"] = missed
-            else:
+            if kmap is None:
                 kmap = build_kernel_map_self(x.keys, x.coords, x.stride)
             plan = (x.coords, x.keys, kmap, None)
             out = self._conv_bn_elu(f"out_block_{i}_conv",

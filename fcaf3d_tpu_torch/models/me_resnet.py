@@ -1,7 +1,9 @@
-"""Sparse 3D ResNet backbone, inference (port of `fcaf3d_tpu/models/me_resnet.py`).
+"""Sparse 3D ResNet backbone (port of `fcaf3d_tpu/models/me_resnet.py`).
 
 Stem = conv3 s2 -> InstanceNorm -> ReLU -> maxpool2x2 s2, then up to four
-BasicBlock stages, each opening with stride 2. Output strides 8, 16, 32, 64.
+stages of BasicBlocks (depth 14/18/34) or Bottlenecks (depth 50/101,
+outputs 4x as wide), each opening with stride 2. Output strides 8, 16, 32,
+64.
 """
 from __future__ import annotations
 
@@ -18,17 +20,31 @@ from ..ops.sparse.conv import (
 from ..ops.sparse.tensor import SparseTensor
 from .blocks import (
     SparseBasicBlock,
+    SparseBottleneck,
     SparseConv,
     SparseInstanceNorm,
     sparse_pool2x2,
     sparse_relu,
 )
 
-# depth -> BasicBlock layers per stage (the Bottleneck depths 50/101 are not
-# ported yet)
-DEPTH_LAYERS = {14: (1, 1, 1, 1), 18: (2, 2, 2, 2), 34: (3, 4, 6, 3)}
+# depth -> (blocks per stage, bottleneck?) (reference `me_resnet.py:104-121`)
+DEPTH_LAYERS = {
+    14: ((1, 1, 1, 1), False),
+    18: ((2, 2, 2, 2), False),
+    34: ((3, 4, 6, 3), False),
+    50: ((4, 3, 6, 3), True),
+    101: ((3, 4, 23, 3), True),
+}
 PLANES = (64, 128, 256, 512)
 INIT_DIM = 64
+
+
+def out_channels(depth: int, n_outs: int) -> Tuple[int, ...]:
+    """The widths of the backbone's `n_outs` outputs at `depth`: PLANES,
+    times the Bottleneck's expansion at depth 50/101."""
+    _, bottleneck = DEPTH_LAYERS[depth]
+    expansion = SparseBottleneck.expansion if bottleneck else 1
+    return tuple(p * expansion for p in PLANES[:n_outs])
 
 
 class MEResNet3D(nn.Module):
@@ -36,7 +52,7 @@ class MEResNet3D(nn.Module):
 
     Args:
         in_channels: input feature width (3: RGB).
-        depth: 14/18/34.
+        depth: 14/18/34 (BasicBlock) or 50/101 (Bottleneck).
         n_outs: number of output scales (1-4).
         budgets: row capacity per downsample level, by stride
             (2, 4, 8, 16, 32, 64).
@@ -47,10 +63,12 @@ class MEResNet3D(nn.Module):
                                            1024), device=None):
         super().__init__()
         if depth not in DEPTH_LAYERS:
-            raise NotImplementedError(
-                f"depth {depth} (Bottleneck) is not ported; use 14/18/34")
+            raise ValueError(f"depth must be one of {sorted(DEPTH_LAYERS)}, "
+                             f"got {depth}")
         self.n_outs = n_outs
-        self.layers = DEPTH_LAYERS[depth]
+        self.layers, bottleneck = DEPTH_LAYERS[depth]
+        block = SparseBottleneck if bottleneck else SparseBasicBlock
+        widths = out_channels(depth, 4)
         self.budgets = tuple(budgets)
         self.conv1 = SparseConv(in_channels, INIT_DIM, 3, stride=2,
                                 out_budget=self.budgets[0], device=device)
@@ -60,10 +78,10 @@ class MEResNet3D(nn.Module):
             for j in range(self.layers[i]):
                 stride = 2 if j == 0 else 1
                 budget = self.budgets[2 + i] if j == 0 else None
-                self.add_module(f"layer{i + 1}_{j}", SparseBasicBlock(
+                self.add_module(f"layer{i + 1}_{j}", block(
                     inplanes, PLANES[i], stride=stride, out_budget=budget,
                     device=device))
-                inplanes = PLANES[i]
+                inplanes = widths[i]
 
     def forward(self, st: SparseTensor) -> Tuple[SparseTensor, ...]:
         x = self.conv1(st)

@@ -1,5 +1,7 @@
-"""Sparse convolution and max pooling on sorted coordinate maps (port of
-the main path of `fcaf3d_tpu/ops/sparse/conv.py`).
+"""Sparse convolution and max pooling on sorted coordinate maps, and the
+ops of the reference-order neck: the generative transposed conv, the conv3
+on its parent-major child map, union-add, prune and trilinear
+interpolation (port of `fcaf3d_tpu/ops/sparse/conv.py`).
 
 Each convolution derives its output coordinate map, looks every
 `out_coord + offset` up in the sorted input keys to build a [B, M, K]
@@ -29,9 +31,13 @@ from .gather_kernel import (
 from .tensor import (
     SENTINEL,
     SparseTensor,
+    compact_positions,
+    decode_coords,
     downsample_coords,
     encode_coords,
     lookup,
+    sort_rows,
+    take_rows,
 )
 
 
@@ -255,3 +261,179 @@ def sparse_max_pool(st: SparseTensor, kernel_size: int, stride: int,
     return SparseTensor(coords=out_coords, feats=out, keys=out_keys,
                         shift=st.shift, stride=st.stride * stride,
                         dropped=dropped)
+
+
+def generative_transpose_conv2x2(st: SparseTensor, weight: torch.Tensor,
+                                 sort_output: bool = True) -> SparseTensor:
+    """Generative transposed conv, kernel 2 stride 2 (ME's
+    `MinkowskiGenerativeConvolutionTranspose`): every parent at stride 2S
+    emits its 8 children `parent + {0, S}^3`, child k's features
+    `parent @ W[k]`. Children of distinct parents never collide, so the map
+    is exactly 8P rows: parent-major (the 8 children of parent row p at rows
+    8p..8p+7 in `kernel_offsets(2)` order) or, with `sort_output`,
+    key-sorted.
+
+    Args:
+        weight: [8, Cin, Cout] in `kernel_offsets(2, S)` order.
+    """
+    from .neck_ops import gen_children, sort_tensor
+
+    coords, keys, feats = gen_children(st, weight)
+    out = SparseTensor(coords=coords, feats=feats, keys=keys, shift=st.shift,
+                       stride=st.stride // 2, is_sorted=False)
+    return sort_tensor(out) if sort_output else out
+
+
+def gen_route_tables() -> np.ndarray:
+    """Static routing of a parent-major child map: the neighbour of child
+    slot o at k3 offset d lives in parent-offset pk(o, d) (a
+    `kernel_offsets(3)` index) at child slot cb(o, d). Returns route [8*27]
+    with route[o*27 + d] = pk*8 + cb."""
+    o_bits = np.array(list(itertools.product((0, 1), repeat=3)), np.int32)
+    deltas = np.array(list(itertools.product((-1, 0, 1), repeat=3)), np.int32)
+    v = o_bits[:, None, :] + deltas[None, :, :]  # [8, 27, 3] in {-1..2}
+    p_off = np.floor_divide(v, 2)  # {-1, 0, 1}
+    bit = v - 2 * p_off  # {0, 1}
+    pk = (p_off[..., 0] + 1) * 9 + (p_off[..., 1] + 1) * 3 + (p_off[..., 2] + 1)
+    cb = bit[..., 0] * 4 + bit[..., 1] * 2 + bit[..., 2]
+    return (pk * 8 + cb).reshape(-1)
+
+
+def gen_child_idx(parent_idx: torch.Tensor) -> torch.Tensor:
+    """Expand a parent k3 self map [B, P, 27] (P = miss) to the k3 map of
+    its parent-major child map [B, 8P, 27] (8P = miss)."""
+    b, p, _ = parent_idx.shape
+    route = torch.as_tensor(gen_route_tables(), device=parent_idx.device)
+    j = parent_idx[:, :, route // 8].reshape(b, p, 8, 27)
+    cb = (route % 8).reshape(8, 27).int()
+    child = torch.where(j >= p, 8 * p, j * 8 + cb)
+    return child.reshape(b, 8 * p, 27).int().contiguous()
+
+
+def gen_conv_plan(parent: SparseTensor, child: SparseTensor):
+    """The k3 s1 `conv_plan` of a parent-major generated child map, from a
+    27-offset search over the P parents alone (not the 8P children)."""
+    if child.is_sorted or child.capacity != 8 * parent.capacity:
+        raise ValueError("gen_conv_plan needs the parent-major child map "
+                         "of `parent`")
+    parent_idx = build_kernel_map(parent.keys, parent.coords,
+                                  kernel_offsets(3, parent.stride))
+    return child.coords, child.keys, gen_child_idx(parent_idx), child.dropped
+
+
+def gen_gather_gemm(child_feats: torch.Tensor, parent_idx: torch.Tensor,
+                    weight: torch.Tensor) -> torch.Tensor:
+    """Sparse conv3 on a parent-major generated child map: `gather_gemm`
+    (K2) on the child map `gen_child_idx(parent_idx)`.
+
+    The child map of a parent self map is a symmetric self map, so the
+    backward is the self-symmetric one: dFeats K2 on the flipped map with
+    the transposed weights, dW K4. Rows of invalid parents may still hit
+    real children; the caller masks their outputs, which zeroes their
+    cotangents.
+
+    Args:
+        child_feats: [B, 8P, C] parent-major child features.
+        parent_idx: [B, P, 27] parent k3 self map (P = miss).
+        weight: [27, C, E].
+    """
+    return gather_gemm(child_feats, gen_child_idx(parent_idx), weight,
+                       self_symmetric=True)
+
+
+def sparse_union_add(a: SparseTensor, b: SparseTensor,
+                     budget: Optional[int] = None) -> SparseTensor:
+    """a + b on the union of their coordinate maps (ME's sparse addition).
+
+    The rows of both are concatenated and stably key-sorted; each key's
+    first row sets its output row, in key order. A map's keys are unique,
+    so a key has at most two rows, a's then b's, and its features are the
+    one sum a + b, whatever device adds them. The default budget Na + Nb
+    drops nothing; `dropped` counts the keys beyond a smaller one."""
+    if a.stride != b.stride:
+        raise ValueError(f"strides differ: {a.stride} and {b.stride}")
+    if budget is None:
+        budget = a.capacity + b.capacity
+    _, feats, keys = sort_rows(
+        torch.cat([a.coords, b.coords], dim=1),
+        torch.cat([a.feats, b.feats.to(a.feats.dtype)], dim=1),
+        torch.cat([a.keys, b.keys], dim=1))
+    bsz = keys.shape[0]
+    sent = torch.full((bsz, 1), SENTINEL, dtype=keys.dtype, device=keys.device)
+    prev = torch.cat([sent, keys[:, :-1]], dim=1)
+    first = (keys != prev) & (keys != SENTINEL)
+    sel, total = compact_positions(first, budget)
+    # the row after a key's first row, where it holds the same key
+    nxt = torch.cat([keys[:, 1:], sent], dim=1)
+    second = torch.cat([feats[:, 1:], torch.zeros_like(feats[:, :1])], dim=1)
+    second = torch.where(((nxt == keys) & first)[..., None], second, 0.0)
+    out_feats = take_rows(feats, sel) + take_rows(second, sel)
+    out_keys = take_rows(keys, sel, fill=SENTINEL)
+    return SparseTensor(
+        coords=decode_coords(out_keys), feats=out_feats, keys=out_keys,
+        shift=a.shift, stride=a.stride,
+        dropped=torch.clamp(total - budget, min=0).int())
+
+
+def sparse_add_into(a: SparseTensor, b: SparseTensor) -> SparseTensor:
+    """a + b where b's coordinates are a subset of a's (sparse addition on
+    a's map). b's keys are unique, so each row of a receives at most one
+    row of b; rows of b that a lacks land in the dump row, cut off."""
+    if a.stride != b.stride:
+        raise ValueError(f"strides differ: {a.stride} and {b.stride}")
+    idx = lookup(a.keys, b.keys)  # [B, Nb] in [0, Na]
+    bsz, na, c = a.feats.shape
+    pad = torch.zeros((bsz, na + 1, c), dtype=a.feats.dtype,
+                      device=a.feats.device)
+    pad = pad.scatter_add(1, idx.long()[..., None].expand(-1, -1, c),
+                          b.feats.to(a.feats.dtype))
+    return a.with_feats(a.feats + pad[:, :na])
+
+
+def sparse_prune(st: SparseTensor, scores: torch.Tensor,
+                 budget: int) -> SparseTensor:
+    """Keep the top-`budget` valid rows by score (ME pruning after the
+    reference neck's top-k) and compact them in key order. Ties rank in
+    row order (a stable sort); invalid rows score -inf. With `budget` >=
+    the valid rows this only compacts."""
+    b, n = st.keys.shape
+    s = torch.where(st.valid, scores.reshape(b, n).float(), -float("inf"))
+    order = torch.argsort(-s, dim=1, stable=True)
+    rank = torch.empty_like(order).scatter_(
+        1, order, torch.arange(n, device=order.device).expand(b, n))
+    keep = (rank < min(budget, n)) & st.valid
+    sel, _ = compact_positions(keep, budget)
+    out_keys = take_rows(torch.where(keep, st.keys, SENTINEL), sel,
+                         fill=SENTINEL)
+    return SparseTensor(coords=decode_coords(out_keys),
+                        feats=take_rows(st.feats, sel), keys=out_keys,
+                        shift=st.shift, stride=st.stride)
+
+
+def interpolate_at(st: SparseTensor, positions: torch.Tensor) -> torch.Tensor:
+    """Trilinear interpolation of sparse features at raw-lattice positions
+    [B, Q, 3] float (ME's `features_at_coordinates`): the features live on
+    the stride-`st.stride` lattice, absent corners add zero (no weight
+    renormalisation). The 8 corners of every position are one segmented
+    search [B, Q, 8] (K1). Returns [B, Q, C]."""
+    s = st.stride
+    pos = positions / torch.full((1,), float(s), dtype=positions.dtype,
+                                 device=positions.device)
+    base = torch.floor(pos)
+    frac = pos - base
+    corners = torch.as_tensor(
+        list(itertools.product((0, 1), repeat=3)), dtype=torch.int32,
+        device=positions.device)  # [8, 3], z fastest
+    cc = base.int()[:, :, None, :] * s + corners * s  # [B, Q, 8, 3]
+    idx = lookup(st.keys, encode_coords(cc), segments=True)  # [B, Q, 8]
+    f3 = frac[:, :, None, :]
+    w = torch.where(corners.bool(), f3, 1.0 - f3)
+    w = w[..., 0] * w[..., 1] * w[..., 2]  # [B, Q, 8]
+    b, q, _ = idx.shape
+    fpad = torch.cat([st.feats, torch.zeros_like(st.feats[:, :1])], dim=1)
+    f = torch.take_along_dim(fpad, idx.reshape(b, q * 8, 1).long(), dim=1)
+    f = f.reshape(b, q, 8, -1)
+    out = f[:, :, 0] * w[..., 0, None]
+    for j in range(1, 8):
+        out = out + f[:, :, j] * w[..., j, None]
+    return out

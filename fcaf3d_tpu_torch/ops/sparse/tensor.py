@@ -191,6 +191,65 @@ def voxelize(points: torch.Tensor, features: torch.Tensor,
                         shift=shift, stride=1, dropped=dropped)
 
 
+def voxelize_reduce(points: torch.Tensor, features: torch.Tensor,
+                    valid: torch.Tensor, voxel_size: float, budget: int,
+                    reduce: str = "mean", margin: int = 64) -> SparseTensor:
+    """`voxelize` with a mean or max over each voxel's points instead of
+    the first point (mmdet3d's `DynamicScatter`).
+
+    Each voxel's points are contiguous after the key sort, so the reduction
+    is a segment reduction over those runs, each summed in row order by one
+    thread: no float atomics, so two runs on the card agree bitwise. Rows of
+    padding points and of voxels beyond the budget go to a dump segment
+    that is cut off.
+
+    Args:
+        points: [B, P, 3] float metric coordinates.
+        features: [B, P, C].
+        valid: [B, P] bool.
+        reduce: "mean" or "max".
+    """
+    if reduce not in ("mean", "max"):
+        raise ValueError(f"reduce must be 'mean' or 'max', got {reduce!r}")
+    # a device-tensor divisor: see `voxelize`
+    vs = torch.full((1,), voxel_size, dtype=points.dtype, device=points.device)
+    q = torch.floor(points / vs).int()
+    qmin = torch.where(valid[..., None], q, 1 << 20).amin(dim=1)
+    shift = (margin - qmin).int()
+    coords = torch.where(valid[..., None], q + shift[:, None, :], _extent(q))
+    keys = torch.where(valid, encode_coords(coords), SENTINEL)
+
+    keys, order = torch.sort(keys, dim=1, stable=True)
+    feats = torch.take_along_dim(features, order[..., None], dim=1)
+    out_coords, out_keys, _, dropped = compact_unique(decode_coords(keys),
+                                                      keys, budget)
+    # every row's output slot: the count of voxels up to it, less one; the
+    # rows of padding points and of overflow voxels land in slot `budget`
+    b, p = keys.shape
+    prev = torch.cat([torch.full((b, 1), SENTINEL, dtype=keys.dtype,
+                                 device=keys.device), keys[:, :-1]], dim=1)
+    seg = torch.cumsum((keys != prev) & (keys != SENTINEL), dim=1) - 1
+    seg = torch.where((keys != SENTINEL) & (seg >= 0) & (seg < budget), seg,
+                      budget)
+    # slots ascend along each sample's rows, so the flat slot ids ascend
+    gid = (seg + torch.arange(b, device=seg.device)[:, None] * (budget + 1))
+    lengths = torch.bincount(gid.reshape(-1), minlength=b * (budget + 1))
+    flat = feats.reshape(b * p, -1)
+    c = flat.shape[-1]
+    if reduce == "mean":
+        acc = torch.segment_reduce(flat, "sum", lengths=lengths, unsafe=True)
+        acc = acc.reshape(b, budget + 1, c)[:, :budget]
+        cnt = lengths.reshape(b, budget + 1)[:, :budget, None]
+        out_feats = acc / torch.clamp_min(cnt, 1).to(acc.dtype)
+    else:
+        acc = torch.segment_reduce(flat, "max", lengths=lengths, unsafe=True,
+                                   initial=torch.finfo(flat.dtype).min)
+        acc = acc.reshape(b, budget + 1, c)[:, :budget]
+        out_feats = torch.where((out_keys != SENTINEL)[..., None], acc, 0.0)
+    return SparseTensor(coords=out_coords, feats=out_feats.to(feats.dtype),
+                        keys=out_keys, shift=shift, stride=1, dropped=dropped)
+
+
 def downsample_coords(st: SparseTensor, factor: int, budget: int):
     """Output coordinate map of a strided op: unique(floor(c / s') * s').
 

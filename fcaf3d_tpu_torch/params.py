@@ -10,7 +10,8 @@ names (flax `a/b/c` is state_dict `a.b.c`).
 The draw is made so that a forward pass does real work at full size: normal
 kernels at the kaiming scale (fan_out for sparse convs, fan_in for dense
 layers), norm gains in [0.5, 1.5], BN running variances in [0.5, 2], and
-head kernels scaled (`_HEAD_GAIN`, `_VOTE_HEAD_GAIN`). For FCAF3D, on a
+head kernels scaled (`_HEAD_GAIN`, `_VOTE_HEAD_GAIN`), a Bottleneck's last
+norm gain too (`_RESIDUAL_GAIN`). For FCAF3D, on a
 ScanNet-size scan the logits then stay O(1) and the exp-decoded box
 distances near 1 m; with a zero `cls_conv` bias scores spread over (0, 1)
 and detections pass `score_thr`. (The flax init's cls bias of -4.6 puts
@@ -30,6 +31,11 @@ from .models.detector import FCAF3D
 from .models.votenet import VoteNet
 
 _HEAD_GAIN = {"centerness_conv": 0.15, "cls_conv": 0.15, "reg_conv": 0.02}
+# the last BN gain of a Bottleneck's residual branch: with evaluation-mode
+# BN the 23 blocks of depth 101's third stage add their branches' variance
+# to the residual stream, and at gains of ~1 its scale grows ~100x by the
+# stage's end, and the exp-decoded box distances overflow
+_RESIDUAL_GAIN = {"norm3": 0.25}
 # VoteNet: at random init the class scores obj x sem sit near 0.5 x 1/C,
 # right at `score_thr` = 0.05 for C = 10, and unscaled votes and box
 # regressions throw proposals and boxes away from the points, leaving
@@ -75,7 +81,7 @@ def _draw_param(rng, name, shape, gains, zero_bias):
     if leaf == "bias" and owner in zero_bias:
         return np.zeros(shape)
     if leaf == "scale":  # norm gains
-        return rng.uniform(0.5, 1.5, shape)
+        return rng.uniform(0.5, 1.5, shape) * _RESIDUAL_GAIN.get(owner, 1.0)
     if leaf == "bias":
         return rng.normal(0.0, 0.1, shape)
     raise ValueError(f"no draw rule for parameter {name}")

@@ -44,14 +44,24 @@ EXTENT = {"fcaf3d_tiny": (0.6, 0.6, 0.3), "fcaf3d_nano": (0.3, 0.3, 0.15)}
 @pytest.mark.parametrize("name", ["fcaf3d_scannet", "fcaf3d_tiny",
                                   "fcaf3d_scannet_3scales",
                                   "fcaf3d_scannet_2scales", "fcaf3d_sunrgbd",
-                                  "fcaf3d_s3dis"])
+                                  "fcaf3d_s3dis", "fcaf3d_scannet:depth=50",
+                                  "fcaf3d_scannet:depth=101",
+                                  "fcaf3d_scannet:neck_mode=reference"])
 def test_init_variables_tree_matches_flax(name):
-    """Paths and shapes equal `jax.eval_shape(FCAF3D(cfg).init, ...)`."""
-    cfg = getattr(jconfigs, name)()
+    """Paths and shapes equal `jax.eval_shape(FCAF3D(cfg).init, ...)`;
+    `name` is a config, optionally with one field replaced
+    ("config:field=value")."""
+    name, _, field = name.partition(":")
+    over = {}
+    if field:
+        key, value = field.split("=")
+        over[key] = int(value) if value.isdigit() else value
+    cfg = dataclasses.replace(getattr(jconfigs, name)(), **over)
     z = jnp.zeros((1, cfg.num_points, 3))
     want = jax.eval_shape(JFCAF3D(cfg).init, jax.random.PRNGKey(0), z, z,
                           jnp.ones((1, cfg.num_points), bool))
-    got = init_variables(getattr(tconfigs, name)(), seed=0)
+    got = init_variables(
+        dataclasses.replace(getattr(tconfigs, name)(), **over), seed=0)
     for coll in ("params", "batch_stats"):
         w = {jax.tree_util.keystr(p): x.shape for p, x in
              jax.tree_util.tree_flatten_with_path(want[coll])[0]}
