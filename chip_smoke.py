@@ -120,16 +120,50 @@ Phases (any failure raises and the script exits non-zero):
    `voxelize_reduce` mean and max on a scan at the ScanNet input budget:
    keys equal to the CPU's, features within VOXEL_REDUCE_ATOL, two card
    runs bitwise equal.
+11. VoteNet training and VoteNet-v1, f32. (a) `create_votenet_train_state`
+   / `make_votenet_train_step` at `votenet_sunrgbd`, batch 16 of phase
+   9's crowded scenes with yawed boxes (20 000 points with the height
+   column, GT padded to 64): a warm-up step whose K5 and K6 calls are
+   held to plain (`torch.equal`; the proposals' FPS and ball query take
+   the votes, contiguous and requiring grad), then VOTE_TRAIN_STEPS timed
+   steps (finite losses, live vote, centre and IoU losses, finite non-zero
+   gradients on every Dense kernel, every running statistic moved; 5 K5 on
+   the cluster kernel and 5 K6 on the tiled kernel a step), step wall and
+   CUDA-event span, peak memory, and how many of SA1's K5 clusters the card
+   holds at once (`max_active_clusters`). (b) The tight f32 gate at
+   `votenet_tiny`, batch 2, card against CPU from the same numpy variables
+   and batch (`compare_vote_train_tiny`): backbone FPS indices and groups
+   exactly equal, a proposal FPS index may flip only at a running-minimum
+   tie (VOTE_FPS_RTOL) and a group member only within AGG_D2_TOL of r^2
+   (the CPU then takes the card's), losses within TRAIN_LOSS_RTOL of the
+   total, running statistics within VOTE_STATS_ATOL, gradient elements
+   within TINY_GRAD_RTOL of their leaf's largest, or every leaf within
+   TRAIN_GRAD_RTOL in norm where a ReLU input changes sign within
+   RELU_TIE_ATOL of 0; TF32 off. (c) VoteNet-v1 inference through
+   `init_votenet(cfg, coder=...)`: V1_SCANS 20 000-point scans at
+   `votenet_v1_sunrgbd` and V1_SCANS 50 000-point ScanNet scans sampled to
+   40 000 at `votenet_v1_scannet` (non-empty detections, 5 + 5 launches a
+   scan on the path's variants, the ScanNet scan's K5 / K6 calls held to
+   plain, walls), one SUN RGB-D scan card against CPU (phase 8's rules and
+   the decoded direction and size bins exactly). (d) v1 training at
+   `votenet_v1_sunrgbd` (batch 16) and `votenet_v1_scannet` (batch 8,
+   40 000 points) as in (a), V1_TRAIN_STEPS timed steps, and (b)'s gate
+   at `votenet_tiny` with the v1 head and `tiny_coder`. (e) K5 and K6
+   timed against plain, with bound and share, on the warm-up steps' calls:
+   SA1 at B = 16 N = 20 000, SA1 at B = 8 N = 40 000, the proposals' FPS
+   at B = 16 over 1 024 votes.
 
 Output: progress lines, then a JSON line of per-kernel results (launches
 of each main path: FCAF3D inference, FCAF3D training, VoteNet inference,
-the inference of each phase-9 config and SUN RGB-D training, and phase
+the inference of each phase-9 config and SUN RGB-D training, phase
 10's reference-neck and depth-50 / 101 inference and training and
-`voxelize_reduce`;
+`voxelize_reduce`, and phase 11's VoteNet-v2 training and v1 inference
+and training of both configs;
 K1-K6 also by variant; the recorded shape's times, bound and share; K1 at
 every distinct call of the two FCAF3D paths, K2 at every f32 path shape and
 over the f32 scan, K3 at both stem pool maps, K6 at every VoteNet shape,
-K2 and K4 at phase 10's rows),
+K2 and K4 at phase 10's rows, K5 and K6 at phase 11's training shapes,
+and phase 11's step times, peak memory and tiny gates under K5's entry),
 the `nvidia-smi` name/power-limit line, and last `{"ok": true, ...}`.
 
 Two further modes measure instead of checking (device and build first):
@@ -207,6 +241,15 @@ TRAIN_BOXES, TRAIN_BOX_POINTS, TRAIN_FLOOR_POINTS = 20, 2400, 2000
 TRAIN_LOSS_RTOL, TINY_GRAD_RTOL, TRAIN_GRAD_RTOL = 1e-5, 1e-3, 5e-2
 TINY_EXTENT = (0.6, 0.6, 0.3)  # scene extent that the tiny budgets hold
 VOTE_SCANS = 3  # VoteNet-v2 scans at votenet_sunrgbd
+VOTE_TINY_EXTENT = (2.0, 2.0, 1.4)  # a small room: the tiny radii see groups
+# phase 11: timed train steps of VoteNet-v2 (batch 16) and of each v1
+# config (after a held warm-up step), v1 inference scans per config
+VOTE_TRAIN_STEPS, V1_TRAIN_STEPS, V1_SCANS = 3, 2, 2
+# the tiny VoteNet gates card vs CPU: a proposal FPS index may flip where
+# the two candidates' running minima lie within VOTE_FPS_RTOL (relative);
+# the running statistics within VOTE_STATS_ATOL; a ReLU input may change
+# sign only within RELU_TIE_ATOL of 0
+VOTE_FPS_RTOL, VOTE_STATS_ATOL, RELU_TIE_ATOL = 1e-5, 1e-5, 1e-4
 # the f32 VoteNet slice card vs CPU: aggregation-group members may flip
 # within AGG_D2_TOL of r^2 (its centres are an MLP output); detections of
 # proposals with equal groups within BOX_ATOL / SCORE_ATOL
@@ -271,6 +314,11 @@ PATH_KERNELS = {
     "fcaf3d_depth50_training": TRAINING_KERNELS,
     "fcaf3d_depth101_training": TRAINING_KERNELS,
     "voxelize_reduce": ("searchsorted",),
+    "votenet_training": ("fps", "ball_query"),
+    "votenet_v1_sunrgbd_inference": ("fps", "ball_query"),
+    "votenet_v1_scannet_inference": ("fps", "ball_query"),
+    "votenet_v1_sunrgbd_training": ("fps", "ball_query"),
+    "votenet_v1_scannet_training": ("fps", "ball_query"),
 }
 
 
@@ -1878,6 +1926,50 @@ def profile_votenet(torch, cfg, device):
     log_profile(prof, wall, "1 VoteNet scan")
 
 
+def tiny_coder(n_classes=4):
+    """The JAX tests' miniature v1 box coder (`tests/test_votenet_v1.py`):
+    6 direction bins, one mean size a class."""
+    from fcaf3d_tpu_torch.models.votenet_v1 import PartialBinBasedBBoxCoder
+
+    return PartialBinBasedBBoxCoder(
+        num_dir_bins=6, num_sizes=n_classes,
+        mean_sizes=tuple((0.5 + 0.1 * i, 0.6, 0.7) for i in range(n_classes)),
+        with_rot=True)
+
+
+def vote_head_batch(cfg, b=2, seed=0):
+    """A training batch for a miniature VoteNet config: B `synth_scene`
+    scans of VOTE_TINY_EXTENT with the height column, and GT boxes centred
+    on scan points (so that proposals near them are positives): three nested
+    boxes about one point, so that points lie in 0, 1, 2 and 3 boxes, and
+    one about another, yawed with `cfg.with_yaw`, padded to
+    `cfg.max_gt_boxes`."""
+    from fcaf3d_tpu_torch.data.points import add_height
+    from fcaf3d_tpu_torch.data.synth import synth_scene
+
+    g = cfg.max_gt_boxes
+    out = {"points": [], "gt_boxes": np.zeros((b, g, 7), np.float32),
+           "gt_labels": np.zeros((b, g), np.int32),
+           "gt_valid": np.zeros((b, g), bool)}
+    rng = np.random.default_rng(seed)
+    for i in range(b):
+        xyz, _ = synth_scene(np.random.RandomState(seed + i), cfg.num_points,
+                             extent=VOTE_TINY_EXTENT)
+        out["points"].append(add_height(xyz))
+        anchors = xyz[rng.choice(len(xyz), 2, replace=False)]
+        for j, (a, side) in enumerate(((0, 0.5), (0, 0.7), (0, 0.9),
+                                       (1, 0.6))):
+            dims = side * rng.uniform(0.8, 1.2, 3)
+            yaw = rng.uniform(-np.pi, np.pi) if cfg.with_yaw else 0.0
+            c = anchors[a]
+            out["gt_boxes"][i, j] = [c[0], c[1], c[2] - dims[2] / 2, *dims,
+                                     yaw]
+            out["gt_labels"][i, j] = rng.integers(0, cfg.n_classes)
+            out["gt_valid"][i, j] = True
+    out["points"] = np.stack(out["points"])
+    return out
+
+
 def vote_scan(seed, n):
     """One synthetic SUN RGB-D-like scan [n, 3] (xyz of
     `data.synth.synth_scene`)."""
@@ -2243,7 +2335,8 @@ def recorder(torch, calls):
 def votenet_run(torch, model, x):
     """The body of `inference_votenet` on a prepared input [1, N, 4]:
     forward in the test mode and raw `VoteDetections`, with every FPS and
-    ball query recorded."""
+    ball query recorded; and the v1 head's decoded bins (the argmax of
+    `dir_class` and `size_class`), on the CPU."""
     from fcaf3d_tpu_torch.models.votenet import votenet_get_bboxes
 
     cfg = model.cfg
@@ -2253,23 +2346,29 @@ def votenet_run(torch, model, x):
         dets = votenet_get_bboxes(preds, x, cfg.n_classes,
                                   nms_thr=cfg.nms_thr, score_thr=cfg.score_thr,
                                   per_class_proposal=cfg.per_class_proposal)
+    bins = {k: preds[k].argmax(-1).cpu() for k in ("dir_class", "size_class")
+            if k in preds}
     return calls, dets._replace(**{k: v.cpu() for k, v in
-                                   dets._asdict().items()})
+                                   dets._asdict().items()}), bins
 
 
 def compare_votenet_f32(torch, model, cfg, scan_xyz, device):
     """One scan, card against CPU (same weights, same input): every FPS and
     the SA1-SA4 groups exactly equal; aggregation groups equal but for
     members within AGG_D2_TOL of r^2; on proposals whose group is equal the
-    same detections, boxes within BOX_ATOL and scores within SCORE_ATOL."""
+    same detections (NMS keep masks exactly), boxes within BOX_ATOL and
+    scores within SCORE_ATOL, and for the v1 head the same decoded
+    direction and size bins."""
     from fcaf3d_tpu_torch.apis import init_votenet
     from fcaf3d_tpu_torch.apis.inference import votenet_inputs
 
     x = votenet_inputs(scan_xyz, cfg.num_points)[None]
-    calls_g, dets_g = votenet_run(torch, model, torch.as_tensor(
+    calls_g, dets_g, bins_g = votenet_run(torch, model, torch.as_tensor(
         x, device=device))
-    calls_c, dets_c = votenet_run(torch, init_votenet(cfg, 0, device="cpu"),
-                                  torch.as_tensor(x))
+    calls_c, dets_c, bins_c = votenet_run(
+        torch, init_votenet(cfg, 0, device="cpu",
+                            coder=getattr(model, "coder", None)),
+        torch.as_tensor(x))
     if [c[0] for c in calls_g] != [c[0] for c in calls_c]:
         raise AssertionError("VoteNet f32: the card and the CPU made other "
                              "FPS / ball-query calls")
@@ -2293,6 +2392,10 @@ def compare_votenet_f32(torch, model, cfg, scan_xyz, device):
             if ((d2 - radius * radius).abs() > AGG_D2_TOL).any():
                 raise AssertionError(f"VoteNet f32: aggregation group {r} "
                                      f"differs away from r^2: {d2.tolist()}")
+    for k, b in bins_c.items():
+        if not torch.equal(bins_g[k][0][eq_rows], b[0][eq_rows]):
+            raise AssertionError(f"VoteNet f32: decoded {k} bins differ card "
+                                 "vs CPU")
     same = eq_rows.repeat(cfg.n_classes if cfg.per_class_proposal else 1)
     vg, vc = dets_g.valid[0] & same, dets_c.valid[0] & same
     if not (vc.any() and torch.equal(vg, vc) and torch.equal(
@@ -2307,7 +2410,9 @@ def compare_votenet_f32(torch, model, cfg, scan_xyz, device):
         f"FPS and SA1-SA4 groups equal; aggregation: "
         f"{int((~eq_rows).sum())} of {len(eq_rows)} groups differ "
         f"({flipped} members within {AGG_D2_TOL} of r^2); "
-        f"{int(vc.sum())} detections equal, max box err {box_err:.3g} "
+        f"{int(vc.sum())} detections equal"
+        + (f", decoded {' and '.join(bins_c)} bins equal" if bins_c else "")
+        + f", max box err {box_err:.3g} "
         f"(tol {BOX_ATOL}), max score err {score_err:.3g} (tol {SCORE_ATOL})")
     if box_err > BOX_ATOL or score_err > SCORE_ATOL:
         raise AssertionError("VoteNet f32: card and CPU disagree")
@@ -2383,14 +2488,7 @@ def votenet_phase(torch, cfg, device):
     scans = [vote_scan(s, cfg.num_points) for s in range(VOTE_SCANS)]
 
     def checked(dets, what):
-        n = len(dets["scores_3d"])
-        if n == 0 or dets["boxes_3d"].shape != (n, 7) \
-                or not np.isfinite(dets["boxes_3d"]).all() \
-                or not np.isfinite(dets["scores_3d"]).all() \
-                or not ((dets["labels_3d"] >= 0)
-                        & (dets["labels_3d"] < cfg.n_classes)).all():
-            raise AssertionError(f"VoteNet {what}: malformed detections")
-        return n
+        return check_detections(dets, cfg.n_classes, f"VoteNet {what}")
 
     inference_votenet(model, scans[0])  # warm-up: cuBLAS and allocator
     torch.cuda.synchronize()
@@ -2408,18 +2506,11 @@ def votenet_phase(torch, cfg, device):
         log(f"   scan {i}: {dt * 1e3:.1f} ms wall, {n} detections")
     log(f"   launches over {len(scans)} scans: {launches}; K5 / K6 by "
         f"variant {variants}")
-    want = {k: 5 * len(scans) if k in PATH_KERNELS["votenet_inference"]
-            else 0 for k in launches}
-    if launches != want:
-        raise AssertionError(f"VoteNet launches {launches}, expected {want}")
+    check_vote_launches(launches, variants, 5, len(scans), "VoteNet")
     sa1 = fps_plan(1, cfg.num_points, cfg.backbone_num_points[0])
-    on_path = {"fps/cluster/float32": want["fps"],
-               "ball_query/tiled/float32": want["ball_query"]}
-    if variants != on_path or sa1.cs < 2:
-        raise AssertionError(f"VoteNet: K5 / K6 launches {variants}, SA1 "
-                             f"plan {sa1}: expected every K5 launch on the "
-                             "cluster kernel, SA1 on a cluster of more than "
-                             "one CTA, every K6 launch on the tiled kernel")
+    if sa1.cs < 2:
+        raise AssertionError(f"VoteNet: SA1 plan {sa1}, expected a cluster "
+                             "of more than one CTA")
     compare_votenet_f32(torch, model, cfg, scans[0], device)
     _native.reset_launches()
     n = checked(inference_votenet(model, scans[1], sample_mod="vote"),
@@ -2427,11 +2518,8 @@ def votenet_phase(torch, cfg, device):
     vote_launches = dict(_native.LAUNCHES)
     vote_variants = {"/".join(key): n
                      for key, n in sorted(_native.VARIANT_LAUNCHES.items())}
-    if vote_launches != {k: v // len(scans) for k, v in want.items()} \
-            or vote_variants != {k: v // len(scans)
-                                 for k, v in on_path.items()}:
-        raise AssertionError(f"VoteNet vote mode launches {vote_launches}, "
-                             f"by variant {vote_variants}")
+    check_vote_launches(vote_launches, vote_variants, 5, 1,
+                        "VoteNet vote mode")
     log(f"   \"vote\" mode, scan 1: {n} detections, launches {vote_launches}")
     turns = votenet_turns(torch, model, scans)
     for variant, (wall, fps, ballq) in turns.items():
@@ -2762,6 +2850,490 @@ def rest_of_fcaf3d_phase(torch, cfg, scans, batch, device):
     return launches, variants, k1, rows
 
 
+def vote_train_batch(cfg, batch, seed0):
+    """`train_batch`'s crowded scenes (yawed boxes with `cfg.with_yaw`),
+    sampled to `cfg.num_points`, as VoteNet input: xyz and the height
+    column (`data.points.add_height`); GT padded to `cfg.max_gt_boxes`."""
+    from fcaf3d_tpu_torch.data.points import add_height
+
+    b = train_batch(cfg, batch, seed0)
+    return {"points": np.stack([add_height(p) for p in b["points"]]),
+            **{k: b[k] for k in ("gt_boxes", "gt_labels", "gt_valid")}}
+
+
+def grad_recorder(torch, calls):
+    """A `wrapped_selections` wrapper appending (kind, arguments detached,
+    result, which arguments required grad, which were contiguous) to
+    `calls`, on the device."""
+    def wrap(kind, fn):
+        def call(*args):
+            out = fn(*args)
+            calls.append((kind, [a.detach() if torch.is_tensor(a) else a
+                                 for a in args], out,
+                          [torch.is_tensor(a) and a.requires_grad
+                           for a in args],
+                          [torch.is_tensor(a) and a.is_contiguous()
+                           for a in args]))
+            return out
+        return call
+    return wrap
+
+
+def hold_selections_to_plain(torch, calls, what):
+    """Every recorded K5 and K6 call (`grad_recorder`) replayed through its
+    plain version on its own inputs: `torch.equal` to the kernel's result.
+    Returns the number of calls whose first argument required grad (the
+    proposals' FPS and ball query over the votes in "vote" mode)."""
+    from fcaf3d_tpu_torch.ops.pointnet.ball_query import ball_query_plain
+    from fcaf3d_tpu_torch.ops.pointnet.fps import furthest_point_sample_plain
+
+    with_grad = 0
+    shapes = []
+    for kind, args, out, req, contig in calls:
+        plain = (ball_query_plain if kind == "ball_query"
+                 else furthest_point_sample_plain)
+        if not torch.equal(out, plain(*args)):
+            raise AssertionError(f"{what}: {kind} {tuple(args[0].shape)} "
+                                 "differs from its plain version")
+        if req[0]:
+            if not contig[0]:
+                raise AssertionError(f"{what}: {kind} took a non-contiguous "
+                                     "tensor that requires grad")
+            with_grad += 1
+        shapes.append(f"{kind} {tuple(args[0].shape)}"
+                      + (" (requires grad)" if req[0] else ""))
+    log(f"   {what}: its {len(calls)} K5 / K6 calls equal to plain: "
+        + "; ".join(shapes))
+    return with_grad
+
+
+def check_vote_launches(launches, variants, calls_per_run, runs, what):
+    """`calls_per_run` K5 and as many K6 launches a run, every K5 on the
+    cluster kernel and every K6 on the tiled kernel, nothing else."""
+    want = {k: calls_per_run * runs if k in ("fps", "ball_query") else 0
+            for k in launches}
+    on_path = {"fps/cluster/float32": want["fps"],
+               "ball_query/tiled/float32": want["ball_query"]}
+    if launches != want or variants != on_path:
+        raise AssertionError(f"{what}: launches {launches}, by variant "
+                             f"{variants}; expected {want}, {on_path}")
+
+
+def vote_train_phase(torch, cfg, batch, device, steps, path, coder=None):
+    """VoteNet training at `cfg` (v2, or v1 with `coder`) in f32 on the
+    card: a warm-up step whose K5 and K6 calls are held to their plain
+    versions (`hold_selections_to_plain`; the proposals' FPS and ball query
+    take the votes, which require grad), then `steps` timed steps, each with
+    finite losses, live vote, centre and IoU (v1: size-class) losses, finite
+    non-zero gradients on every Dense kernel and every running BN statistic
+    moved; 5 K5 and 5 K6 launches a step on the path's variants. Logs the
+    step walls (after a synchronise) and CUDA-event spans, the peak memory
+    and how many of SA1's K5 clusters the card holds at once. Returns
+    (launches, launches by variant, record, the warm-up's recorded calls)."""
+    from fcaf3d_tpu_torch import _native
+    from fcaf3d_tpu_torch.ops.pointnet.fps import (
+        fps_plan, max_active_clusters)
+    from fcaf3d_tpu_torch.train import (
+        create_votenet_train_state, make_votenet_train_step,
+        make_votenet_v1_train_step)
+
+    model, opt, _ = create_votenet_train_state(cfg, seed=0, device=device,
+                                               coder=coder)
+    make = (make_votenet_v1_train_step if cfg.head_version == "v1"
+            else make_votenet_train_step)
+    step = make(model, cfg, opt)
+    b = len(batch["points"])
+    what = f"one batch-{b} {path} step"
+    calls = []
+    with wrapped_selections(grad_recorder(torch, calls)):
+        step(batch)  # warm-up: cuBLAS and the allocator
+    torch.cuda.synchronize()
+    if hold_selections_to_plain(torch, calls, what) < 2:
+        raise AssertionError(f"{what}: the proposals' FPS and ball query "
+                             "did not take the votes (vote mode)")
+    kept = calls[:]
+    del calls
+    live = (("vote_loss", "center_loss", "iou_loss")
+            if cfg.head_version == "v2"
+            else ("vote_loss", "center_loss", "size_class_loss"))
+    torch.cuda.reset_peak_memory_stats()
+    _native.reset_launches()
+    walls, spans = [], []
+    for i in range(steps):
+        before = {n: v.clone() for n, v in model.named_buffers()}
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        m = step(batch)
+        end.record()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        spans.append(start.elapsed_time(end))
+        m = {k: float(v) for k, v in m.items()}
+        log(f"   step {i}: {walls[-1]:.1f} ms wall, {spans[-1]:.1f} ms "
+            "between CUDA events; " + ", ".join(f"{k} {v:.5g}"
+                                                for k, v in m.items()))
+        if not all(np.isfinite(v) for v in m.values()) \
+                or min(m[k] for k in live) <= 0:
+            raise AssertionError(f"{path} step {i}: metrics {m}, expected "
+                                 f"finite and live {live}")
+        for name, p in model.named_parameters():
+            if name.endswith("kernel") and (
+                    p.grad is None or not torch.isfinite(p.grad).all()
+                    or not p.grad.abs().max() > 0):
+                raise AssertionError(f"{path} step {i}: {name} gradient "
+                                     "missing, non-finite or zero")
+        still = [n for n, v in model.named_buffers()
+                 if torch.equal(v, before[n])]
+        if still:
+            raise AssertionError(f"{path} step {i}: running statistics "
+                                 f"unchanged: {still[:4]}")
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(_native.LAUNCHES)
+    variants = {"/".join(key): n
+                for key, n in sorted(_native.VARIANT_LAUNCHES.items())}
+    check_vote_launches(launches, variants, 5, steps, path)
+    sa1 = fps_plan(b, cfg.num_points, cfg.backbone_num_points[0])
+    clusters = max_active_clusters(sa1)
+    n_kernels = sum(n.endswith("kernel") for n, _ in model.named_parameters())
+    log(f"   {steps} steps at batch {b}: wall {np.mean(walls):.1f} ms/step "
+        f"(min {min(walls):.1f}), CUDA-event span {np.mean(spans):.1f} "
+        f"ms/step; peak memory {peak / 2**30:.2f} GiB; {n_kernels} Dense "
+        f"kernels with finite non-zero gradients; every running statistic "
+        f"moved; launches {launches}; SA1's K5 plan {tuple(sa1)} at B={b}: "
+        f"{clusters} clusters fit at once"
+        + (f" (FEWER than the {b} clouds: the rest wait)" if clusters < b
+           else ""))
+    rec = {"batch": b, "step_wall_ms": float(np.mean(walls)),
+           "step_event_ms": float(np.mean(spans)),
+           "peak_gib": peak / 2**30, "sa1_plan": list(sa1),
+           "sa1_active_clusters": clusters}
+    return launches, variants, rec, kept
+
+
+def bn_outputs(torch, model, store):
+    """Forward hooks that keep every BatchNorm's output (on the CPU) in
+    `store` by module name; returns the handles."""
+    from fcaf3d_tpu_torch.models.pointnet2 import BatchNorm
+
+    def hook(name):
+        def keep(mod, args, out):
+            store[name] = out.detach().cpu()
+        return keep
+    return [mod.register_forward_hook(hook(name))
+            for name, mod in model.named_modules()
+            if isinstance(mod, BatchNorm)]
+
+
+def fps_flip_is_a_tie(torch, points, got, want):
+    """At the first index where two FPS selections over `points` [N, 3]
+    differ, the two candidates' running-minimum distances to the common
+    prefix lie within VOTE_FPS_RTOL (relative) of each other. Returns that
+    relative gap (0 when they are equal)."""
+    diff = torch.nonzero(got != want).flatten()
+    if len(diff) == 0:
+        return 0.0
+    k = int(diff[0])
+    pts = points.double()
+    prefix = pts[want[:k].long()]
+    d = ((pts[None, :, :] - prefix[:, None, :]) ** 2).sum(-1).amin(0)
+    a, b = float(d[int(got[k])]), float(d[int(want[k])])
+    gap = abs(a - b) / max(a, b)
+    if gap > VOTE_FPS_RTOL:
+        raise AssertionError(f"proposal FPS differs card vs CPU at step {k} "
+                             f"away from a tie: running minima {a}, {b}")
+    return gap
+
+
+def vote_step_on(torch, cfg, batch, device, coder, replay=None):
+    """One f32 train step at `cfg` on `device` from the seed-0 variables:
+    (its FPS / ball-query calls (kind, arguments, result) on the CPU, the
+    metrics, the gradients, the running statistics and every BN output, on
+    the CPU). With `replay` (the card's calls), the CPU run checks the
+    backbone's calls equal to the card's exactly, the proposals' FPS equal
+    but for a flip at a running-minimum tie (`fps_flip_is_a_tie`) and their
+    groups equal but for members within AGG_D2_TOL of r^2, then takes the
+    card's proposals and groups; returns also the flips found."""
+    from fcaf3d_tpu_torch.train import (
+        create_votenet_train_state, make_votenet_train_step,
+        make_votenet_v1_train_step)
+
+    model, opt, _ = create_votenet_train_state(cfg, seed=0, device=device,
+                                               coder=coder)
+    make = (make_votenet_v1_train_step if cfg.head_version == "v1"
+            else make_votenet_train_step)
+    calls, bn, flips = [], {}, {"fps_gap": 0.0, "members": 0}
+    handles = bn_outputs(torch, model, bn)
+
+    def wrap(kind, fn):
+        def call(*args):
+            out = fn(*args)
+            i = len(calls)
+            calls.append((kind, [a.detach().cpu() if torch.is_tensor(a)
+                                 else a for a in args], out.cpu()))
+            if replay is None:
+                return out
+            want = replay[i][2]
+            if i < len(replay) - 2 and not torch.equal(out, want):
+                raise AssertionError(f"{kind} call {i} (backbone) differs "
+                                     "card vs CPU")
+            if kind == "fps":
+                for j in range(out.shape[0]):
+                    flips["fps_gap"] = max(flips["fps_gap"], fps_flip_is_a_tie(
+                        torch, args[0][j].detach(), want[j], out[j]))
+            elif i == len(replay) - 1 and not torch.equal(out, want):
+                cent, pts, radius = args[0].detach(), args[1].detach(), args[2]
+                for bb, r in torch.nonzero((out != want).any(-1)).tolist():
+                    disputed = sorted(set(out[bb, r].tolist())
+                                      ^ set(want[bb, r].tolist()))
+                    d2 = ((pts[bb, disputed].double() - cent[bb, r].double())
+                          ** 2).sum(-1)
+                    flips["members"] += len(disputed)
+                    if ((d2 - radius * radius).abs() > AGG_D2_TOL).any():
+                        raise AssertionError(
+                            f"aggregation group {r} differs card vs CPU away "
+                            f"from r^2: {d2.tolist()}")
+            return want.to(out.device)
+        return call
+
+    with wrapped_selections(wrap):
+        metrics = make(model, cfg, opt)(batch)
+    for h in handles:
+        h.remove()
+    return (calls, {k: float(v) for k, v in metrics.items()},
+            {n: p.grad.cpu() for n, p in model.named_parameters()},
+            {n: v.cpu() for n, v in model.named_buffers()}, bn, flips)
+
+
+def compare_vote_train_tiny(torch, device, head_version, coder=None):
+    """The tight f32 gate at `votenet_tiny` (`head_version`, v1 with
+    `coder`), batch 2 (`vote_head_batch`): the same train step on the card
+    and on the CPU from the same numpy variables and batch. Every backbone
+    FPS index and SA group exactly equal; the proposals and their groups as
+    `vote_step_on` holds them; each loss within TRAIN_LOSS_RTOL of the
+    total loss (a random v1 head's size-residual loss is ~2e-4 of it, and
+    its own relative error reads ~1.5e-5 on an H100 against the CPU); the running
+    statistics within VOTE_STATS_ATOL; every gradient element within
+    TINY_GRAD_RTOL of its leaf's largest (a Dense bias ahead of a
+    train-mode BN, whose exact gradient is 0, of its kernel's largest).
+    Where a ReLU's input changes sign card vs CPU (each such input within
+    RELU_TIE_ATOL of 0: the max-pools see a group's padding duplicates, so
+    one such tie moves a leaf by up to ~1%), every leaf is held to
+    TRAIN_GRAD_RTOL in L2 norm instead, and the flips are logged."""
+    from fcaf3d_tpu_torch.configs import votenet_tiny
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on for the f32 matmuls")
+    cfg = dataclasses.replace(votenet_tiny(), head_version=head_version)
+    batch = vote_head_batch(cfg)
+    what = f"f32 tiny VoteNet-{head_version} train step"
+    calls_g, loss_g, grad_g, stats_g, bn_g, _ = vote_step_on(
+        torch, cfg, batch, device, coder)
+    _, loss_c, grad_c, stats_c, bn_c, flips = vote_step_on(
+        torch, cfg, batch, "cpu", coder, replay=calls_g)
+    loss_errs = {k: abs(loss_g[k] - v) / max(abs(v), 1e-30)
+                 for k, v in loss_c.items() if k != "grad_norm"}
+    loss_err = max(abs(loss_g[k] - loss_c[k]) for k in loss_errs) \
+        / loss_c["loss"]
+    stats_err = max(float((stats_g[n] - v).abs().max())
+                    for n, v in stats_c.items())
+    relu = [(n, int(((bn_g[n] > 0) != (y > 0)).sum()),
+             float(y[(bn_g[n] > 0) != (y > 0)].abs().max()))
+            for n, y in bn_c.items() if not torch.equal(bn_g[n] > 0, y > 0)]
+    if any(at > RELU_TIE_ATOL for _, _, at in relu):
+        raise AssertionError(f"{what}: ReLU inputs change sign card vs CPU "
+                             f"away from 0: {relu}")
+    worst, norm = (0.0, ""), (0.0, "")
+    for name, g in grad_c.items():
+        if name.endswith("Dense_0.bias"):
+            scale = float(grad_c[name[:-4] + "kernel"].abs().max())
+            err = max(float(grad_g[name].abs().max()),
+                      float(g.abs().max())) / scale
+        else:
+            err = float((grad_g[name] - g).abs().max()
+                        / max(float(g.abs().max()), 1e-30))
+            n_err = float((grad_g[name] - g).norm()
+                          / max(float(g.norm()), 1e-30))
+            norm = max(norm, (n_err, name))
+        worst = max(worst, (err, name))
+    log(f"   {what}, batch 2: backbone FPS indices and groups equal card vs "
+        f"CPU; proposals: largest FPS running-minimum gap "
+        f"{flips['fps_gap']:.3g} (tol {VOTE_FPS_RTOL}), {flips['members']} "
+        f"group members within {AGG_D2_TOL} of r^2; losses on the CPU "
+        f"{loss_c}, on the card {loss_g}, rel err "
+        + ", ".join(f"{k} {v:.3g}" for k, v in loss_errs.items())
+        + f"; largest error {loss_err:.3g} of the total loss (tol "
+        f"{TRAIN_LOSS_RTOL}); running stats max abs "
+        f"err {stats_err:.3g} (tol {VOTE_STATS_ATOL}); gradients: worst "
+        f"largest-element rel err {worst[1]} {worst[0]:.3g} (tol "
+        f"{TINY_GRAD_RTOL}), worst norm rel err {norm[1]} {norm[0]:.3g}; "
+        f"ReLU sign flips card vs CPU {relu or 'none'}")
+    grads_ok = (worst[0] <= TINY_GRAD_RTOL if not relu
+                else norm[0] <= TRAIN_GRAD_RTOL)
+    if loss_err > TRAIN_LOSS_RTOL or stats_err > VOTE_STATS_ATOL \
+            or not grads_ok or loss_c["loss"] <= 0:
+        raise AssertionError(f"{what}: card and CPU disagree")
+    return {"loss_rel_err": loss_err, "stats_abs_err": stats_err,
+            "grad_rel_err": worst[0], "grad_norm_rel_err": norm[0],
+            "relu_flips": relu, "fps_gap": flips["fps_gap"]}
+
+
+def check_detections(dets, n_classes, what):
+    """Non-empty, finite detections with labels in range; returns their
+    count."""
+    n = len(dets["scores_3d"])
+    if n == 0 or dets["boxes_3d"].shape != (n, 7) \
+            or not np.isfinite(dets["boxes_3d"]).all() \
+            or not np.isfinite(dets["scores_3d"]).all() \
+            or not ((dets["labels_3d"] >= 0)
+                    & (dets["labels_3d"] < n_classes)).all():
+        raise AssertionError(f"{what}: malformed detections")
+    return n
+
+
+def votenet_v1_inference_phase(torch, device):
+    """VoteNet-v1 inference in f32 through `init_votenet(cfg, coder=...)`
+    and `inference_votenet`: V1_SCANS 20 000-point scans at
+    `votenet_v1_sunrgbd` and V1_SCANS 50 000-point ScanNet scans (sampled to
+    40 000) at `votenet_v1_scannet`, after a warm-up scan: non-empty
+    detections, 5 K5 and 5 K6 launches a scan on the path's variants, the
+    ScanNet scan's K5 and K6 calls held to plain, walls per scan; one SUN
+    RGB-D scan card against CPU (`compare_votenet_f32`, decoded bins
+    too). Returns (launches by path, by variant by path, walls by path)."""
+    from fcaf3d_tpu_torch import _native, configs
+    from fcaf3d_tpu_torch.apis import inference_votenet, init_votenet
+    from fcaf3d_tpu_torch.models.votenet_v1 import (
+        scannet_coder, sunrgbd_coder)
+
+    launches, variants, walls = {}, {}, {}
+    for name, coder, raw in (("votenet_v1_sunrgbd", sunrgbd_coder(), 20000),
+                             ("votenet_v1_scannet", scannet_coder(),
+                              SCAN_POINTS)):
+        cfg = getattr(configs, name)()
+        path = f"{name}_inference"
+        model = init_votenet(cfg, seed=0, device=device, coder=coder)
+        scans = [vote_scan(s, raw) for s in range(V1_SCANS)]
+        inference_votenet(model, scans[0])  # warm-up: cuBLAS and allocator
+        if name == "votenet_v1_scannet":
+            calls = []
+            with wrapped_selections(grad_recorder(torch, calls)):
+                inference_votenet(model, scans[0])
+            hold_selections_to_plain(torch, calls, f"one {name} scan")
+            del calls
+        torch.cuda.synchronize()
+        _native.reset_launches()
+        times, counts = [], []
+        for pts in scans:
+            t0 = time.perf_counter()
+            dets = inference_votenet(model, pts)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            counts.append(check_detections(dets, cfg.n_classes,
+                                           f"{name} scan {len(counts)}"))
+        launches[path] = dict(_native.LAUNCHES)
+        variants[path] = {"/".join(key): n for key, n in
+                          sorted(_native.VARIANT_LAUNCHES.items())}
+        check_vote_launches(launches[path], variants[path], 5,
+                            len(scans), path)
+        walls[path] = times
+        log(f"   {name}: {cfg.num_points} points, {cfg.n_classes} classes, "
+            f"coder {coder.num_dir_bins} direction bins x {coder.num_sizes} "
+            f"sizes; scan walls " + " ".join(f"{t:.1f}" for t in times)
+            + f" ms; detections {counts}; launches {launches[path]}")
+        if name == "votenet_v1_sunrgbd":
+            compare_votenet_f32(torch, model, cfg, scans[0], device)
+    return launches, variants, walls
+
+
+def vote_kernel_rows(torch, cases):
+    """K5 and K6 timed in turns with their plain versions on recorded calls
+    of the training paths ((name, kind, arguments)), with bound and share
+    as phase 7 computes them for B clouds: K5 B S N FPS_OPS operations
+    (xyz read once, indices written), K6 the points each centre scans
+    (`ballq_scanned`) times BALLQ_OPS."""
+    from fcaf3d_tpu_torch.ops.pointnet.ball_query import (
+        ball_query, ball_query_plain)
+    from fcaf3d_tpu_torch.ops.pointnet.fps import (
+        furthest_point_sample, furthest_point_sample_plain)
+
+    rows = {"fps": {}, "ball_query": {}}
+    for what, kind, args in cases:
+        if kind == "fps":
+            x, s, v = args
+            b, n = x.shape[:2]
+            times = timed_turns(torch, {
+                "plain": lambda: furthest_point_sample_plain(x, s, v),
+                "kernel": lambda: furthest_point_sample(x, s, v)}, reps=3)
+            r = timing_record(times, (b * s * n * FPS_OPS,
+                                      b * (n * 12 + s * 4)),
+                              PEAK_OPS["float32"])
+            log(f"   K5 {what}: B={b} {n} -> {s}: {report(r)}")
+        else:
+            c, x, radius, ns, v = args
+            b, m, n = c.shape[0], c.shape[1], x.shape[1]
+            times = timed_turns(torch, {
+                "plain": lambda: ball_query_plain(c, x, radius, ns, v),
+                "kernel": lambda: ball_query(c, x, radius, ns, v)}, reps=3)
+            scanned = sum(ballq_scanned(torch, c[i:i + 1], x[i:i + 1],
+                                        radius, ns) for i in range(b))
+            r = timing_record(times, (scanned * BALLQ_OPS,
+                                      b * ((m + n) * 12 + m * ns * 4)),
+                              PEAK_OPS["float32"])
+            log(f"   K6 {what}: B={b} M={m} N={n} r={radius} ns={ns}: "
+                f"{report(r)}")
+        rows[kind][what] = r
+    return rows
+
+
+def votenet_training_phase(torch, device):
+    """Phase 11: VoteNet-v2 training and VoteNet-v1 (module docstring).
+    Returns (launches by path, by variant by path, records, K5 / K6 rows
+    of `vote_kernel_rows`)."""
+    from fcaf3d_tpu_torch import _native, configs
+    from fcaf3d_tpu_torch.models.votenet_v1 import (
+        scannet_coder, sunrgbd_coder)
+
+    launches, variants, recs, cases = {}, {}, {}, []
+    cfg = configs.votenet_sunrgbd()
+    log(f"   -- (a) VoteNet-v2 training: votenet_sunrgbd, f32, batch "
+        f"{cfg.batch_size} of crowded scenes with yawed boxes")
+    path = "votenet_training"
+    launches[path], variants[path], recs[path], calls = vote_train_phase(
+        torch, cfg, vote_train_batch(cfg, cfg.batch_size, seed0=0), device,
+        VOTE_TRAIN_STEPS, path)
+    # the warm-up's calls: SA1's FPS and ball query, the proposals' FPS
+    cases += [(f"SA1 B={cfg.batch_size}", *calls[i][:2]) for i in (0, 1)]
+    cases.append((f"proposals B={cfg.batch_size}", *calls[-2][:2]))
+    del calls
+    log("   -- (b) the tight f32 gate at votenet_tiny, card against CPU")
+    recs["votenet_tiny_gate"] = compare_vote_train_tiny(torch, device, "v2")
+    log("   -- (c) VoteNet-v1 inference, f32")
+    inf_launches, inf_variants, walls = votenet_v1_inference_phase(torch,
+                                                                   device)
+    launches.update(inf_launches)
+    variants.update(inf_variants)
+    recs["v1_inference_walls_ms"] = walls
+    for name, coder in (("votenet_v1_sunrgbd", sunrgbd_coder()),
+                        ("votenet_v1_scannet", scannet_coder())):
+        cfg = getattr(configs, name)()
+        log(f"   -- (d) {name} training, f32, batch {cfg.batch_size}")
+        path = f"{name}_training"
+        launches[path], variants[path], recs[path], calls = vote_train_phase(
+            torch, cfg, vote_train_batch(cfg, cfg.batch_size, seed0=0),
+            device, V1_TRAIN_STEPS, path, coder)
+        if name == "votenet_v1_scannet":
+            cases += [(f"SA1 B={cfg.batch_size} N={cfg.num_points}",
+                       *calls[i][:2]) for i in (0, 1)]
+        del calls
+    _native.reset_launches()
+    recs["votenet_v1_tiny_gate"] = compare_vote_train_tiny(
+        torch, device, "v1", tiny_coder())
+    log("   -- (e) K5 and K6 at the training shapes, against plain")
+    return launches, variants, recs, vote_kernel_rows(torch, cases)
+
+
 KERNELS = (
     ("searchsorted", "fcaf3d_tpu_torch/csrc/search.cu",
      "fcaf3d_tpu/ops/sparse/search.py:149"),
@@ -2857,6 +3429,14 @@ def main():
     rec["searchsorted"]["path_calls"].update(rest_k1)
     for kernel, r in rest_rows.items():
         rec[kernel]["rest_of_fcaf3d"] = r
+    log("== 11 VoteNet training and VoteNet-v1: votenet_sunrgbd training "
+        "(f32, batch 16), tiny gates card vs CPU, v1 inference and training "
+        "(SUN RGB-D batch 16, ScanNet batch 8, 40 000 points)")
+    vt_launches, vt_variants, vt_recs, vt_rows = votenet_training_phase(
+        torch, "cuda")
+    for kernel, r in vt_rows.items():
+        rec[kernel]["training_shapes"] = r
+    rec["fps"]["votenet_training"] = vt_recs
     log(f"== all phases passed in {time.perf_counter() - t_start:.1f} s")
     for what, ms, first, second in NOT_FASTER:
         log(f"   not faster than a yardstick: {what}: kernel {ms:.4f} ms, "
@@ -2864,11 +3444,11 @@ def main():
     by_path = {"fcaf3d_inference": infer_launches,
                "fcaf3d_training": train_launches,
                "votenet_inference": vote_launches, **other_launches,
-               **rest_launches}
+               **rest_launches, **vt_launches}
     variants = {"fcaf3d_inference": infer_variants,
                 "fcaf3d_training": train_variants,
                 "votenet_inference": vote_variants, **other_variants,
-                **rest_variants}
+                **rest_variants, **vt_variants}
     kernels = []
     for name, src, tpu in KERNELS:
         k = {"name": name, "route": "cuda", "source": src, "replaces": tpu,

@@ -174,6 +174,9 @@ def _bind(lib):
     lib.fcaf3d_fps.restype = i
     lib.fcaf3d_fps_cluster.argtypes = [p, p, p, i64, i64, i64, i, i, i, p]
     lib.fcaf3d_fps_cluster.restype = i
+    lib.fcaf3d_fps_cluster_occupancy.argtypes = [
+        i, i, i, ctypes.POINTER(ctypes.c_int)]
+    lib.fcaf3d_fps_cluster_occupancy.restype = i
     lib.fcaf3d_ball_query.argtypes = [
         p, p, p, p, i64, i64, i64, i64, ctypes.c_float, p]
     lib.fcaf3d_ball_query.restype = i

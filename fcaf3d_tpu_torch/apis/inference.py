@@ -1,5 +1,5 @@
 """Single-cloud inference API (port of `fcaf3d_tpu/apis/inference.py`):
-FCAF3D and VoteNet-v2."""
+FCAF3D, VoteNet-v2 and the bin-based VoteNet-v1."""
 from __future__ import annotations
 
 import pickle
@@ -14,6 +14,7 @@ from ..data.points import add_height
 from ..models.detector import FCAF3D, infer_config
 from ..models.fcaf3d_head import fcaf3d_get_bboxes
 from ..models.votenet import VoteNet, votenet_get_bboxes
+from ..models.votenet_v1 import build_votenet
 from ..params import init_variables, init_votenet_variables, load_variables
 from .test import detections_to_numpy
 
@@ -26,13 +27,14 @@ def init_detector(cfg: FCAF3DConfig, seed: int = 0,
     the flax layout, `tools/convert_checkpoint.py`) or, without one, the
     seeded numpy draw of `params.init_variables`."""
     model = FCAF3D(cfg, device=device)
-    load_variables(model, _variables(params_file, init_variables, cfg, seed))
+    load_variables(model, _variables(params_file,
+                                     lambda: init_variables(cfg, seed)))
     return model.eval()
 
 
-def _variables(params_file, draw, cfg, seed):
+def _variables(params_file, draw):
     if params_file is None:
-        return draw(cfg, seed)
+        return draw()
     with open(params_file, "rb") as f:
         return pickle.load(f)  # a file this project's tools wrote
 
@@ -64,13 +66,15 @@ def inference_detector(model: FCAF3D, points: np.ndarray, seed: int = 0):
 
 def init_votenet(cfg: VoteNetConfig, seed: int = 0,
                  params_file: Optional[str] = None,
-                 device="cuda") -> VoteNet:
-    """Build a VoteNet-v2 in eval mode on `device`, with the weights of a
-    converted-checkpoint pickle (flax layout) or, without one, the seeded
-    numpy draw of `params.init_votenet_variables`."""
-    model = VoteNet(cfg, device=device)
-    load_variables(model, _variables(params_file, init_votenet_variables,
-                                     cfg, seed))
+                 device="cuda", coder=None) -> VoteNet:
+    """Build a VoteNet in eval mode on `device`: `VoteNet(cfg)` for a v2
+    config, `VoteNetV1(cfg, coder)` for a v1 config (whose box coder,
+    `sunrgbd_coder()` or `scannet_coder()`, is required), with the weights
+    of a converted-checkpoint pickle (flax layout) or, without one, the
+    seeded numpy draw of `params.init_votenet_variables`."""
+    model = build_votenet(cfg, coder, device=device)
+    load_variables(model, _variables(
+        params_file, lambda: init_votenet_variables(cfg, seed, coder)))
     return model.eval()
 
 
@@ -89,7 +93,8 @@ def votenet_inputs(points: np.ndarray, num_points: int,
 def inference_votenet(model: VoteNet, points: np.ndarray, seed: int = 0,
                       sample_mod: Optional[str] = None):
     """Detect objects in one point cloud [N, >=3] (xyz first) with
-    VoteNet-v2, as the JAX package's VoteNet path does: `votenet_inputs`,
+    VoteNet-v2 or v1, as the JAX package's VoteNet path does:
+    `votenet_inputs`,
     forward, `votenet_get_bboxes` with the config's thresholds.
 
     `sample_mod` defaults to the test config's `cfg.sample_mod_test`

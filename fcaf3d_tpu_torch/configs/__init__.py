@@ -13,4 +13,6 @@ from .votenet import (  # noqa: F401
     VoteNetConfig,
     votenet_sunrgbd,
     votenet_tiny,
+    votenet_v1_scannet,
+    votenet_v1_sunrgbd,
 )

@@ -1,8 +1,8 @@
-"""VoteNet-v2 config: a copy of `fcaf3d_tpu/configs/votenet.py` (the
+"""VoteNet configs: a copy of `fcaf3d_tpu/configs/votenet.py` (the
 reference's `configs/votenet/votenet-v2_16x8_sunrgbd-3d-10class.py` with
-`_base_/schedules/schedule_3x.py` and `_base_/datasets/sunrgbd-3d-10class.py`),
-held equal to it by a test. The v1 factories are not copied: the port has
-no v1 head.
+`_base_/schedules/schedule_3x.py` and `_base_/datasets/sunrgbd-3d-10class.py`,
+and the bin-based v1 recipes for SUN RGB-D and ScanNet), held equal to it
+by a test.
 """
 from __future__ import annotations
 
@@ -46,6 +46,27 @@ class VoteNetConfig:
 
 def votenet_sunrgbd() -> VoteNetConfig:
     return VoteNetConfig()
+
+
+def votenet_v1_sunrgbd() -> VoteNetConfig:
+    """Upstream bin-based VoteNet recipe
+    (`configs/votenet/votenet_16x8_sunrgbd-3d-10class.py`): same data and
+    schedule as v2; the head and coder come from `models.votenet_v1`
+    (`sunrgbd_coder()`: 12 direction bins, 10 size classes)."""
+    return VoteNetConfig(head_version="v1")
+
+
+def votenet_v1_scannet() -> VoteNetConfig:
+    """`configs/votenet/votenet_8x8_scannet-3d-18class.py`: 18 classes,
+    axis-aligned (`scannet_coder()`), 40k points with colour-free
+    xyz + height."""
+    return VoteNetConfig(
+        head_version="v1",
+        n_classes=18,
+        with_yaw=False,
+        num_points=40000,
+        batch_size=8,
+    )
 
 
 def votenet_tiny() -> VoteNetConfig:

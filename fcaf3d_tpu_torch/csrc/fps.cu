@@ -449,13 +449,16 @@ cudaError_t prepare(const cudaLaunchConfig_t& config, int cs, int threads) {
   return cudaSuccess;
 }
 
-// one launch of the cluster kernel: the tensors, shape and plan
+// one launch of the cluster kernel: the tensors, shape and plan; with
+// `clusters` set, no launch: the clusters of this shape the card can hold
+// at once go there
 struct Launch {
   const float* points;
   const uint8_t* valid;
   int32_t* out;
   int batch, n, s, cs, threads;
   cudaStream_t stream;
+  int* clusters;
 };
 
 template <int P>
@@ -476,6 +479,8 @@ int launch_cluster(const Launch& a) {
   config.numAttrs = 1;
   cudaError_t err = prepare<P>(config, a.cs, a.threads);
   if (err != cudaSuccess) return (int)err;
+  if (a.clusters != nullptr)
+    return (int)cudaOccupancyMaxActiveClusters(a.clusters, kernel, &config);
   err = cudaLaunchKernelEx(&config, kernel, a.points, a.valid, a.out, a.n,
                            a.s, a.cs);
   if (err != cudaSuccess) return (int)err;
@@ -535,6 +540,20 @@ extern "C" int fcaf3d_fps_cluster(const float* points, const uint8_t* valid,
       (int64_t)cs * threads * ppt < n)
     return (int)cudaErrorInvalidValue;
   const Launch a = {points, valid, out, (int)batch, (int)n, (int)s, cs,
-                    threads, (cudaStream_t)stream};
+                    threads, (cudaStream_t)stream, nullptr};
+  return launch_cluster_p(a, ppt);
+}
+
+// The clusters of the cluster kernel's plan (cs CTAs of `threads`, `ppt`
+// points a thread) that the card can hold at once
+// (cudaOccupancyMaxActiveClusters), into *clusters; nothing is launched.
+// Returns the cudaError_t of the query.
+extern "C" int fcaf3d_fps_cluster_occupancy(int cs, int threads, int ppt,
+                                            int* clusters) {
+  if (cs < 1 || cs > kMaxCluster || threads < 32 || threads > kThreads ||
+      threads % 32 != 0 || clusters == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const Launch a = {nullptr, nullptr, nullptr, 1, 1, 1, cs, threads, nullptr,
+                    clusters};
   return launch_cluster_p(a, ppt);
 }

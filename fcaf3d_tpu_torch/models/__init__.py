@@ -9,4 +9,14 @@ from .votenet import (  # noqa: F401
     VoteDetections,
     VoteNet,
     votenet_get_bboxes,
+    votenet_loss,
+    votenet_targets,
+)
+from .votenet_v1 import (  # noqa: F401
+    PartialBinBasedBBoxCoder,
+    VoteNetV1,
+    scannet_coder,
+    sunrgbd_coder,
+    votenet_v1_get_bboxes,
+    votenet_v1_loss,
 )

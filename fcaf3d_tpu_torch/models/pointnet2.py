@@ -4,9 +4,9 @@
 Module and parameter names are the flax names, so a flax variable tree
 `a/b/c` is the state_dict entry `a.b.c` (`params.py`): `Dense_0.kernel` is
 [in, out] and is applied as `x @ kernel + bias`; `BatchNorm_0` holds
-`scale`, `bias` and the running `mean`, `var`. Only inference is ported:
-the BatchNorm uses its running statistics, and a module in training mode
-raises.
+`scale`, `bias` and the running `mean`, `var`. In training mode the
+BatchNorm normalises with the batch statistics and updates the running
+ones; in evaluation mode it uses the running statistics.
 """
 from __future__ import annotations
 
@@ -39,10 +39,17 @@ class Dense(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """flax `nn.BatchNorm` with running statistics, eps 1e-5, in flax's
-    order: `(x - mean) * (rsqrt(var + eps) * scale) + bias`."""
+    """flax `nn.BatchNorm(momentum=0.9, epsilon=1e-5)`, normalising in
+    flax's order: `(x - mean) * (rsqrt(var + eps) * scale) + bias`.
+
+    In training mode the statistics are flax's: f32 over every axis but the
+    last (padding rows count whole), the variance in the fast form
+    `max(0, mean(x^2) - mean(x)^2)`; gradients flow through both, and the
+    running statistics become `0.9 * running + 0.1 * batch` (the biased
+    variance) outside the graph."""
 
     eps = 1e-5
+    momentum = 0.9
 
     def __init__(self, num_features: int, device=None):
         super().__init__()
@@ -53,10 +60,19 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            raise NotImplementedError(
-                "PointNet++ / VoteNet training is not ported: call .eval()")
-        return (x - self.mean) * (torch.rsqrt(self.var + self.eps)
-                                  * self.scale) + self.bias
+            axes = tuple(range(x.dim() - 1))
+            x32 = x.float()
+            mean = x32.mean(axes)
+            var = torch.maximum((x32 * x32).mean(axes) - mean * mean,
+                                x32.new_zeros(()))
+            with torch.no_grad():
+                m = self.momentum
+                self.mean.copy_(m * self.mean + (1 - m) * mean)
+                self.var.copy_(m * self.var + (1 - m) * var)
+        else:
+            mean, var = self.mean, self.var
+        return (x - mean) * (torch.rsqrt(var + self.eps) * self.scale) \
+            + self.bias
 
 
 class DenseBNReLU(nn.Module):

@@ -27,6 +27,7 @@ the cloud's size alone:
 """
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import NamedTuple, Optional
 
@@ -99,6 +100,18 @@ def fps_plan(b: int, n: int, s: int,
                                          and threads <= max_threads(p)):
             return FpsPlan(cs, threads, p, "registers")
     return single_plan(n)
+
+
+def max_active_clusters(plan: FpsPlan) -> int:
+    """The clusters of a cluster-kernel `plan` that the current card can
+    hold at once (`cudaOccupancyMaxActiveClusters`; no launch). Clouds
+    beyond it wait for a cluster to finish: the kernel needs no
+    co-residency across clusters."""
+    clusters = ctypes.c_int(0)
+    _native.check(_native.load().fcaf3d_fps_cluster_occupancy(
+        plan.cs, plan.threads, plan.points_per_thread,
+        ctypes.byref(clusters)), "fps cluster occupancy")
+    return clusters.value
 
 
 def furthest_point_sample_plain(points: torch.Tensor, num_samples: int,

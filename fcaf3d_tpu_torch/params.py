@@ -2,7 +2,8 @@
 
 `init_variables(cfg, seed)` draws a `{"params", "batch_stats"}` tree of
 numpy arrays with the flax paths and shapes of `fcaf3d_tpu.models.FCAF3D`
-(`init_votenet_variables` of `fcaf3d_tpu.models.votenet.VoteNet`), so the
+(`init_votenet_variables` of `fcaf3d_tpu.models.votenet.VoteNet`, or of
+`fcaf3d_tpu.models.votenet_v1.VoteNetV1` for a v1 config), so the
 same tree can drive both packages; `load_variables` copies such a tree (or
 a converted checkpoint's) into the torch modules, whose names are the flax
 names (flax `a/b/c` is state_dict `a.b.c`).
@@ -28,7 +29,7 @@ import torch
 from .configs.fcaf3d import FCAF3DConfig
 from .configs.votenet import VoteNetConfig
 from .models.detector import FCAF3D
-from .models.votenet import VoteNet
+from .models.votenet_v1 import build_votenet
 
 _HEAD_GAIN = {"centerness_conv": 0.15, "cls_conv": 0.15, "reg_conv": 0.02}
 # the last BN gain of a Bottleneck's residual branch: with evaluation-mode
@@ -45,7 +46,9 @@ _RESIDUAL_GAIN = {"norm3": 0.25}
 # of centimetres, boxes near 0.5 x 0.6 x 1 m around their proposal). The
 # aggregation's first layer reads unit-norm 256-channel vote features
 # (~1/16 per channel): its gain of 16 gives them the scale of the other
-# layers' inputs.
+# layers' inputs. The v1 head's `conv_reg` takes the same gain: its bin
+# logits stay near 0, so each proposal's box is the mean size of a class
+# with a small residual, around its proposal.
 _VOTE_HEAD_GAIN = {"conv_cls": 2.0, "conv_reg": 0.02, "conv_out": 0.05,
                    "vote_aggregation.mlp0.Dense_0": 16.0}
 
@@ -57,9 +60,10 @@ def variable_shapes(cfg: FCAF3DConfig):
             {n: tuple(b.shape) for n, b in model.named_buffers()})
 
 
-def votenet_variable_shapes(cfg: VoteNetConfig):
-    """`variable_shapes` of `VoteNet(cfg)`."""
-    model = VoteNet(cfg, device="meta")
+def votenet_variable_shapes(cfg: VoteNetConfig, coder=None):
+    """`variable_shapes` of `VoteNet(cfg)`, or of `VoteNetV1(cfg, coder)`
+    for a v1 config."""
+    model = build_votenet(cfg, coder, device="meta")
     return ({n: tuple(p.shape) for n, p in model.named_parameters()},
             {n: tuple(b.shape) for n, b in model.named_buffers()})
 
@@ -136,11 +140,13 @@ def init_variables(cfg: FCAF3DConfig, seed: int = 0) -> dict:
     return _draw_tree(variable_shapes(cfg), seed, _HEAD_GAIN, {"cls_conv"})
 
 
-def init_votenet_variables(cfg: VoteNetConfig, seed: int = 0) -> dict:
+def init_votenet_variables(cfg: VoteNetConfig, seed: int = 0,
+                           coder=None) -> dict:
     """The same for `VoteNet(cfg)` (the JAX module built with the config's
-    n_classes, num_proposal and backbone_num_points)."""
-    return _draw_tree(votenet_variable_shapes(cfg), seed, _VOTE_HEAD_GAIN,
-                      {"conv_cls"})
+    n_classes, num_proposal and backbone_num_points), or for a v1 config
+    `VoteNetV1(cfg, coder)`."""
+    return _draw_tree(votenet_variable_shapes(cfg, coder), seed,
+                      _VOTE_HEAD_GAIN, {"conv_cls"})
 
 
 def load_variables(model: torch.nn.Module, variables: Mapping) -> None:

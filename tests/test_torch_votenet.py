@@ -26,12 +26,14 @@ from fcaf3d_tpu.core.points import Points3D
 from fcaf3d_tpu.data.pipelines import ShiftHeight
 from fcaf3d_tpu.models import pointnet2 as jp2
 from fcaf3d_tpu.models import votenet as jv
+from fcaf3d_tpu.models import votenet_v1 as jv1
 from fcaf3d_tpu.ops.pointnet.ballq_kernel import ball_query_grid
 from fcaf3d_tpu_torch import configs as tconfigs
 from fcaf3d_tpu_torch.apis import init_votenet, inference_votenet
 from fcaf3d_tpu_torch.data.points import add_height
 from fcaf3d_tpu_torch.models import pointnet2 as tp2
 from fcaf3d_tpu_torch.models import votenet as tv
+from fcaf3d_tpu_torch.models import votenet_v1 as tv1
 from fcaf3d_tpu_torch.params import init_votenet_variables
 from tests.test_torch_ops import jax_without_persistent_cache  # noqa: F401
 
@@ -44,15 +46,28 @@ def jax_votenet(cfg):
                       backbone_num_points=cfg.backbone_num_points)
 
 
-@pytest.mark.parametrize("name", ["votenet_sunrgbd", "votenet_tiny"])
+# the v1 configs' box coders (port, JAX)
+V1_CODERS = {"votenet_v1_sunrgbd": (tv1.sunrgbd_coder, jv1.sunrgbd_coder),
+             "votenet_v1_scannet": (tv1.scannet_coder, jv1.scannet_coder)}
+CONFIGS = ["votenet_sunrgbd", "votenet_tiny", *V1_CODERS]
+
+
+@pytest.mark.parametrize("name", CONFIGS)
 def test_init_votenet_variables_tree_matches_flax(name):
-    """Paths and shapes equal `jax.eval_shape(VoteNet(...).init, ...)`."""
+    """Paths and shapes equal `jax.eval_shape(VoteNet(...).init, ...)`, for
+    a v1 config of `VoteNetV1(coder=...)` with the config's coder."""
     cfg = getattr(tconfigs, name)()
     x = jnp.zeros((1, cfg.num_points, 3 + cfg.in_feat_dims))
-    want = jax.eval_shape(lambda k, a: jax_votenet(cfg).init(k, a,
-                                                            train=False),
+    if name in V1_CODERS:
+        tcoder, jcoder = (f() for f in V1_CODERS[name])
+        module = jv1.VoteNetV1(coder=jcoder, n_classes=cfg.n_classes,
+                               num_proposal=cfg.num_proposal,
+                               backbone_num_points=cfg.backbone_num_points)
+    else:
+        tcoder, module = None, jax_votenet(cfg)
+    want = jax.eval_shape(lambda k, a: module.init(k, a, train=False),
                           jax.random.PRNGKey(0), x)
-    got = init_votenet_variables(cfg, seed=0)
+    got = init_votenet_variables(cfg, seed=0, coder=tcoder)
     for coll in ("params", "batch_stats"):
         w = {jax.tree_util.keystr(p): x.shape for p, x in
              jax.tree_util.tree_flatten_with_path(want[coll])[0]}
@@ -66,17 +81,27 @@ def test_init_votenet_variables_tree_matches_flax(name):
         assert (len(leaves), sum(x.size for x in leaves)) == (144, 954902)
 
 
-@pytest.mark.parametrize("name", ["votenet_sunrgbd", "votenet_tiny"])
+@pytest.mark.parametrize("name", CONFIGS)
 def test_votenet_configs_match_jax(name):
     assert dataclasses.asdict(getattr(tconfigs, name)()) == \
         dataclasses.asdict(getattr(jconfigs, name)())
 
 
-def test_votenet_refuses_the_v1_head():
-    """A v1 config (bin-based head, not ported) raises instead of building
-    a v2 model."""
-    with pytest.raises(NotImplementedError, match="v1"):
-        tv.VoteNet(tconfigs.VoteNetConfig(head_version="v1"), device="meta")
+def test_votenet_refuses_a_v1_config():
+    """`VoteNet` builds only the v2 head: a v1 config raises and names
+    `VoteNetV1`."""
+    with pytest.raises(ValueError, match="VoteNetV1"):
+        tv.VoteNet(tconfigs.votenet_v1_sunrgbd(), device="meta")
+
+
+def test_init_votenet_needs_a_coder_for_v1():
+    """A v1 config without its box coder raises; with it, `init_votenet`
+    builds a `VoteNetV1` in eval mode."""
+    with pytest.raises(ValueError, match="coder"):
+        init_votenet(tconfigs.votenet_v1_sunrgbd(), device="meta")
+    model = init_votenet(tconfigs.votenet_v1_scannet(), device="cpu",
+                         coder=tv1.scannet_coder())
+    assert isinstance(model, tv1.VoteNetV1) and not model.training
 
 
 def test_add_height_matches_jax():
@@ -154,19 +179,26 @@ def close(a, b, what=""):
 
 
 def test_dense_bn_relu_matches_jax(tiny):
-    """The first backbone layer on random inputs, and training mode raises
-    (only inference is ported)."""
+    """The first backbone layer on random inputs, in evaluation mode and in
+    training mode (batch statistics; `test_torch_votenet_train.py` holds
+    training mode to flax in detail)."""
     x = np.random.default_rng(1).standard_normal((2, 9, 5, 4)).astype(
         np.float32)
     layer = tiny.tmod("backbone", "sa0", "mlp0")
-    want = jp2.DenseBNReLU(64).apply(tiny.sub("backbone", "sa0", "mlp0"),
-                                     jnp.asarray(x), False)
+    variables = tiny.sub("backbone", "sa0", "mlp0")
+    want = jp2.DenseBNReLU(64).apply(variables, jnp.asarray(x), False)
     with torch.no_grad():
         close(layer(torch.as_tensor(x)), want)
+    want, _ = jp2.DenseBNReLU(64).apply(variables, jnp.asarray(x), True,
+                                        mutable=["batch_stats"])
+    saved = {k: v.clone() for k, v in layer.state_dict().items()}
     layer.train()
-    with pytest.raises(NotImplementedError):
-        layer(torch.as_tensor(x))
-    layer.eval()
+    try:
+        with torch.no_grad():
+            close(layer(torch.as_tensor(x)), want)
+    finally:
+        layer.eval()
+        layer.load_state_dict(saved)
 
 
 @pytest.mark.parametrize("mode", ["fps", "indices", "target_xyz"])
