@@ -152,18 +152,51 @@ Phases (any failure raises and the script exits non-zero):
    timed against plain, with bound and share, on the warm-up steps' calls:
    SA1 at B = 16 N = 20 000, SA1 at B = 8 N = 40 000, the proposals' FPS
    at B = 16 over 1 024 votes.
+12. ImVoteNet, f32 with cuDNN's TF32 off, on camera-consistent synthetic
+   SUN RGB-D frames (`imvote_frame`: `crowded_scene` + `densify` boxes on
+   a floor in front of a 640 x 480 camera at f 570, 20 000 points; GT 2D
+   boxes from the projected corners, painted into the image). (a)
+   `init_detector2d` at width 64, FPN 128 and `extract_bboxes_2d` on
+   IMVOTE_FRAMES frames at batch 1 (at least one valid 2D detection each),
+   the decode card vs CPU on the same outputs (top-k indices, keep masks,
+   valid masks and classes exactly, boxes within DET2D_BOX_ATOL, scores
+   within SCORE_ATOL). (b) `init_imvotenet(votenet_sunrgbd())` and
+   `inference_imvotenet` on each frame with its extracted, its GT and no
+   2D boxes, and on frame 0 with one small box at confidence 0.9
+   (`few_vote_boxes`: fewer than FEW_SEEDS distinct votes reach the
+   aggregation's K5 and K6): walls, non-empty detections with GT boxes, 5
+   K5 on the cluster kernel and 5 K6 on the tiled kernel a scan, every call
+   `torch.equal` to plain; frame 0 with its extracted boxes card vs CPU
+   (the fusion mask, the resampled seeds and the backbone's FPS indices
+   and groups exactly, the aggregation by phase 11's tie and r^2 rules,
+   detections within BOX_ATOL / SCORE_ATOL). (c)
+   `make_imvotenet_train_step` at batch IMVOTE_TRAIN_BATCH, with GT 2D
+   boxes, then with
+   `extract_bboxes_2d(train=True)`'s (half dropped, a fresh draw each
+   step), each a warm-up step held to plain and IMVOTE_TRAIN_STEPS timed
+   steps (phase 11's checks, every tower's vote, centre and IoU loss live,
+   7 K5 and 7 K6 a step); `make_detector2d_train_step` at the same batch
+   of 480 x 640 images (finite losses, non-zero conv gradients, step walls,
+   peak memory). (d) The tight f32 gates card vs CPU at the CPU tests'
+   sizes: the ImVoteNet step (`train_gate`, phase 11's rules) and the
+   Detector2D step (`compare_det2d_train_tiny`). (e) K5 and K6 timed
+   against plain, with bound and share, at the aggregation shapes (1 024
+   votes -> 256, r 0.3, 16 samples): B = 1 (frame 0 with GT boxes and the
+   few-vote scan) and B = 8 (the joint tower of the training warm-up).
 
 Output: progress lines, then a JSON line of per-kernel results (launches
 of each main path: FCAF3D inference, FCAF3D training, VoteNet inference,
 the inference of each phase-9 config and SUN RGB-D training, phase
 10's reference-neck and depth-50 / 101 inference and training and
-`voxelize_reduce`, and phase 11's VoteNet-v2 training and v1 inference
-and training of both configs;
+`voxelize_reduce`, phase 11's VoteNet-v2 training and v1 inference
+and training of both configs, and phase 12's ImVoteNet inference and
+training;
 K1-K6 also by variant; the recorded shape's times, bound and share; K1 at
 every distinct call of the two FCAF3D paths, K2 at every f32 path shape and
 over the f32 scan, K3 at both stem pool maps, K6 at every VoteNet shape,
-K2 and K4 at phase 10's rows, K5 and K6 at phase 11's training shapes,
-and phase 11's step times, peak memory and tiny gates under K5's entry),
+K2 and K4 at phase 10's rows, K5 and K6 at phase 11's training shapes
+and phase 12's aggregation shapes, and phases 11-12's walls, step times,
+peak memory and tiny gates under K5's entry),
 the `nvidia-smi` name/power-limit line, and last `{"ok": true, ...}`.
 
 Two further modes measure instead of checking (device and build first):
@@ -254,6 +287,19 @@ VOTE_FPS_RTOL, VOTE_STATS_ATOL, RELU_TIE_ATOL = 1e-5, 1e-5, 1e-4
 # within AGG_D2_TOL of r^2 (its centres are an MLP output); detections of
 # proposals with equal groups within BOX_ATOL / SCORE_ATOL
 AGG_D2_TOL = 1e-4
+# phase 12: ImVoteNet at votenet_sunrgbd and its Detector2D (width 64, FPN
+# 128) on 480 x 640 frames (`tools/train_imvotenet.py:27`): IMVOTE_FRAMES
+# inference frames, each with its extracted, its GT and no 2D boxes; the
+# training batch (`tools/train_imvotenet.py:38`) with at most
+# IMVOTE_MAX_DET 2D boxes a frame (its `--max-det2d`), timed steps after
+# each held warm-up step; the 2D decode card vs CPU within DET2D_BOX_ATOL;
+# the few-vote scan's aggregation holds fewer than FEW_SEEDS distinct votes
+IMVOTE_FRAMES, IMVOTE_TRAIN_BATCH, IMVOTE_MAX_DET = 3, 8, 32
+IMVOTE_HW, IMVOTE_FOCAL = (480, 640), 570.0
+DET2D_WIDTH, DET2D_FPN = 64, 128
+IMVOTE_TRAIN_STEPS, DET2D_TRAIN_STEPS = 2, 2
+DET2D_BOX_ATOL, FEW_SEEDS = 1e-3, 256
+DET2D_TINY = {"n_classes": 4, "width": 16, "fpn_ch": 32}  # the CPU tests'
 # published dense peaks of one H100 SXM: a kernel's bound is the larger of
 # its operations over the peak of their type (bf16 on the tensor cores;
 # float32 and integer work on the CUDA cores) and its bytes over the memory
@@ -319,6 +365,8 @@ PATH_KERNELS = {
     "votenet_v1_scannet_inference": ("fps", "ball_query"),
     "votenet_v1_sunrgbd_training": ("fps", "ball_query"),
     "votenet_v1_scannet_training": ("fps", "ball_query"),
+    "imvotenet_inference": ("fps", "ball_query"),
+    "imvotenet_training": ("fps", "ball_query"),
 }
 
 
@@ -1970,6 +2018,89 @@ def vote_head_batch(cfg, b=2, seed=0):
     return out
 
 
+def imvote_frame(seed, n_points, n_classes, with_yaw=True, hw=(480, 640),
+                 focal=570.0, n_boxes=8, extent=3.0, near=2.0,
+                 cam_height=1.0):
+    """One synthetic SUN RGB-D frame: a depth-frame scene (y forward, z up)
+    in front of a camera of `focal` pixels at the image centre with Rt = I
+    (`data.calib.sunrgbd_depth2img`), `crowded_scene` boxes on a floor
+    `cam_height` below the camera, `extent` wide and deep from `near`
+    ahead, sampled by `densify` to `n_points` (4/5 on the boxes). Returns
+    {points [n_points, 3], image [H, W, 3] f32 (grey, each box's projection
+    painted in its class's colour, far boxes first), depth2img [3, 3],
+    gt_boxes [n, 7] bottom-centred, gt_labels [n], boxes2d [m, 6]: the
+    boxes' projected corners' bounds clipped to the image, conf 1, of every
+    box wholly in front of the camera whose bounds keep an area}."""
+    from fcaf3d_tpu_torch.data.calib import sunrgbd_depth2img
+    from fcaf3d_tpu_torch.data.synth import crowded_scene, densify
+
+    rng = np.random.default_rng(seed)
+    sample = crowded_scene(n_boxes, n_classes, rng, extent=extent,
+                           with_yaw=with_yaw)
+    sample["gt_boxes"][:, :3] += np.float32([-extent / 2, near, -cam_height])
+    per_box = n_points * 4 // 5 // n_boxes
+    scene = densify(sample, per_box, n_points - per_box * n_boxes, rng)
+    h, w = hw
+    d2i = sunrgbd_depth2img({"K": [[focal, 0, 0], [0, focal, 0],
+                                   [w / 2, h / 2, 1]], "Rt": np.eye(3)})
+    image = np.full((h, w, 3), 110.0, np.float32)
+    boxes2d, depth = [], []
+    for box, label in zip(sample["gt_boxes"], sample["gt_labels"]):
+        cx, cy, cz, dx, dy, dz, yaw = box
+        unit = np.array([[x, y, z] for x in (-0.5, 0.5) for y in (-0.5, 0.5)
+                         for z in (0.0, 1.0)], np.float32)
+        c, s = np.cos(yaw), np.sin(yaw)
+        rot = np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]], np.float32)
+        corners = (unit * [dx, dy, dz]) @ rot.T + [cx, cy, cz]
+        proj = corners @ d2i.T
+        if (proj[:, 2] < 0.1).any():
+            continue
+        uv = proj[:, :2] / proj[:, 2:]
+        x1, y1 = np.clip(uv.min(0), 0, [w, h])
+        x2, y2 = np.clip(uv.max(0), 0, [w, h])
+        if x2 - x1 >= 1 and y2 - y1 >= 1:
+            boxes2d.append([x1, y1, x2, y2, 1.0, label])
+            depth.append(cy)
+    for i in np.argsort(depth)[::-1]:
+        x1, y1, x2, y2, _, label = boxes2d[i]
+        image[int(y1):int(np.ceil(y2)), int(x1):int(np.ceil(x2))] = (
+            40 + 20 * label, 200 - 15 * label, 60 + 17 * label)
+    return {"points": scene["points"][:, :3], "image": image,
+            "depth2img": d2i.astype(np.float32),
+            "gt_boxes": sample["gt_boxes"],
+            "gt_labels": sample["gt_labels"].astype(np.int32),
+            "boxes2d": np.asarray(boxes2d, np.float32).reshape(-1, 6)}
+
+
+def imvote_batch(cfg, frames, max_det=32, seed=0):
+    """ImVoteNet's training batch of `imvote_frame`s, as
+    `tools/train_imvotenet.py --gt-boxes-2d` collates it: points with the
+    height column sampled to `cfg.num_points`, images, depth2img, the GT 2D
+    boxes (conf 1) padded to `max_det`, GT boxes padded to
+    `cfg.max_gt_boxes`."""
+    from fcaf3d_tpu_torch.apis.inference import votenet_inputs
+
+    b, g = len(frames), cfg.max_gt_boxes
+    out = {"points": np.stack([votenet_inputs(f["points"], cfg.num_points,
+                                              seed + i)
+                               for i, f in enumerate(frames)]),
+           "images": np.stack([f["image"] for f in frames]),
+           "depth2img": np.stack([f["depth2img"] for f in frames]),
+           "boxes2d": np.zeros((b, max_det, 6), np.float32),
+           "boxes2d_valid": np.zeros((b, max_det), bool),
+           "gt_boxes": np.zeros((b, g, 7), np.float32),
+           "gt_labels": np.zeros((b, g), np.int32),
+           "gt_valid": np.zeros((b, g), bool)}
+    for i, f in enumerate(frames):
+        m, n = min(len(f["boxes2d"]), max_det), min(len(f["gt_boxes"]), g)
+        out["boxes2d"][i, :m] = f["boxes2d"][:m]
+        out["boxes2d_valid"][i, :m] = True
+        out["gt_boxes"][i, :n] = f["gt_boxes"][:n]
+        out["gt_labels"][i, :n] = f["gt_labels"][:n]
+        out["gt_valid"][i, :n] = True
+    return out
+
+
 def vote_scan(seed, n):
     """One synthetic SUN RGB-D-like scan [n, 3] (xyz of
     `data.synth.synth_scene`)."""
@@ -2300,15 +2431,16 @@ def ballq_scanned(torch, centers, points, radius, nsample):
 
 @contextlib.contextmanager
 def wrapped_selections(wrap):
-    """Every FPS and ball query of the VoteNet forward goes through
-    `wrap(kind, fn)` (kind "fps" in the SA modules, "ball_query", or
-    "seed_fps" for the proposals of the test mode), by the names the model
-    modules call."""
-    from fcaf3d_tpu_torch.models import pointnet2, votenet
+    """Every FPS and ball query of the VoteNet and ImVoteNet forwards goes
+    through `wrap(kind, fn)` (kind "fps" in the SA modules, "ball_query",
+    or "seed_fps" for the proposals of the "seed" mode), by the names the
+    model modules call."""
+    from fcaf3d_tpu_torch.models import imvotenet, pointnet2, votenet
 
     names = ((pointnet2, "furthest_point_sample", "fps"),
              (pointnet2, "ball_query", "ball_query"),
-             (votenet, "furthest_point_sample", "seed_fps"))
+             (votenet, "furthest_point_sample", "seed_fps"),
+             (imvotenet, "furthest_point_sample", "seed_fps"))
     saved = [getattr(mod, name) for mod, name, _ in names]
     for (mod, name, kind), fn in zip(names, saved):
         setattr(mod, name, wrap(kind, fn))
@@ -2921,18 +3053,10 @@ def check_vote_launches(launches, variants, calls_per_run, runs, what):
 
 def vote_train_phase(torch, cfg, batch, device, steps, path, coder=None):
     """VoteNet training at `cfg` (v2, or v1 with `coder`) in f32 on the
-    card: a warm-up step whose K5 and K6 calls are held to their plain
-    versions (`hold_selections_to_plain`; the proposals' FPS and ball query
-    take the votes, which require grad), then `steps` timed steps, each with
-    finite losses, live vote, centre and IoU (v1: size-class) losses, finite
-    non-zero gradients on every Dense kernel and every running BN statistic
-    moved; 5 K5 and 5 K6 launches a step on the path's variants. Logs the
-    step walls (after a synchronise) and CUDA-event spans, the peak memory
-    and how many of SA1's K5 clusters the card holds at once. Returns
-    (launches, launches by variant, record, the warm-up's recorded calls)."""
-    from fcaf3d_tpu_torch import _native
-    from fcaf3d_tpu_torch.ops.pointnet.fps import (
-        fps_plan, max_active_clusters)
+    card, from `create_votenet_train_state`: `held_and_timed_steps` with
+    live vote, centre and IoU (v1: size-class) losses, 5 K5 and 5 K6
+    launches a step. Returns its (launches, launches by variant, record,
+    the warm-up's recorded calls)."""
     from fcaf3d_tpu_torch.train import (
         create_votenet_train_state, make_votenet_train_step,
         make_votenet_v1_train_step)
@@ -2941,7 +3065,29 @@ def vote_train_phase(torch, cfg, batch, device, steps, path, coder=None):
                                                coder=coder)
     make = (make_votenet_v1_train_step if cfg.head_version == "v1"
             else make_votenet_train_step)
-    step = make(model, cfg, opt)
+    live = (("vote_loss", "center_loss", "iou_loss")
+            if cfg.head_version == "v2"
+            else ("vote_loss", "center_loss", "size_class_loss"))
+    return held_and_timed_steps(torch, model, make(model, cfg, opt), batch,
+                                steps, path, live, 5, cfg)
+
+
+def held_and_timed_steps(torch, model, step, batch, steps, path, live,
+                         calls_per_step, cfg):
+    """A warm-up step whose K5 and K6 calls are held to their plain
+    versions (`hold_selections_to_plain`; the proposals' FPS and ball query
+    take the votes, which require grad: at least two such calls), then
+    `steps` timed steps, each with finite metrics, the losses `live` above
+    0, finite non-zero gradients on every Dense kernel and every running BN
+    statistic moved; `calls_per_step` K5 and as many K6 launches a step on
+    the path's variants. Logs the step walls (after a synchronise) and
+    CUDA-event spans, the peak memory and how many of SA1's K5 clusters the
+    card holds at once. Returns (launches, launches by variant, record, the
+    warm-up's recorded calls)."""
+    from fcaf3d_tpu_torch import _native
+    from fcaf3d_tpu_torch.ops.pointnet.fps import (
+        fps_plan, max_active_clusters)
+
     b = len(batch["points"])
     what = f"one batch-{b} {path} step"
     calls = []
@@ -2953,9 +3099,6 @@ def vote_train_phase(torch, cfg, batch, device, steps, path, coder=None):
                              "did not take the votes (vote mode)")
     kept = calls[:]
     del calls
-    live = (("vote_loss", "center_loss", "iou_loss")
-            if cfg.head_version == "v2"
-            else ("vote_loss", "center_loss", "size_class_loss"))
     torch.cuda.reset_peak_memory_stats()
     _native.reset_launches()
     walls, spans = [], []
@@ -2994,7 +3137,7 @@ def vote_train_phase(torch, cfg, batch, device, steps, path, coder=None):
     launches = dict(_native.LAUNCHES)
     variants = {"/".join(key): n
                 for key, n in sorted(_native.VARIANT_LAUNCHES.items())}
-    check_vote_launches(launches, variants, 5, steps, path)
+    check_vote_launches(launches, variants, calls_per_step, steps, path)
     sa1 = fps_plan(b, cfg.num_points, cfg.backbone_num_points[0])
     clusters = max_active_clusters(sa1)
     n_kernels = sum(n.endswith("kernel") for n, _ in model.named_parameters())
@@ -3013,18 +3156,18 @@ def vote_train_phase(torch, cfg, batch, device, steps, path, coder=None):
     return launches, variants, rec, kept
 
 
-def bn_outputs(torch, model, store):
-    """Forward hooks that keep every BatchNorm's output (on the CPU) in
-    `store` by module name; returns the handles."""
-    from fcaf3d_tpu_torch.models.pointnet2 import BatchNorm
-
+def relu_sides(torch, model, store, types):
+    """Forward hooks that keep the output (on the CPU) of every module of
+    `types` in `store` by module name: a ReLU's input (a BatchNorm ahead of
+    one) or output (a block ending in one), whose sign says the side the
+    ReLU took; returns the handles."""
     def hook(name):
         def keep(mod, args, out):
             store[name] = out.detach().cpu()
         return keep
     return [mod.register_forward_hook(hook(name))
             for name, mod in model.named_modules()
-            if isinstance(mod, BatchNorm)]
+            if isinstance(mod, types)]
 
 
 def fps_flip_is_a_tie(torch, points, got, want):
@@ -3047,26 +3190,16 @@ def fps_flip_is_a_tie(torch, points, got, want):
     return gap
 
 
-def vote_step_on(torch, cfg, batch, device, coder, replay=None):
-    """One f32 train step at `cfg` on `device` from the seed-0 variables:
-    (its FPS / ball-query calls (kind, arguments, result) on the CPU, the
-    metrics, the gradients, the running statistics and every BN output, on
-    the CPU). With `replay` (the card's calls), the CPU run checks the
-    backbone's calls equal to the card's exactly, the proposals' FPS equal
-    but for a flip at a running-minimum tie (`fps_flip_is_a_tie`) and their
-    groups equal but for members within AGG_D2_TOL of r^2, then takes the
-    card's proposals and groups; returns also the flips found."""
-    from fcaf3d_tpu_torch.train import (
-        create_votenet_train_state, make_votenet_train_step,
-        make_votenet_v1_train_step)
+BACKBONE_CALLS = 8  # FPS and ball query of SA1-SA4, the first calls
 
-    model, opt, _ = create_votenet_train_state(cfg, seed=0, device=device,
-                                               coder=coder)
-    make = (make_votenet_v1_train_step if cfg.head_version == "v1"
-            else make_votenet_train_step)
-    calls, bn, flips = [], {}, {"fps_gap": 0.0, "members": 0}
-    handles = bn_outputs(torch, model, bn)
 
+def replaying(torch, calls, replay, flips):
+    """A `wrapped_selections` wrapper appending (kind, arguments, result)
+    on the CPU to `calls`; with `replay` (another device's calls) it checks
+    the backbone's calls equal to the replayed ones exactly, each later FPS
+    equal but for a flip at a running-minimum tie (`fps_flip_is_a_tie`) and
+    each later group equal but for members within AGG_D2_TOL of r^2
+    (counted in `flips`), then returns the replayed result."""
     def wrap(kind, fn):
         def call(*args):
             out = fn(*args)
@@ -3076,14 +3209,14 @@ def vote_step_on(torch, cfg, batch, device, coder, replay=None):
             if replay is None:
                 return out
             want = replay[i][2]
-            if i < len(replay) - 2 and not torch.equal(out, want):
+            if i < BACKBONE_CALLS and not torch.equal(out, want):
                 raise AssertionError(f"{kind} call {i} (backbone) differs "
-                                     "card vs CPU")
-            if kind == "fps":
+                                     "from the replayed device's")
+            if kind in ("fps", "seed_fps"):
                 for j in range(out.shape[0]):
                     flips["fps_gap"] = max(flips["fps_gap"], fps_flip_is_a_tie(
                         torch, args[0][j].detach(), want[j], out[j]))
-            elif i == len(replay) - 1 and not torch.equal(out, want):
+            elif not torch.equal(out, want):
                 cent, pts, radius = args[0].detach(), args[1].detach(), args[2]
                 for bb, r in torch.nonzero((out != want).any(-1)).tolist():
                     disputed = sorted(set(out[bb, r].tolist())
@@ -3093,13 +3226,26 @@ def vote_step_on(torch, cfg, batch, device, coder, replay=None):
                     flips["members"] += len(disputed)
                     if ((d2 - radius * radius).abs() > AGG_D2_TOL).any():
                         raise AssertionError(
-                            f"aggregation group {r} differs card vs CPU away "
-                            f"from r^2: {d2.tolist()}")
+                            f"aggregation group {r} differs from the "
+                            f"replayed device's away from r^2: "
+                            f"{d2.tolist()}")
             return want.to(out.device)
         return call
+    return wrap
 
-    with wrapped_selections(wrap):
-        metrics = make(model, cfg, opt)(batch)
+
+def vote_step_on(torch, build, batch, device, relu_types, replay=None):
+    """One f32 train step on `device` of `build(device)` -> (model, step)
+    from the seed-0 variables: (its FPS / ball-query calls (kind, arguments,
+    result) on the CPU, the metrics, the gradients, the running statistics
+    and the output of every module of `relu_types` (`relu_sides`), on the
+    CPU, and the flips `replaying` found, with `replay`, the card's calls,
+    whose proposals and groups the CPU run then takes)."""
+    model, step = build(device)
+    calls, bn, flips = [], {}, {"fps_gap": 0.0, "members": 0}
+    handles = relu_sides(torch, model, bn, relu_types)
+    with wrapped_selections(replaying(torch, calls, replay, flips)):
+        metrics = step(batch)
     for h in handles:
         h.remove()
     return (calls, {k: float(v) for k, v in metrics.items()},
@@ -3109,39 +3255,63 @@ def vote_step_on(torch, cfg, batch, device, coder, replay=None):
 
 def compare_vote_train_tiny(torch, device, head_version, coder=None):
     """The tight f32 gate at `votenet_tiny` (`head_version`, v1 with
-    `coder`), batch 2 (`vote_head_batch`): the same train step on the card
+    `coder`), batch 2 (`vote_head_batch`): `train_gate` of
+    `make_votenet_train_step` (v1: `make_votenet_v1_train_step`)."""
+    from fcaf3d_tpu_torch.configs import votenet_tiny
+    from fcaf3d_tpu_torch.train import (
+        create_votenet_train_state, make_votenet_train_step,
+        make_votenet_v1_train_step)
+
+    cfg = dataclasses.replace(votenet_tiny(), head_version=head_version)
+    make = (make_votenet_v1_train_step if cfg.head_version == "v1"
+            else make_votenet_train_step)
+
+    def build(dev):
+        model, opt, _ = create_votenet_train_state(cfg, seed=0, device=dev,
+                                                   coder=coder)
+        return model, make(model, cfg, opt)
+
+    return train_gate(torch, build, vote_head_batch(cfg), device,
+                      f"f32 tiny VoteNet-{head_version} train step")
+
+
+def train_gate(torch, build, batch, device, what, relu_types=None):
+    """The same train step (`build(device)` -> (model, step)) on the card
     and on the CPU from the same numpy variables and batch. Every backbone
     FPS index and SA group exactly equal; the proposals and their groups as
-    `vote_step_on` holds them; each loss within TRAIN_LOSS_RTOL of the
-    total loss (a random v1 head's size-residual loss is ~2e-4 of it, and
-    its own relative error reads ~1.5e-5 on an H100 against the CPU); the running
+    `replaying` holds them; each loss within TRAIN_LOSS_RTOL of the total
+    loss (a random v1 head's size-residual loss is ~2e-4 of it, and its own
+    relative error reads ~1.5e-5 on an H100 against the CPU); the running
     statistics within VOTE_STATS_ATOL; every gradient element within
     TINY_GRAD_RTOL of its leaf's largest (a Dense bias ahead of a
     train-mode BN, whose exact gradient is 0, of its kernel's largest).
     Where a ReLU's input changes sign card vs CPU (each such input within
     RELU_TIE_ATOL of 0: the max-pools see a group's padding duplicates, so
     one such tie moves a leaf by up to ~1%), every leaf is held to
-    TRAIN_GRAD_RTOL in L2 norm instead, and the flips are logged."""
-    from fcaf3d_tpu_torch.configs import votenet_tiny
+    TRAIN_GRAD_RTOL in L2 norm instead, and the flips are logged. The signs
+    are read from the outputs of the modules of `relu_types` (`relu_sides`;
+    by default every BatchNorm)."""
+    from fcaf3d_tpu_torch.models.pointnet2 import BatchNorm
 
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("TF32 is on for the f32 matmuls")
-    cfg = dataclasses.replace(votenet_tiny(), head_version=head_version)
-    batch = vote_head_batch(cfg)
-    what = f"f32 tiny VoteNet-{head_version} train step"
+    relu_types = relu_types or BatchNorm
     calls_g, loss_g, grad_g, stats_g, bn_g, _ = vote_step_on(
-        torch, cfg, batch, device, coder)
+        torch, build, batch, device, relu_types)
     _, loss_c, grad_c, stats_c, bn_c, flips = vote_step_on(
-        torch, cfg, batch, "cpu", coder, replay=calls_g)
+        torch, build, batch, "cpu", relu_types, replay=calls_g)
     loss_errs = {k: abs(loss_g[k] - v) / max(abs(v), 1e-30)
                  for k, v in loss_c.items() if k != "grad_norm"}
     loss_err = max(abs(loss_g[k] - loss_c[k]) for k in loss_errs) \
         / loss_c["loss"]
     stats_err = max(float((stats_g[n] - v).abs().max())
                     for n, v in stats_c.items())
-    relu = [(n, int(((bn_g[n] > 0) != (y > 0)).sum()),
-             float(y[(bn_g[n] > 0) != (y > 0)].abs().max()))
-            for n, y in bn_c.items() if not torch.equal(bn_g[n] > 0, y > 0)]
+    relu = []
+    for n, y in bn_c.items():
+        flip = (bn_g[n] > 0) != (y > 0)
+        if flip.any():
+            relu.append((n, int(flip.sum()), float(torch.maximum(
+                bn_g[n].abs(), y.abs())[flip].max())))
     if any(at > RELU_TIE_ATOL for _, _, at in relu):
         raise AssertionError(f"{what}: ReLU inputs change sign card vs CPU "
                              f"away from 0: {relu}")
@@ -3158,11 +3328,13 @@ def compare_vote_train_tiny(torch, device, head_version, coder=None):
                           / max(float(g.norm()), 1e-30))
             norm = max(norm, (n_err, name))
         worst = max(worst, (err, name))
-    log(f"   {what}, batch 2: backbone FPS indices and groups equal card vs "
-        f"CPU; proposals: largest FPS running-minimum gap "
-        f"{flips['fps_gap']:.3g} (tol {VOTE_FPS_RTOL}), {flips['members']} "
-        f"group members within {AGG_D2_TOL} of r^2; losses on the CPU "
-        f"{loss_c}, on the card {loss_g}, rel err "
+    selections = (f"backbone FPS indices and groups equal card vs CPU; "
+                  f"proposals: largest FPS running-minimum gap "
+                  f"{flips['fps_gap']:.3g} (tol {VOTE_FPS_RTOL}), "
+                  f"{flips['members']} group members within {AGG_D2_TOL} "
+                  "of r^2; " if calls_g else "")
+    log(f"   {what}, batch {len(next(iter(batch.values())))}: {selections}"
+        f"losses on the CPU {loss_c}, on the card {loss_g}, rel err "
         + ", ".join(f"{k} {v:.3g}" for k, v in loss_errs.items())
         + f"; largest error {loss_err:.3g} of the total loss (tol "
         f"{TRAIN_LOSS_RTOL}); running stats max abs "
@@ -3334,6 +3506,442 @@ def votenet_training_phase(torch, device):
     return launches, variants, recs, vote_kernel_rows(torch, cases)
 
 
+def tiny_imvote_frames(n_classes, with_yaw=True, seeds=(0, 1)):
+    """Two camera-consistent frames at the CPU tests' size: 400 points in
+    front of a 16 x 24 camera of focal length 10 (sampled to 256)."""
+    return [imvote_frame(s, 400, n_classes, with_yaw, hw=(16, 24),
+                         focal=10.0, n_boxes=4, extent=2.0, near=1.0,
+                         cam_height=0.6) for s in seeds]
+
+
+def tiny_imvote_batch(cfg):
+    """The CPU tests' training batch at `cfg`: `tiny_imvote_frames` with
+    their GT 2D boxes (6 rows), frame 1's at confidence 0.8 (a detector's:
+    only the pairs inside a box are kept, and the resampling cycles)."""
+    batch = imvote_batch(cfg, tiny_imvote_frames(cfg.n_classes,
+                                                 cfg.with_yaw), max_det=6)
+    batch["boxes2d"][1, :, 4] = np.where(batch["boxes2d_valid"][1], 0.8, 0)
+    return batch
+
+
+def imvote_tiny_cfg():
+    """The CPU tests' ImVoteNet size: `votenet_tiny` at 256 points, 16
+    proposals, SA (64, 32, 16, 8) (and 32 sampled seeds)."""
+    from fcaf3d_tpu_torch.configs import votenet_tiny
+
+    return dataclasses.replace(votenet_tiny(), num_points=256,
+                               num_proposal=16,
+                               backbone_num_points=(64, 32, 16, 8))
+
+
+def few_vote_boxes(frame):
+    """One 2D box at confidence 0.9 (below 1: only the seeds inside it
+    count) over the middle third of the frame's smallest GT 2D box: the
+    valid imvotes cover a few seeds, the 1 024 resampled seeds repeat them,
+    and the votes that the aggregation's FPS and ball query take hold
+    exact duplicates."""
+    boxes = frame["boxes2d"]
+    x1, y1, x2, y2, _, cls = boxes[np.argmin(
+        (boxes[:, 2] - boxes[:, 0]) * (boxes[:, 3] - boxes[:, 1]))]
+    w, h = (x2 - x1) / 3, (y2 - y1) / 3
+    return np.float32([[x1 + w, y1 + h, x2 - w, y2 - h, 0.9, cls]])
+
+
+def det2d_decode_card_vs_cpu(torch, det, images, device):
+    """The 2D decode on the card and on the CPU from the same outputs (the
+    card's forward of `images`): each level's top-k indices, the per-class
+    NMS keep masks and the detections' valid masks and classes exactly
+    equal; boxes within DET2D_BOX_ATOL, scores within SCORE_ATOL. Returns
+    (box error, score error, valid detections)."""
+    from fcaf3d_tpu_torch.models.detector2d import (
+        class_nms, decode_topk, detector2d_get_bboxes)
+
+    with torch.no_grad():
+        outs = det(images)
+    res = {}
+    for dev in (device, "cpu"):
+        o = [{k: v.to(dev) for k, v in lvl.items()} for lvl in outs]
+        boxes, scores, classes, idx = decode_topk(
+            o, image_hw=images.shape[1:3])
+        keep = class_nms(boxes, scores, classes)
+        dets = detector2d_get_bboxes(o, det.n_classes,
+                                     image_hw=images.shape[1:3])
+        res[dev] = [t.cpu() for t in (idx, classes, keep, dets.valid,
+                                      dets.boxes[..., 5], boxes,
+                                      dets.boxes[..., :4], scores,
+                                      dets.boxes[..., 4])]
+    g, c = res[device], res["cpu"]
+    for name, a, b in zip(("top-k indices", "classes", "keep masks",
+                           "valid masks", "detection classes"), g, c):
+        if not torch.equal(a, b):
+            raise AssertionError(f"Detector2D decode: {name} differ card vs "
+                                 "CPU")
+    box_err = max(float((a - b).abs().max()) for a, b in zip(g[5:7], c[5:7]))
+    score_err = max(float((a - b).abs().max()) for a, b in zip(g[7:], c[7:]))
+    if box_err > DET2D_BOX_ATOL or score_err > SCORE_ATOL:
+        raise AssertionError(f"Detector2D decode: boxes {box_err}, scores "
+                             f"{score_err} card vs CPU")
+    return box_err, score_err, int(g[3].sum())
+
+
+def imvote_run(torch, model, args, replay=None):
+    """`inference_imvotenet(model, *args)`, its FPS and ball-query calls
+    through `replaying` (with `replay`, the card's calls, whose proposals and
+    groups it takes) and `sample_valid_seeds` recorded. Returns (calls, the
+    fusion mask and `sample_valid_seeds`' indices on the CPU, the numpy
+    detections, the flips)."""
+    from fcaf3d_tpu_torch.apis import inference_imvotenet
+    from fcaf3d_tpu_torch.models import imvotenet
+
+    calls, fused, flips = [], [], {"fps_gap": 0.0, "members": 0}
+    sample = imvotenet.sample_valid_seeds
+
+    def recorded(mask, k):
+        out = sample(mask, k)
+        fused.append((mask.cpu(), out.cpu()))
+        return out
+
+    imvotenet.sample_valid_seeds = recorded
+    try:
+        with wrapped_selections(replaying(torch, calls, replay, flips)):
+            dets = inference_imvotenet(model, *args,
+                                       n_classes=model.cfg.n_classes)
+    finally:
+        imvotenet.sample_valid_seeds = sample
+    return calls, fused[0], dets, flips
+
+
+def compare_imvotenet_f32(torch, model, cfg, frame, boxes, device):
+    """One frame card against CPU through `inference_imvotenet` (same
+    weights, same input): the fusion mask and `sample_valid_seeds`' indices
+    and every backbone FPS index and group exactly equal; the aggregation's
+    FPS over the votes equal but for a flip at a running-minimum tie and its
+    groups but for members within AGG_D2_TOL of r^2 (the CPU then takes the
+    card's); the detections' count and labels exactly equal, boxes within
+    BOX_ATOL and scores within SCORE_ATOL."""
+    from fcaf3d_tpu_torch.apis import init_imvotenet
+
+    args = (frame["points"], frame["image"], boxes, frame["depth2img"],
+            cfg.num_points)
+    calls_g, (mask_g, inds_g), dets_g, _ = imvote_run(torch, model, args)
+    _, (mask_c, inds_c), dets_c, flips = imvote_run(
+        torch, init_imvotenet(cfg, 0, device="cpu"), args, replay=calls_g)
+    if not (torch.equal(mask_g, mask_c) and torch.equal(inds_g, inds_c)):
+        raise AssertionError("ImVoteNet f32: the fusion mask or the "
+                             "resampled seeds differ card vs CPU")
+    n = len(dets_c["labels_3d"])
+    if not (n and np.array_equal(dets_g["labels_3d"], dets_c["labels_3d"])):
+        raise AssertionError(f"ImVoteNet f32: {len(dets_g['labels_3d'])} "
+                             f"detections on the card, {n} on the CPU, or "
+                             "other labels")
+    box_err = float(np.abs(dets_g["boxes_3d"] - dets_c["boxes_3d"]).max())
+    score_err = float(np.abs(dets_g["scores_3d"] - dets_c["scores_3d"])
+                      .max())
+    log(f"   f32 card vs CPU: fusion mask ({int(mask_c.sum())} of "
+        f"{mask_c.numel()} imvotes valid) and resampled seeds equal, "
+        f"{len(calls_g)} FPS / ball-query calls, backbone's equal; "
+        f"aggregation: largest FPS running-minimum gap "
+        f"{flips['fps_gap']:.3g} (tol {VOTE_FPS_RTOL}), {flips['members']} "
+        f"group members within {AGG_D2_TOL} of r^2; {n} detections equal, "
+        f"max box err {box_err:.3g} (tol {BOX_ATOL}), max score err "
+        f"{score_err:.3g} (tol {SCORE_ATOL})")
+    if box_err > BOX_ATOL or score_err > SCORE_ATOL:
+        raise AssertionError("ImVoteNet f32: card and CPU disagree")
+    return {"box_err": box_err, "score_err": score_err,
+            "fps_gap": flips["fps_gap"], "members": flips["members"]}
+
+
+def detector2d_inference(torch, det, frames, device):
+    """(a) `extract_bboxes_2d` on each frame at batch 1: at least one valid
+    detection each (walls logged); the decode card vs CPU on frame 0.
+    Returns (each frame's valid boxes [n, 6] as numpy, record)."""
+    from fcaf3d_tpu_torch.models.detector2d import extract_bboxes_2d
+
+    extract_bboxes_2d(det, torch.as_tensor(frames[0]["image"][None],
+                                           device=device))  # warm-up
+    boxes, walls = [], []
+    for f in frames:
+        img = torch.as_tensor(f["image"][None], device=device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b, v = extract_bboxes_2d(det, img)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        boxes.append(b[0][v[0]].cpu().numpy())
+        if len(boxes[-1]) < 1 or not np.isfinite(boxes[-1]).all():
+            raise AssertionError("Detector2D: no valid 2D detection")
+    box_err, score_err, n = det2d_decode_card_vs_cpu(
+        torch, det, torch.as_tensor(frames[0]["image"][None], device=device),
+        device)
+    log(f"   Detector2D (width {det.width}, FPN {det.fpn_ch}), "
+        f"{frames[0]['image'].shape[0]} x {frames[0]['image'].shape[1]}, "
+        f"batch 1: extract walls " + " ".join(f"{t:.1f}" for t in walls)
+        + f" ms; valid 2D detections {[len(b) for b in boxes]}; decode card "
+        f"vs CPU on frame 0: top-k indices, keep masks and {n} detections "
+        f"equal, max box err {box_err:.3g} (tol {DET2D_BOX_ATOL}), max score "
+        f"err {score_err:.3g} (tol {SCORE_ATOL})")
+    return boxes, {"extract_wall_ms": walls, "detections": [
+        len(b) for b in boxes], "decode_box_err": box_err,
+        "decode_score_err": score_err}
+
+
+def imvotenet_inference(torch, model, cfg, frames, extracted, device):
+    """(b) `inference_imvotenet` on each frame with its extracted 2D boxes,
+    its GT 2D boxes and none, then on frame 0 with `few_vote_boxes`: walls,
+    non-empty detections with GT boxes, 5 K5 and 5 K6 launches a scan on
+    the cluster and tiled kernels, every call held to plain, fewer than
+    FEW_SEEDS distinct votes in the few-vote scan's aggregation; then
+    `compare_imvotenet_f32` on frame 0 with its extracted boxes (their
+    confidences below 1 keep only the pairs inside a box). Returns
+    (launches, by variant, record, the recorded calls by scan name)."""
+    from fcaf3d_tpu_torch import _native
+    from fcaf3d_tpu_torch.apis import inference_imvotenet
+
+    runs = []
+    for i, f in enumerate(frames):
+        runs += [(f"frame {i} extracted", f, extracted[i]),
+                 (f"frame {i} GT", f, f["boxes2d"]),
+                 (f"frame {i} no box", f, np.zeros((0, 6), np.float32))]
+    runs.append(("frame 0 few votes", frames[0], few_vote_boxes(frames[0])))
+    kw = dict(num_points=cfg.num_points, n_classes=cfg.n_classes)
+    inference_imvotenet(model, frames[0]["points"], frames[0]["image"],
+                        frames[0]["boxes2d"], frames[0]["depth2img"],
+                        **kw)  # warm-up: cuBLAS and the allocator
+    torch.cuda.synchronize()
+    _native.reset_launches()
+    calls, by_run, walls, counts = [], {}, {}, {}
+    with wrapped_selections(grad_recorder(torch, calls)):
+        for name, f, boxes in runs:
+            t0 = time.perf_counter()
+            dets = inference_imvotenet(model, f["points"], f["image"], boxes,
+                                       f["depth2img"], **kw)
+            torch.cuda.synchronize()
+            walls[name] = (time.perf_counter() - t0) * 1e3
+            by_run[name] = calls[-10:]
+            if "GT" in name:
+                counts[name] = check_detections(dets, cfg.n_classes, name)
+            elif len(dets["scores_3d"]):
+                counts[name] = check_detections(dets, cfg.n_classes, name)
+            else:
+                counts[name] = 0
+    launches = dict(_native.LAUNCHES)
+    variants = {"/".join(key): n
+                for key, n in sorted(_native.VARIANT_LAUNCHES.items())}
+    check_vote_launches(launches, variants, 5, len(runs),
+                        "imvotenet_inference")
+    hold_selections_to_plain(torch, calls, f"{len(runs)} ImVoteNet scans")
+    votes = by_run["frame 0 few votes"][-2][1][0][0]
+    distinct = len(torch.unique(votes, dim=0))
+    if not 0 < distinct < FEW_SEEDS:
+        raise AssertionError(f"few-vote scan: {distinct} distinct votes of "
+                             f"{len(votes)}, expected 1-{FEW_SEEDS - 1}")
+    for name in walls:
+        log(f"   {name}: {walls[name]:.1f} ms wall, {counts[name]} "
+            "detections")
+    log(f"   launches over {len(runs)} scans: {launches}; by variant "
+        f"{variants}; every call equal to plain; the few-vote scan's "
+        f"aggregation took {distinct} distinct votes of {len(votes)}")
+    gate = compare_imvotenet_f32(torch, model, cfg, frames[0], extracted[0],
+                                 device)
+    return launches, variants, {"walls_ms": walls, "detections": counts,
+                                "few_vote_distinct": distinct,
+                                "card_vs_cpu": gate}, by_run
+
+
+def add_counts(a, b):
+    return {k: a.get(k, 0) + b.get(k, 0) for k in set(a) | set(b)}
+
+
+def imvotenet_training(torch, cfg, det, frames, device):
+    """(c) `make_imvotenet_train_step` at batch IMVOTE_TRAIN_BATCH with GT
+    2D boxes, then with `extract_bboxes_2d(train=True)`'s boxes (a fresh
+    half drop each step), each by `held_and_timed_steps` (live vote, centre
+    and IoU losses of every tower, 7 K5 and 7 K6 a step); then
+    `make_detector2d_train_step` at the same batch: finite losses, finite
+    non-zero gradients on every conv kernel, step walls, CUDA-event spans
+    and peak memory. Returns (launches, by variant, record, the warm-up's
+    calls with GT boxes)."""
+    from fcaf3d_tpu_torch.models.detector2d import extract_bboxes_2d
+    from fcaf3d_tpu_torch.train import (
+        create_detector2d_train_state, create_imvotenet_train_state,
+        make_detector2d_train_step, make_imvotenet_train_step)
+
+    batch = imvote_batch(cfg, frames, IMVOTE_MAX_DET)
+    live = [f"{t}_{k}" for t in ("joint", "pts", "img")
+            for k in ("vote_loss", "center_loss", "iou_loss")]
+    model, opt, _ = create_imvotenet_train_state(cfg, seed=0, device=device)
+    step = make_imvotenet_train_step(model, cfg, opt)
+    log(f"   ImVoteNet, GT 2D boxes (up to {IMVOTE_MAX_DET} a frame, conf 1)")
+    launches, variants, rec_gt, calls = held_and_timed_steps(
+        torch, model, step, batch, IMVOTE_TRAIN_STEPS, "imvotenet_training",
+        live, 7, cfg)
+    gen = torch.Generator(device=device).manual_seed(0)
+    images = torch.as_tensor(batch["images"], device=device)
+
+    def extracted_step(b):
+        boxes, valid = extract_bboxes_2d(det, images, generator=gen,
+                                         train=True, max_det=IMVOTE_MAX_DET)
+        return step({**b, "boxes2d": boxes, "boxes2d_valid": valid})
+
+    log("   ImVoteNet, extracted 2D boxes, half dropped each step")
+    l2, v2, rec_x, _ = held_and_timed_steps(
+        torch, model, extracted_step, batch, IMVOTE_TRAIN_STEPS,
+        "imvotenet_training", live, 7, cfg)
+    dmodel, dopt, _ = create_detector2d_train_state(
+        cfg.n_classes, det.width, det.fpn_ch, seed=0, device=device)
+    dstep = make_detector2d_train_step(dmodel, dopt)
+    dbatch = {"images": batch["images"],
+              "gt_boxes": batch["boxes2d"][..., :4],
+              "gt_labels": batch["boxes2d"][..., 5].astype(np.int32),
+              "gt_valid": batch["boxes2d_valid"]}
+    dstep(dbatch)  # warm-up: cuDNN and the allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls, spans = [], []
+    for i in range(DET2D_TRAIN_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        m = {k: float(v) for k, v in dstep(dbatch).items()}
+        end.record()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        spans.append(start.elapsed_time(end))
+        if not all(np.isfinite(v) for v in m.values()) or m["loss"] <= 0:
+            raise AssertionError(f"Detector2D step {i}: metrics {m}")
+        for name, p in dmodel.named_parameters():
+            if name.endswith("kernel") and not (
+                    torch.isfinite(p.grad).all() and p.grad.abs().max() > 0):
+                raise AssertionError(f"Detector2D step {i}: {name} gradient "
+                                     "non-finite or zero")
+        log(f"   Detector2D step {i}: {walls[-1]:.1f} ms wall, "
+            f"{spans[-1]:.1f} ms between CUDA events; "
+            + ", ".join(f"{k} {v:.5g}" for k, v in m.items()))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"   Detector2D, batch {len(dbatch['images'])}: wall "
+        f"{np.mean(walls):.1f} ms/step, CUDA-event span {np.mean(spans):.1f}"
+        f" ms/step, peak memory {peak:.2f} GiB; every conv kernel's gradient "
+        "finite and non-zero")
+    rec = {"gt_boxes": rec_gt, "extracted_boxes": rec_x,
+           "detector2d": {"batch": len(dbatch["images"]),
+                          "step_wall_ms": float(np.mean(walls)),
+                          "step_event_ms": float(np.mean(spans)),
+                          "peak_gib": peak}}
+    return (add_counts(launches, l2), add_counts(variants, v2), rec, calls)
+
+
+def det2d_tiny_batch(b=2, hw=(96, 128), g=3, seed=0, noise=False):
+    """The CPU tests' Detector2D batch: grey (or uniform-noise) images with
+    g boxes of 16-90 x 16-80 pixels painted flat ((j + 1) x 60), GT boxes
+    [b, g + 1, 4] xyxy (a last, invalid one), labels and valid."""
+    rng = np.random.default_rng(seed)
+    imgs = (rng.uniform(0, 255, (b, hw[0], hw[1], 3)) if noise
+            else np.full((b, hw[0], hw[1], 3), 128.0)).astype(np.float32)
+    boxes = np.zeros((b, g + 1, 4), np.float32)
+    for i in range(b):
+        for j in range(g):
+            w, h = rng.uniform(16, 90), rng.uniform(16, 80)
+            x1, y1 = rng.uniform(0, hw[1] - w), rng.uniform(0, hw[0] - h)
+            boxes[i, j] = [x1, y1, min(x1 + w, hw[1]), min(y1 + h, hw[0])]
+            x1, y1, x2, y2 = boxes[i, j].astype(int)
+            imgs[i, y1:y2, x1:x2] = (j + 1) * 60.0
+    labels = rng.integers(0, DET2D_TINY["n_classes"], (b, g + 1))
+    valid = np.ones((b, g + 1), bool)
+    valid[:, -1] = False
+    return {"images": imgs, "gt_boxes": boxes,
+            "gt_labels": labels.astype(np.int32), "gt_valid": valid}
+
+
+def compare_det2d_train_tiny(torch, device):
+    """(d) The tight f32 gate of the Detector2D step at the CPU tests' size
+    (`det2d_tiny_batch`), card against CPU, cuDNN's TF32 off: `train_gate`
+    with the ReLU sides read from every `ConvBNRelu` and `ResBlock2D`
+    output."""
+    from fcaf3d_tpu_torch.models.detector2d import ConvBNRelu, ResBlock2D
+    from fcaf3d_tpu_torch.train import (
+        create_detector2d_train_state, make_detector2d_train_step)
+
+    if torch.backends.cudnn.allow_tf32:
+        raise AssertionError("TF32 is on for the f32 convs")
+
+    def build(dev):
+        model, opt, _ = create_detector2d_train_state(**DET2D_TINY, seed=0,
+                                                      device=dev)
+        return model, make_detector2d_train_step(model, opt)
+
+    return train_gate(torch, build, det2d_tiny_batch(), device,
+                      "f32 tiny Detector2D train step (width 16, FPN 32, "
+                      "96 x 128)", relu_types=(ConvBNRelu, ResBlock2D))
+
+
+def imvotenet_phase(torch, device):
+    """Phase 12: ImVoteNet and its 2D detector (module docstring), f32 with
+    cuDNN's TF32 off. Returns (launches by path, by variant by path,
+    records, K5 / K6 rows of `vote_kernel_rows`)."""
+    from fcaf3d_tpu_torch import _native
+    from fcaf3d_tpu_torch.apis import init_detector2d, init_imvotenet
+    from fcaf3d_tpu_torch.configs import votenet_sunrgbd
+    from fcaf3d_tpu_torch.train import create_imvotenet_train_state
+    from fcaf3d_tpu_torch.train import make_imvotenet_train_step
+
+    cfg = votenet_sunrgbd()
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        def frame(seed):
+            return imvote_frame(seed, cfg.num_points, cfg.n_classes,
+                                cfg.with_yaw, hw=IMVOTE_HW,
+                                focal=IMVOTE_FOCAL)
+
+        frames = [frame(s) for s in range(IMVOTE_FRAMES)]
+        log(f"   -- (a) Detector2D at width {DET2D_WIDTH}, FPN {DET2D_FPN}: "
+            f"{[len(f['boxes2d']) for f in frames]} GT 2D boxes a frame")
+        det = init_detector2d(cfg.n_classes, DET2D_WIDTH, DET2D_FPN, seed=0,
+                              device=device)
+        extracted, rec_a = detector2d_inference(torch, det, frames, device)
+        log("   -- (b) inference_imvotenet at votenet_sunrgbd")
+        model = init_imvotenet(cfg, seed=0, device=device)
+        l_inf, v_inf, rec_b, inf_calls = imvotenet_inference(
+            torch, model, cfg, frames, extracted, device)
+        del model
+        log(f"   -- (c) training at batch {IMVOTE_TRAIN_BATCH}")
+        train_frames = [frame(100 + s) for s in range(IMVOTE_TRAIN_BATCH)]
+        l_tr, v_tr, rec_c, tr_calls = imvotenet_training(
+            torch, cfg, det, train_frames, device)
+        log("   -- (d) the tight f32 gates card vs CPU at the CPU tests' "
+            "sizes")
+        _native.reset_launches()
+        tiny = imvote_tiny_cfg()
+
+        def build(dev):
+            m, opt, _ = create_imvotenet_train_state(
+                tiny, seed=0, device=dev, num_sampled_seed=32)
+            return m, make_imvotenet_train_step(m, tiny, opt)
+
+        rec_d = {"imvotenet": train_gate(
+            torch, build, tiny_imvote_batch(tiny), device,
+            "f32 tiny ImVoteNet train step"),
+            "detector2d": compare_det2d_train_tiny(torch, device)}
+        log("   -- (e) K5 and K6 at the aggregation shapes, against plain")
+        cases = []
+        for what, calls in (("aggregation B=1", inf_calls["frame 0 GT"]),
+                            ("aggregation B=1 few votes",
+                             inf_calls["frame 0 few votes"]),
+                            (f"aggregation B={IMVOTE_TRAIN_BATCH}",
+                             tr_calls[BACKBONE_CALLS:BACKBONE_CALLS + 2])):
+            cases += [(what, kind, args) for kind, args, *_ in calls[-2:]]
+        rows = vote_kernel_rows(torch, cases)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    recs = {"detector2d_inference": rec_a, "imvotenet_inference": rec_b,
+            "training": rec_c, "tiny_gates": rec_d}
+    return ({"imvotenet_inference": l_inf, "imvotenet_training": l_tr},
+            {"imvotenet_inference": v_inf, "imvotenet_training": v_tr},
+            recs, rows)
+
+
 KERNELS = (
     ("searchsorted", "fcaf3d_tpu_torch/csrc/search.cu",
      "fcaf3d_tpu/ops/sparse/search.py:149"),
@@ -3437,6 +4045,14 @@ def main():
     for kernel, r in vt_rows.items():
         rec[kernel]["training_shapes"] = r
     rec["fps"]["votenet_training"] = vt_recs
+    log("== 12 ImVoteNet: Detector2D (width 64, FPN 128, 480 x 640) and "
+        "inference_imvotenet at votenet_sunrgbd (f32, batch 1), training at "
+        f"batch {IMVOTE_TRAIN_BATCH}, tiny gates card vs CPU")
+    iv_launches, iv_variants, iv_recs, iv_rows = imvotenet_phase(torch,
+                                                                 "cuda")
+    for kernel, r in iv_rows.items():
+        rec[kernel]["aggregation_shapes"] = r
+    rec["fps"]["imvotenet"] = iv_recs
     log(f"== all phases passed in {time.perf_counter() - t_start:.1f} s")
     for what, ms, first, second in NOT_FASTER:
         log(f"   not faster than a yardstick: {what}: kernel {ms:.4f} ms, "
@@ -3444,11 +4060,11 @@ def main():
     by_path = {"fcaf3d_inference": infer_launches,
                "fcaf3d_training": train_launches,
                "votenet_inference": vote_launches, **other_launches,
-               **rest_launches, **vt_launches}
+               **rest_launches, **vt_launches, **iv_launches}
     variants = {"fcaf3d_inference": infer_variants,
                 "fcaf3d_training": train_variants,
                 "votenet_inference": vote_variants, **other_variants,
-                **rest_variants, **vt_variants}
+                **rest_variants, **vt_variants, **iv_variants}
     kernels = []
     for name, src, tpu in KERNELS:
         k = {"name": name, "route": "cuda", "source": src, "replaces": tpu,

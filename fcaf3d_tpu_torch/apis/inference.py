@@ -1,5 +1,6 @@
 """Single-cloud inference API (port of `fcaf3d_tpu/apis/inference.py`):
-FCAF3D, VoteNet-v2 and the bin-based VoteNet-v1."""
+FCAF3D, VoteNet-v2, the bin-based VoteNet-v1, and ImVoteNet with its 2D
+detector."""
 from __future__ import annotations
 
 import pickle
@@ -12,10 +13,18 @@ from ..configs.fcaf3d import FCAF3DConfig
 from ..configs.votenet import VoteNetConfig
 from ..data.points import add_height
 from ..models.detector import FCAF3D, infer_config
+from ..models.detector2d import Detector2D
 from ..models.fcaf3d_head import fcaf3d_get_bboxes
+from ..models.imvotenet import ImVoteNet
 from ..models.votenet import VoteNet, votenet_get_bboxes
 from ..models.votenet_v1 import build_votenet
-from ..params import init_variables, init_votenet_variables, load_variables
+from ..params import (
+    init_detector2d_variables,
+    init_imvotenet_variables,
+    init_variables,
+    init_votenet_variables,
+    load_variables,
+)
 from .test import detections_to_numpy
 
 
@@ -110,4 +119,79 @@ def inference_votenet(model: VoteNet, points: np.ndarray, seed: int = 0,
     dets = votenet_get_bboxes(preds, x, cfg.n_classes, nms_thr=cfg.nms_thr,
                               score_thr=cfg.score_thr,
                               per_class_proposal=cfg.per_class_proposal)
+    return detections_to_numpy(dets, 0)
+
+
+def init_detector2d(n_classes: int = 10, width: int = 64, fpn_ch: int = 128,
+                    seed: int = 0, params_file: Optional[str] = None,
+                    device="cuda") -> Detector2D:
+    """Build ImVoteNet's 2D detector in eval mode on `device`, with the
+    weights of a pickle (`{"params"}` in the flax layout, as
+    `tools/train_detector2d.py` writes) or, without one, the seeded draw of
+    `params.init_detector2d_variables`."""
+    model = Detector2D(n_classes, width, fpn_ch, device=device)
+    load_variables(model, _variables(params_file, lambda: (
+        init_detector2d_variables(n_classes, width, fpn_ch, seed))))
+    return model.eval()
+
+
+def init_imvotenet(cfg: VoteNetConfig, seed: int = 0,
+                   params_file: Optional[str] = None, device="cuda",
+                   num_sampled_seed: int = 1024,
+                   max_imvote: int = 3) -> ImVoteNet:
+    """Build ImVoteNet stage 2 at a VoteNet-v2 config in eval mode on
+    `device`, with the weights of a pickle (flax layout, as
+    `tools/train_imvotenet.py` writes) or, without one, the seeded draw of
+    `params.init_imvotenet_variables`."""
+    model = ImVoteNet(cfg, num_sampled_seed, max_imvote, device=device)
+    load_variables(model, _variables(params_file, lambda: (
+        init_imvotenet_variables(cfg, seed, num_sampled_seed, max_imvote))))
+    return model.eval()
+
+
+def imvotenet_inputs(points: np.ndarray, image: np.ndarray,
+                     boxes_2d: np.ndarray, depth2img: np.ndarray,
+                     num_points: int, seed: int, device):
+    """The ImVoteNet inputs of one frame as batches of one on `device`:
+    (points [1, num_points, 4] from `votenet_inputs`, image [1, H, W, 3],
+    boxes2d [1, D, 6] with D >= 1, their valid mask [1, D], depth2img [1,
+    3, 3]). `boxes_2d` may be empty, as an array or a list."""
+    d = max(len(boxes_2d), 1)
+    b2 = np.zeros((d, 6), np.float32)
+    bv = np.zeros((d,), bool)
+    if len(boxes_2d):
+        b2[:len(boxes_2d)] = np.asarray(boxes_2d, np.float32)
+        bv[:len(boxes_2d)] = True
+
+    def dev(a, dtype=np.float32):
+        return torch.as_tensor(np.asarray(a, dtype)[None], device=device)
+
+    return (dev(votenet_inputs(points, num_points, seed)), dev(image),
+            dev(b2), dev(bv, bool), dev(depth2img))
+
+
+@torch.inference_mode()
+def inference_imvotenet(model: ImVoteNet, points: np.ndarray,
+                        image: np.ndarray, boxes_2d: np.ndarray,
+                        depth2img: np.ndarray, num_points: int = 20000,
+                        n_classes: int = 10, nms_thr: float = 0.25,
+                        score_thr: float = 0.05, seed: int = 0):
+    """Multi-modality (points + image) single-sample inference, as the JAX
+    package's `inference_imvotenet`: the cloud [N, >=3] (xyz first) gets
+    its height column, then `num_points` seeded samples; the 2D boxes [D,
+    6] (x1, y1, x2, y2, conf, cls), from `extract_bboxes_2d` or GT, are
+    padded to at least one row; the image [H, W, 3] is float RGB at the
+    net's input size and depth2img the [3, 3] projection
+    (`data.calib.sunrgbd_depth2img`) (`imvotenet_inputs`). Runs the joint
+    tower alone, proposals sampled over the votes, then
+    `votenet_get_bboxes` at its defaults.
+
+    Returns {boxes_3d, scores_3d, labels_3d} numpy arrays (bottom-centred
+    box7) with padding stripped."""
+    x, images, b2, bv, d2i = imvotenet_inputs(
+        points, image, boxes_2d, depth2img, num_points, seed,
+        next(model.parameters()).device)
+    preds = model(x, images, b2, bv, depth2img=d2i, towers=("joint",))
+    dets = votenet_get_bboxes(preds["joint"], x, n_classes, nms_thr=nms_thr,
+                              score_thr=score_thr)
     return detections_to_numpy(dets, 0)

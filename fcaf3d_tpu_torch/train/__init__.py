@@ -1,8 +1,17 @@
 """Training of the port: optimizer, schedule and the train step."""
-from .optim import ClipAdamW, make_optimizer, step_lr_schedule  # noqa: F401
+from .optim import (  # noqa: F401
+    ClipAdamW,
+    constant_schedule,
+    make_optimizer,
+    step_lr_schedule,
+)
 from .trainer import (  # noqa: F401
+    create_detector2d_train_state,
+    create_imvotenet_train_state,
     create_train_state,
     create_votenet_train_state,
+    make_detector2d_train_step,
+    make_imvotenet_train_step,
     make_train_step,
     make_votenet_train_step,
     make_votenet_v1_train_step,

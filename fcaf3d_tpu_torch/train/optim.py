@@ -37,6 +37,12 @@ def step_lr_schedule(base_lr: float, steps_per_epoch: int,
     return schedule
 
 
+def constant_schedule(lr: float):
+    """count -> `lr` as an f32 value (optax's float learning rate)."""
+    value = float(np.float32(lr))
+    return lambda count: value
+
+
 class ClipAdamW(torch.optim.Optimizer):
     """Global-norm clip then AdamW, step for step optax's
     `chain(clip_by_global_norm(grad_clip), adamw(schedule, weight_decay))`
