@@ -183,14 +183,45 @@ Phases (any failure raises and the script exits non-zero):
    against plain, with bound and share, at the aggregation shapes (1 024
    votes -> 256, r 0.3, 16 samples): B = 1 (frame 0 with GT boxes and the
    few-vote scan) and B = 8 (the joint tower of the training warm-up).
+13. The platform at `fcaf3d_scannet`'s widths and budgets, on a dataset in
+   the reference's prepared ScanNet layout written to a temporary
+   directory (`write_scannet_root`: PLATFORM_SCENES train and val scenes
+   of phase 6's kind, float32 `.bin` clouds and info pickles). (a) The
+   dataset. (b) `train_model` in bf16 at batch 8 for 2 epochs (LR x0.1
+   after the first) through `tools/train.py`'s ScanNet train pipeline and
+   its 10 repeats, the port's `Loader` and an eval hook on the val scenes:
+   finite losses and zero overflow at every step, the log's losses and
+   eval records, one checkpoint kept, `meta.json`, K1-K4 launched on phase
+   5's variants, the first step's K1 calls exact and its K2 / K3 / K4
+   calls held as phase 6's (`hold_recorded`); each epoch's wall, its mean
+   step wall beside phase 6's bare step and the share of it the host
+   waited for the loader, also over the steps after the first. (c) The
+   restore round trip exactly (every variable, mu, nu, count, epoch), the
+   checkpoint's bytes and save / restore ms; 1 epoch then `resume=True` to
+   2: the straight run's count and last LR, finite losses, the largest
+   relative difference per leaf logged (not gated: the card's scatter-add
+   atomics). (d) `evaluate_dataset` through `init_detector(work_dir=)`,
+   bf16: the K1-K3 calls of the first batch at batch 1 and at
+   PLATFORM_EVAL_BATCH and of the three flipped forwards of a TTA batch
+   held as phase 5's; then timed at both batch sizes with and without the
+   4-flip TTA: K1-K3 launched on the path's variants, scenes/s and
+   `indoor_eval`'s share; then f32 on the card against the plain path on
+   the CPU on PLATFORM_F32_SCENES val scenes whose GT comes from the
+   card's detections (`gt_from_detections`): the same detections, centres
+   and yaw within BOX_ATOL, dims within BOX_DIM_RTOL of their size, scores
+   within SCORE_ATOL, the same metric dict unless an IoU lies within
+   IOU_TIE_ATOL of a threshold. (e) `python -m fcaf3d_tpu_torch.tools.test
+   --tta --out`, `tools.pcd_demo` and `tools.train --epochs 1` as
+   subprocesses on the card, exit 0 with their metric keys and files.
 
 Output: progress lines, then a JSON line of per-kernel results (launches
 of each main path: FCAF3D inference, FCAF3D training, VoteNet inference,
 the inference of each phase-9 config and SUN RGB-D training, phase
 10's reference-neck and depth-50 / 101 inference and training and
 `voxelize_reduce`, phase 11's VoteNet-v2 training and v1 inference
-and training of both configs, and phase 12's ImVoteNet inference and
-training;
+and training of both configs, phase 12's ImVoteNet inference and
+training, and phase 13's platform training (with its eval hook) and
+evaluation;
 K1-K6 also by variant; the recorded shape's times, bound and share; K1 at
 every distinct call of the two FCAF3D paths, K2 at every f32 path shape and
 over the f32 scan, K3 at both stem pool maps, K6 at every VoteNet shape,
@@ -213,6 +244,7 @@ Two further modes measure instead of checking (device and build first):
 import argparse
 import contextlib
 import dataclasses
+import itertools
 import json
 import os
 import subprocess
@@ -300,6 +332,20 @@ DET2D_WIDTH, DET2D_FPN = 64, 128
 IMVOTE_TRAIN_STEPS, DET2D_TRAIN_STEPS = 2, 2
 DET2D_BOX_ATOL, FEW_SEEDS = 1e-3, 256
 DET2D_TINY = {"n_classes": 4, "width": 16, "fpn_ch": 32}  # the CPU tests'
+# phase 13: the platform on a ScanNet-layout dataset of (train, val) scenes
+# of phase 6's kind; evaluation at batch 1 and PLATFORM_EVAL_BATCH; the f32
+# card-vs-CPU evaluation on the first PLATFORM_F32_SCENES val scenes, a
+# difference in mAP allowed only where an IoU lies within IOU_TIE_ATOL of a
+# threshold
+PLATFORM_SCENES = (16, 4)
+PLATFORM_EVAL_BATCH, PLATFORM_F32_SCENES = 4, 2
+IOU_TIE_ATOL = 1e-4
+# and the boxes' dims within BOX_DIM_RTOL of their size (centres and yaw
+# within BOX_ATOL, as elsewhere)
+BOX_DIM_RTOL = 1e-3
+# `indoor_eval`'s floor under an IoU's union (m^3): a GT box made from a
+# detection at least this large has its true IoU with that detection
+GT_MIN_VOLUME = 1e-8
 # published dense peaks of one H100 SXM: a kernel's bound is the larger of
 # its operations over the peak of their type (bf16 on the tensor cores;
 # float32 and integer work on the CUDA cores) and its bytes over the memory
@@ -367,6 +413,8 @@ PATH_KERNELS = {
     "votenet_v1_scannet_training": ("fps", "ball_query"),
     "imvotenet_inference": ("fps", "ball_query"),
     "imvotenet_training": ("fps", "ball_query"),
+    "fcaf3d_platform_training": TRAINING_KERNELS,
+    "fcaf3d_platform_eval": INFERENCE_KERNELS,
 }
 
 
@@ -1587,6 +1635,42 @@ def train_batch(cfg, batch, seed0):
     return batch_np
 
 
+def write_scannet_root(root, n_train, n_val, n_classes, n_boxes=TRAIN_BOXES,
+                       extent=5.0, box_points=TRAIN_BOX_POINTS,
+                       floor_points=TRAIN_FLOOR_POINTS, align=None):
+    """A dataset in the reference's prepared ScanNet layout under `root`:
+    `scannet_infos_{train,val}.pkl` and one float32 [N, 6] `.bin` a scene,
+    each scene `crowded_scene(n_boxes, n_classes, extent)` + `densify`
+    (the defaults: phase 6's 50 000-point scenes), its info with
+    gravity-centred `gt_boxes_upright_depth`, `class`, `gt_num` and
+    `axis_align_matrix` (`align`, default the identity). Scene i of the
+    train split draws from seed i, of the val split from seed n_train + i.
+    """
+    import pickle
+
+    from fcaf3d_tpu_torch.data.synth import crowded_scene, densify
+
+    mat = np.eye(4, dtype=np.float32) if align is None else align
+    os.makedirs(os.path.join(root, "points"), exist_ok=True)
+    for split, n, first in (("train", n_train, 0), ("val", n_val, n_train)):
+        infos = []
+        for i in range(n):
+            rng = np.random.default_rng(first + i)
+            scene = densify(crowded_scene(n_boxes, n_classes, rng,
+                                          extent=extent),
+                            box_points, floor_points, rng)
+            rel = f"points/{split}_{i:05d}.bin"
+            scene["points"].astype(np.float32).tofile(os.path.join(root, rel))
+            boxes = scene["gt_boxes"][:, :6].copy()
+            boxes[:, 2] += boxes[:, 5] / 2  # bottom -> gravity centre
+            infos.append({"pts_path": rel, "annos": {
+                "gt_num": len(boxes), "gt_boxes_upright_depth": boxes,
+                "class": scene["gt_labels"], "axis_align_matrix": mat}})
+        with open(os.path.join(root, f"scannet_infos_{split}.pkl"),
+                  "wb") as f:
+            pickle.dump(infos, f)
+
+
 def train_phase(torch, cfg, batch, device, steps=TRAIN_STEPS,
                 path="fcaf3d_training", on_calls=None):
     """bf16 training at batch 8: a warm-up step whose K1 calls are checked
@@ -1594,7 +1678,8 @@ def train_phase(torch, cfg, batch, device, steps=TRAIN_STEPS,
     their plain versions and K4 calls to float64 (`hold_calls_to_plain`),
     then handed to `on_calls` if given; then `steps` timed steps.
     Returns launches per kernel over the timed steps, the launches by
-    variant (`check_variants`) and the K1 record."""
+    variant (`check_variants`), the K1 record and the mean step wall in
+    ms."""
     from fcaf3d_tpu_torch import _native
     from fcaf3d_tpu_torch.train import create_train_state, make_train_step
 
@@ -1646,8 +1731,9 @@ def train_phase(torch, cfg, batch, device, steps=TRAIN_STEPS,
         f"peak memory {peak / 2**30:.2f} GiB; {n_conv} conv kernels with "
         f"finite non-zero gradients; launches {launches}")
     check_path_launches(launches, path)
-    return launches, check_variants(f"bf16 {path}",
-                                    ("gather_gemm", "gather_dw")), k1
+    return (launches, check_variants(f"bf16 {path}",
+                                     ("gather_gemm", "gather_dw")), k1,
+            float(np.mean(times)) * 1e3)
 
 
 def head_batch(torch, cfg, extent, b=2, boxes_per_scene=3, seed=0):
@@ -2796,7 +2882,7 @@ def other_configs_phase(torch, device):
         f"crowded scenes with yawed boxes")
     path = "fcaf3d_sunrgbd_training"
     batch = train_batch(sun, TRAIN_BATCH, seed0=0)
-    launches[path], variants[path], k1[path] = train_phase(
+    launches[path], variants[path], k1[path], _ = train_phase(
         torch, sun, batch, device, steps=SUN_TRAIN_STEPS, path=path)
     _native.reset_launches()
     compare_train_tiny(torch, device, with_yaw=True)
@@ -2945,7 +3031,7 @@ def rest_of_fcaf3d_phase(torch, cfg, scans, batch, device):
     compare_f32(torch, ref, scans[0], device)
     log(f"   -- the reference neck: bf16 training, batch {TRAIN_BATCH}")
     path = "fcaf3d_reference_training"
-    launches[path], variants[path], k1[path] = train_phase(
+    launches[path], variants[path], k1[path], _ = train_phase(
         torch, ref, batch, device, steps=REST_TRAIN_STEPS, path=path,
         on_calls=lambda calls: shape_rows(
             torch, calls, (), REFERENCE_ROWS, rows, "reference up conv"))
@@ -2969,7 +3055,7 @@ def rest_of_fcaf3d_phase(torch, cfg, scans, batch, device):
         on_calls = None if depth != 50 else (
             lambda calls: shape_rows(torch, calls, (), DEEP_ROWS, rows,
                                      "depth 50"))
-        launches[path], variants[path], k1[path] = train_phase(
+        launches[path], variants[path], k1[path], _ = train_phase(
             torch, dataclasses.replace(cfg, depth=depth), batch, device,
             steps=steps, path=path, on_calls=on_calls)
     _native.reset_launches()
@@ -3942,6 +4028,570 @@ def imvotenet_phase(torch, device):
             recs, rows)
 
 
+def gt_from_detections(root, ann, out, cfg, model, n=None, seed=0):
+    """Write to `out` the first `n` infos of `ann` with their GT replaced by
+    `model`'s own detections on each scene (the test pipeline's draw of
+    scene i, `default_rng([seed, i])`), so that an mAP comparison has
+    matches on both sides of each threshold: of the detections of at least
+    GT_MIN_VOLUME, the top one by score with its dims x 1.1 (IoU 0.75) and
+    the second with its dims x 1.5 (IoU 0.30); and one box far from the
+    scene (a miss). Raises where a scene has fewer than two such
+    detections. Returns, per scene, (detections, detections below
+    GT_MIN_VOLUME, the two detections taken [2, 7])."""
+    import pickle
+
+    import torch
+
+    from fcaf3d_tpu_torch.apis.test import (detect_batch, detections_to_numpy,
+                                            make_test_pipeline)
+    from fcaf3d_tpu_torch.data import IndoorDetDataset, collate
+
+    with open(ann, "rb") as f:
+        infos = pickle.load(f)[:n]
+    val = IndoorDetDataset(root, ann, [str(c) for c in range(cfg.n_classes)],
+                           make_test_pipeline(cfg), test_mode=True)
+    taken = []
+    for i, info in enumerate(infos):
+        s = val(i, np.random.default_rng([seed, i]))
+        batch = collate([s], cfg.num_points, cfg.max_gt_boxes)
+        with torch.inference_mode():
+            det = detections_to_numpy(
+                detect_batch(model, cfg, batch["points"], batch), 0)
+        volume = np.prod(det["boxes_3d"][:, 3:6], axis=1)
+        big = volume >= GT_MIN_VOLUME
+        top = np.argsort(-det["scores_3d"], kind="stable")
+        top = top[big[top]][:2]
+        if len(top) < 2:
+            raise AssertionError(
+                f"scene {i}: {int(big.sum())} of {len(big)} detections of at "
+                f"least {GT_MIN_VOLUME} m^3, volumes up to "
+                f"{volume.max(initial=0):.3g}")
+        taken.append((len(big), int((~big).sum()), det["boxes_3d"][top]))
+        boxes = det["boxes_3d"][top][:, :6].copy()
+        boxes[0, 3:6] *= 1.1
+        boxes[1, 3:6] *= 1.5
+        boxes = np.concatenate([boxes, [[99, 99, 0, 0.5, 0.5, 0.5]]]).astype(
+            np.float32)
+        boxes[:, 2] += boxes[:, 5] / 2  # bottom -> gravity centre
+        info["annos"].update({
+            "gt_num": 3, "gt_boxes_upright_depth": boxes,
+            "class": np.concatenate([det["labels_3d"][top], [0]])})
+    with open(out, "wb") as f:
+        pickle.dump(infos, f)
+    return taken
+
+
+class TimedLoader:
+    """A loader that records, for each epoch, how long its consumer waited
+    for each batch (`waits`, s) and the epoch's span from the first request
+    to the end of the batches (`span`, s)."""
+
+    def __init__(self, loader):
+        self.loader = loader
+        self.epochs = []
+
+    def steps_per_epoch(self):
+        return self.loader.steps_per_epoch()
+
+    def epoch(self, e):
+        rec = {"waits": []}
+        self.epochs.append(rec)
+        t0 = time.perf_counter()
+        batches = self.loader.epoch(e)
+        while True:
+            t = time.perf_counter()
+            batch = next(batches, None)
+            if batch is None:
+                break
+            rec["waits"].append(time.perf_counter() - t)
+            yield batch
+        rec["span"] = time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def recorded_step_metrics(store, k1_calls=None, conv_calls=None):
+    """Every train step that `apis.train.train_model` builds inside appends
+    its metrics (0-dim device tensors, not read: no synchronisation) to
+    `store`. With `k1_calls` and `conv_calls`, the first step runs under
+    `recorded_k1_calls` / `recorded_conv_calls`."""
+    from fcaf3d_tpu_torch.apis import train as api_train
+
+    real = api_train.make_train_step
+
+    def make(*args, **kw):
+        step = real(*args, **kw)
+
+        def recorded(batch):
+            if k1_calls is not None and not store:
+                with recorded_k1_calls(k1_calls), \
+                        recorded_conv_calls(conv_calls):
+                    metrics = step(batch)
+            else:
+                metrics = step(batch)
+            store.append(metrics)
+            return metrics
+        return recorded
+
+    api_train.make_train_step = make
+    try:
+        yield
+    finally:
+        api_train.make_train_step = real
+
+
+@contextlib.contextmanager
+def recorded_forwards(which, k1_calls, conv_calls):
+    """The forwards of `apis.test.evaluate_dataset` inside (its
+    `detect_batch` calls, counted from 0) whose index is in `which` run
+    under `recorded_k1_calls` / `recorded_conv_calls`."""
+    from fcaf3d_tpu_torch.apis import test as api_test
+
+    real = api_test.detect_batch
+    count = itertools.count()
+
+    def forward(*args, **kw):
+        if next(count) not in which:
+            return real(*args, **kw)
+        with recorded_k1_calls(k1_calls), recorded_conv_calls(conv_calls):
+            return real(*args, **kw)
+
+    api_test.detect_batch = forward
+    try:
+        yield
+    finally:
+        api_test.detect_batch = real
+
+
+def hold_recorded(torch, k1_calls, conv_calls, runs, what):
+    """`k1_path_phase` and `hold_calls_to_plain` on the calls of `runs`
+    recorded runs, each kernel of `conv_calls` called at least once.
+    Returns the K1 record."""
+    torch.cuda.synchronize()
+    empty = [k for k, v in {"searchsorted_segments": k1_calls,
+                            **conv_calls}.items() if not v]
+    if empty:
+        raise AssertionError(f"{what}: no {empty} call recorded")
+    k1 = k1_path_phase(torch, k1_calls, runs, what)
+    hold_calls_to_plain(torch, conv_calls, what)
+    return k1
+
+
+@contextlib.contextmanager
+def recorded_indoor_eval(store):
+    """Every `indoor_eval` of `apis.test.evaluate_dataset` inside appends
+    (its seconds, its GT annos, its detections) to `store`."""
+    from fcaf3d_tpu_torch.apis import test as api_test
+
+    real = api_test.indoor_eval
+
+    def timed(gt, dt, *args):
+        t0 = time.perf_counter()
+        out = real(gt, dt, *args)
+        store.append((time.perf_counter() - t0, gt, dt))
+        return out
+
+    api_test.indoor_eval = timed
+    try:
+        yield
+    finally:
+        api_test.indoor_eval = real
+
+
+def check_step_metrics(metrics, what):
+    """Finite metrics, a live box loss and zero overflow at every step."""
+    for i, m in enumerate(metrics):
+        m = {k: float(v) for k, v in m.items()}
+        if not all(np.isfinite(v) for v in m.values()) \
+                or m["loss_bbox"] <= 0 or m["overflow_max"] != 0:
+            raise AssertionError(f"{what}, step {i}: {m}")
+
+
+def platform_training(torch, cfg, train_set, val, work, bare_step_ms,
+                      device):
+    """(b) `train_model` at `cfg` for its epochs through the port's Loader
+    and an eval hook on `val`: finite losses in the log, zero overflow, one
+    checkpoint kept, meta.json, K1-K4 launched on the path's variants, and
+    the K1-K4 calls of its first step held to plain (`hold_recorded`).
+    Logs each epoch's wall, its mean step wall beside phase 6's bare step
+    and the loader's share, over all steps and over the steps after the
+    first. Returns (model, optimizer, launches, variants, K1 record)."""
+    from fcaf3d_tpu_torch import _native
+    from fcaf3d_tpu_torch.apis import train_model
+    from fcaf3d_tpu_torch.apis.test import evaluate_dataset
+    from fcaf3d_tpu_torch.data import SCANNET_CLASSES, Loader
+    from fcaf3d_tpu_torch.train import latest_epoch, load_meta
+
+    loader = TimedLoader(Loader(train_set, cfg.batch_size, cfg.num_points,
+                                cfg.max_gt_boxes))
+    evals, metrics = [], []
+
+    def hook(model, epoch):
+        t0 = time.perf_counter()
+        m = evaluate_dataset(model, val, cfg)
+        evals.append(time.perf_counter() - t0)
+        return {k: v for k, v in m.items() if k.startswith(("mAP", "mAR"))}
+
+    calls = {}
+    conv_calls = {"fused_gather_gemm": [], "fused_gather_max": [],
+                  "fused_gather_dw": []}
+    torch.cuda.synchronize()
+    _native.reset_launches()
+    t0 = time.perf_counter()
+    with recorded_step_metrics(metrics, calls, conv_calls):
+        model, opt = train_model(cfg, loader, work, eval_hook=hook,
+                                 classes=SCANNET_CLASSES, device=device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_native.LAUNCHES)
+    path = "fcaf3d_platform_training"
+    check_path_launches(launches, path)
+    variants = check_variants(f"bf16 {path}", ("gather_gemm", "gather_dw"))
+    k1 = hold_recorded(torch, calls, conv_calls, 1,
+                       f"the first batch-{cfg.batch_size} step of {path}")
+    del calls, conv_calls
+    steps = loader.steps_per_epoch()
+    if len(metrics) != steps * cfg.max_epochs:
+        raise AssertionError(f"{len(metrics)} steps, expected "
+                             f"{steps} x {cfg.max_epochs}")
+    check_step_metrics(metrics, path)
+    with open(os.path.join(work, "train_log.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    losses = [r["loss"] for r in recs if "loss" in r]
+    evals_logged = [r["eval"] for r in recs if "eval" in r]
+    if len(losses) != cfg.max_epochs or not np.isfinite(losses).all() \
+            or len(evals_logged) != cfg.max_epochs:
+        raise AssertionError(f"train_log.jsonl: {recs}")
+    meta = load_meta(work)
+    ckpts = sorted(os.listdir(os.path.join(work, "ckpts")))
+    if latest_epoch(work) != cfg.max_epochs or ckpts != [
+            f"epoch_{cfg.max_epochs}.pt", "meta.json"] \
+            or meta["classes"] != list(SCANNET_CLASSES) \
+            or meta["config"] != json.loads(json.dumps(
+                dataclasses.asdict(cfg))):
+        raise AssertionError(f"checkpoints {ckpts}, meta {meta}")
+    epoch_times = [r["epoch_time"] for r in recs if "epoch_time" in r]
+    log(f"   train_model: {cfg.max_epochs} epochs of {steps} steps at batch "
+        f"{cfg.batch_size} in {wall:.2f} s (epoch_time {epoch_times} s, "
+        f"eval hook {', '.join(f'{t:.2f}' for t in evals)} s); launches "
+        f"{launches}; losses {losses}; eval {evals_logged}")
+    for e, rec in enumerate(loader.epochs):
+        waits, span = rec["waits"], rec["span"]
+        # after the first batch: the loader's threads can work while a
+        # step runs (the first batch has no step to overlap)
+        after = span - waits[0]
+        log(f"   epoch {e + 1}: {span * 1e3:.1f} ms over {len(waits)} "
+            f"steps, {span / len(waits) * 1e3:.1f} ms a step (phase 6's "
+            f"bare step {bare_step_ms:.1f}); waited for the loader "
+            f"{sum(waits) * 1e3:.1f} ms, share {sum(waits) / span:.3f}; "
+            f"first batch {waits[0] * 1e3:.1f} ms; after it "
+            f"{after / (len(waits) - 1) * 1e3:.1f} ms a step, waited "
+            f"{sum(waits[1:]) * 1e3:.1f} ms, share "
+            f"{sum(waits[1:]) / after:.3f} (largest wait "
+            f"{max(waits[1:]) * 1e3:.1f} ms)")
+    return model, opt, launches, variants, k1
+
+
+def platform_resume(torch, cfg, train_set, work, tmp, model, opt, device):
+    """(c) The restore round trip exactly (every variable, mu, nu, count,
+    epoch), the checkpoint's bytes and save / restore ms; then 1 epoch and
+    `resume=True` to `cfg.max_epochs`: the same count and last LR as the
+    straight run, finite losses, the largest relative difference per leaf
+    logged (the card's scatter-add atomics differ run to run in the last
+    bits, so it is not gated)."""
+    from fcaf3d_tpu_torch.apis import train_model
+    from fcaf3d_tpu_torch.data import Loader
+    from fcaf3d_tpu_torch.train import (create_train_state,
+                                        restore_checkpoint, save_checkpoint)
+
+    def loader():
+        return Loader(train_set, cfg.batch_size, cfg.num_points,
+                      cfg.max_gt_boxes)
+
+    timing = os.path.join(tmp, "save_timing")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_checkpoint(timing, cfg.max_epochs, model, opt)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    nbytes = os.path.getsize(os.path.join(timing, "ckpts",
+                                          f"epoch_{cfg.max_epochs}.pt"))
+    fresh, fopt, _ = create_train_state(cfg, seed=1, device=device,
+                                        steps_per_epoch=loader()
+                                        .steps_per_epoch())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    epoch = restore_checkpoint(work, fresh, fopt)
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    same = epoch == cfg.max_epochs and fopt.count == opt.count and all(
+        torch.equal(a, b) for a, b in zip(model.state_dict().values(),
+                                          fresh.state_dict().values()))
+    same = same and all(torch.equal(opt.state[p][k], fopt.state[q][k])
+                        for p, q in zip(model.parameters(),
+                                        fresh.parameters())
+                        for k in ("mu", "nu"))
+    if not same:
+        raise AssertionError("the restored checkpoint differs from the "
+                             "trained state")
+    del fresh, fopt
+    log(f"   checkpoint: {nbytes} bytes ({nbytes / 2**20:.1f} MiB), save "
+        f"{save_ms:.1f} ms, restore {restore_ms:.1f} ms; every variable, "
+        f"mu, nu, count ({opt.count}) and epoch ({epoch}) equal after the "
+        "round trip")
+
+    resumed = os.path.join(tmp, "resumed")
+    metrics = []
+    with recorded_step_metrics(metrics):
+        train_model(dataclasses.replace(cfg, max_epochs=1), loader(),
+                    resumed, device=device)
+        rmodel, ropt = train_model(cfg, loader(), resumed, resume=True,
+                                   device=device)
+    check_step_metrics(metrics, "resumed run")
+    lr, rlr = opt.schedule(opt.count - 1), ropt.schedule(ropt.count - 1)
+    if ropt.count != opt.count or rlr != lr or not lr < cfg.lr:
+        raise AssertionError(f"resumed count {ropt.count} LR {rlr}, straight "
+                             f"count {opt.count} LR {lr}")
+    with torch.no_grad():
+        rel = sorted(((float((a - b).abs().max()
+                             / b.abs().max().clamp_min(1e-30)), n)
+                      for (n, a), b in zip(rmodel.named_parameters(),
+                                           model.parameters())),
+                     reverse=True)
+    log(f"   resume: 1 epoch, then resume=True to {cfg.max_epochs}: count "
+        f"{ropt.count} and last LR {rlr:.6g} equal to the straight run's "
+        f"(first epoch's {cfg.lr:.6g}); largest relative difference per "
+        "leaf against the straight run: "
+        + ", ".join(f"{n} {r:.3g}" for r, n in rel[:4])
+        + f"; median {rel[len(rel) // 2][0]:.3g}")
+
+
+def platform_eval(torch, cfg, val, work, device):
+    """(d) `evaluate_dataset` on the last checkpoint through
+    `init_detector(work_dir=)` in bf16, batch 1 and PLATFORM_EVAL_BATCH,
+    with and without TTA: K1-K3 launched on the path's variants, metric
+    dicts well formed. Before the timed runs, the K1-K3 calls of the first
+    batch of each size and of the flipped forwards of a TTA batch are held
+    to plain (`hold_recorded`). Logs scenes/s and `indoor_eval`'s share of
+    the wall. Returns (launches, variants, K1 records)."""
+    from fcaf3d_tpu_torch import _native
+    from fcaf3d_tpu_torch.apis import init_detector
+    from fcaf3d_tpu_torch.apis.test import FLIP_TTA, evaluate_dataset
+
+    path = "fcaf3d_platform_eval"
+    model = init_detector(cfg, work_dir=work, device=device)
+    k1 = {}
+    flipped = set(range(1, len(FLIP_TTA)))  # FLIP_TTA[0] flips nothing
+    for bs, tta, which, what in (
+            (1, False, {0}, "batch 1"),
+            (PLATFORM_EVAL_BATCH, False, {0}, f"batch {PLATFORM_EVAL_BATCH}"),
+            (1, True, flipped, "the flipped TTA forwards of batch 1")):
+        calls = {}
+        conv_calls = {"fused_gather_gemm": [], "fused_gather_max": []}
+        with recorded_forwards(which, calls, conv_calls):
+            evaluate_dataset(model, val, cfg, batch_size=bs, tta=tta,
+                             max_scenes=bs)
+        k1[what] = hold_recorded(torch, calls, conv_calls, len(which),
+                                 f"bf16 {path}, {what}")
+        del calls, conv_calls
+    torch.cuda.synchronize()
+    _native.reset_launches()
+    for tta in (False, True):
+        for bs in (1, PLATFORM_EVAL_BATCH):
+            store = []
+            t0 = time.perf_counter()
+            with recorded_indoor_eval(store):
+                m = evaluate_dataset(model, val, cfg, batch_size=bs, tta=tta)
+            wall = time.perf_counter() - t0
+            dets = [len(d["scores_3d"]) for d in store[0][2]]
+            if not all(0 <= v <= 1 for v in m.values()) \
+                    or {"mAP_0.25", "mAP_0.50"} - set(m) or 0 in dets:
+                raise AssertionError(f"eval batch {bs} tta {tta}: {m}, "
+                                     f"detections {dets}")
+            log(f"   eval batch {bs}{', TTA' if tta else ''}: {len(val)} "
+                f"scenes in {wall * 1e3:.1f} ms, "
+                f"{len(val) / wall:.2f} scenes/s; indoor_eval "
+                f"{store[0][0] * 1e3:.1f} ms, share {store[0][0] / wall:.3f}"
+                f"; detections {dets}; mAP_0.25 {m['mAP_0.25']:.4f}, "
+                f"mAP_0.50 {m['mAP_0.50']:.4f}")
+    launches = dict(_native.LAUNCHES)
+    check_path_launches(launches, path)
+    log(f"   launches over the 4 evaluations: {launches}")
+    return launches, check_variants(f"bf16 {path}", ("gather_gemm",)), k1
+
+
+def iou_ties(gt_annos, dt_annos, thresholds):
+    """(scene, detection, GT, IoU) of every detection whose IoU with a GT box
+    of its scene lies within IOU_TIE_ATOL of a threshold."""
+    from fcaf3d_tpu_torch.core.eval import pairwise_iou_3d_np
+
+    out = []
+    for i, (g, d) in enumerate(zip(gt_annos, dt_annos)):
+        iou = pairwise_iou_3d_np(d["boxes_3d"], g["gt_boxes_3d"])
+        for thr in thresholds:
+            for j, k in zip(*np.nonzero(np.abs(iou - thr) <= IOU_TIE_ATOL)):
+                out.append((i, int(j), int(k), float(iou[j, k])))
+    return out
+
+
+def platform_f32(torch, cfg, root, work, tmp, device):
+    """(d) f32: the last checkpoint on the card against the plain path on
+    the CPU on the first PLATFORM_F32_SCENES val scenes, whose GT comes
+    from the card's detections (`gt_from_detections`): the same detections,
+    centres and yaw within BOX_ATOL, dims within BOX_DIM_RTOL of their
+    size, scores within SCORE_ATOL, and the same metric dict unless an IoU
+    lies within IOU_TIE_ATOL of a threshold (then logged)."""
+    from fcaf3d_tpu_torch.apis import init_detector
+    from fcaf3d_tpu_torch.apis.test import (evaluate_dataset,
+                                            make_test_pipeline)
+    from fcaf3d_tpu_torch.data import SCANNET_CLASSES, IndoorDetDataset
+
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    card = init_detector(cfg32, work_dir=work, device=device)
+    ann = os.path.join(tmp, "f32_val.pkl")
+    taken = gt_from_detections(
+        root, os.path.join(root, "scannet_infos_val.pkl"), ann, cfg32, card,
+        n=PLATFORM_F32_SCENES)
+    for i, (n, small, boxes) in enumerate(taken):
+        log(f"   f32 scene {i}: GT from 2 of {n} card detections ({small} "
+            f"below {GT_MIN_VOLUME} m^3), dims "
+            + " / ".join(" x ".join(f"{v:.3g}" for v in b[3:6])
+                         for b in boxes))
+    val = IndoorDetDataset(root, ann, SCANNET_CLASSES,
+                           make_test_pipeline(cfg32), test_mode=True)
+    got, want = [], []
+    t0 = time.perf_counter()
+    with recorded_indoor_eval(got):
+        m_card = evaluate_dataset(card, val, cfg32)
+    t1 = time.perf_counter()
+    with recorded_indoor_eval(want):
+        m_cpu = evaluate_dataset(init_detector(cfg32, work_dir=work,
+                                               device="cpu"), val, cfg32)
+    t2 = time.perf_counter()
+    err = {"box": 0.0, "dims": 0.0, "score": 0.0}
+    for i, (g, w) in enumerate(zip(got[0][2], want[0][2])):
+        if len(g["scores_3d"]) != len(w["scores_3d"]) \
+                or not np.array_equal(g["labels_3d"], w["labels_3d"]):
+            raise AssertionError(f"f32 eval scene {i}: detections differ "
+                                 "card vs CPU")
+        gb, wb = g["boxes_3d"], w["boxes_3d"]
+        d = np.abs(gb - wb)
+        err["box"] = max(err["box"], float(np.delete(d, np.s_[3:6], axis=1)
+                                           .max(initial=0)))
+        err["dims"] = max(err["dims"], float(
+            (d[:, 3:6] / np.abs(wb[:, 3:6])).max(initial=0)))
+        err["score"] = max(err["score"], float(np.abs(
+            g["scores_3d"] - w["scores_3d"]).max(initial=0)))
+    if err["box"] > BOX_ATOL or err["dims"] > BOX_DIM_RTOL \
+            or err["score"] > SCORE_ATOL:
+        raise AssertionError(f"f32 eval: {err} (limits: centres and yaw "
+                             f"{BOX_ATOL}, dims {BOX_DIM_RTOL} of their "
+                             f"size, scores {SCORE_ATOL})")
+    if m_card != m_cpu:
+        ties = iou_ties(got[0][1], got[0][2], (0.25, 0.5))
+        diff = {k: (m_card[k], m_cpu[k]) for k in m_card
+                if m_card[k] != m_cpu[k]}
+        if not ties:
+            raise AssertionError(f"f32 eval: metrics differ card vs CPU "
+                                 f"{diff} with no IoU at a threshold")
+        log(f"   f32 eval: metrics differ {diff} at IoU ties {ties}")
+    log(f"   f32 eval of {len(val)} scenes, card {(t1 - t0) * 1e3:.1f} ms, "
+        f"CPU {(t2 - t1) * 1e3:.1f} ms: "
+        f"{[len(d['scores_3d']) for d in got[0][2]]} detections equal "
+        f"(centre and yaw err {err['box']:.3g} m, tol {BOX_ATOL}; dims "
+        f"{err['dims']:.3g} of their size, tol {BOX_DIM_RTOL}; score err "
+        f"{err['score']:.3g}, tol {SCORE_ATOL}); metrics "
+        f"{'equal' if m_card == m_cpu else 'differ at ties'}: "
+        + ", ".join(f"{k} {v:.4g}" for k, v in m_card.items()
+                    if k.startswith(("mAP", "mAR"))))
+
+
+def run_tool(tool, *args):
+    """`python -m fcaf3d_tpu_torch.tools.<tool> args` from the repository
+    root; raises unless it exits 0. Returns (stdout, seconds)."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m",
+                          f"fcaf3d_tpu_torch.tools.{tool}", *args], cwd=REPO,
+                         capture_output=True, text=True, timeout=600)
+    if out.returncode != 0:
+        raise AssertionError(f"tools.{tool} exited {out.returncode}:\n"
+                             f"{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+    return out.stdout, time.perf_counter() - t0
+
+
+def platform_clis(root, work, tmp, device):
+    """(e) The three CLIs as subprocesses on the card: `tools.test --tta
+    --out` prints the mAP keys and writes its JSON, `tools.pcd_demo` writes
+    its .obj files, `tools.train --epochs 1` exits 0 with a checkpoint."""
+    out_json = os.path.join(tmp, "m.json")
+    out, dt = run_tool("test", "--dataset", "scannet", "--data-root", root,
+                       "--work-dir", work, "--tta", "--out", out_json,
+                       "--device", device)
+    with open(out_json) as f:
+        metrics = json.load(f)
+    if not all(f"{k}: " in out for k in ("mAP_0.25", "mAP_0.50")) \
+            or {"mAP_0.25", "mAP_0.50"} - set(metrics):
+        raise AssertionError(f"tools.test printed {out!r}")
+    log(f"   tools.test --tta: {dt:.1f} s, mAP_0.25 "
+        f"{metrics['mAP_0.25']:.4f}, mAP_0.50 {metrics['mAP_0.50']:.4f}")
+    demo = os.path.join(tmp, "demo")
+    out, dt = run_tool("pcd_demo", os.path.join(root, "points",
+                                                "val_00000.bin"),
+                       "--work-dir", work, "--out-dir", demo,
+                       "--score-thr", "0.1", "--device", device)
+    objs = sorted(os.listdir(demo))
+    if "val_00000_points.obj" not in objs:
+        raise AssertionError(f"tools.pcd_demo wrote {objs}: {out!r}")
+    log(f"   tools.pcd_demo: {dt:.1f} s, {out.splitlines()[0]}, wrote {objs}")
+    cli_work = os.path.join(tmp, "cli_train")
+    out, dt = run_tool("train", "--dataset", "scannet", "--data-root", root,
+                       "--work-dir", cli_work, "--batch", str(TRAIN_BATCH),
+                       "--epochs", "1", "--device", device)
+    ckpts = sorted(os.listdir(os.path.join(cli_work, "ckpts")))
+    if ckpts != ["epoch_1.pt", "meta.json"] or "[eval epoch 1]" not in out:
+        raise AssertionError(f"tools.train: {ckpts}, {out[-2000:]!r}")
+    log(f"   tools.train --epochs 1 --batch {TRAIN_BATCH}: {dt:.1f} s, "
+        f"{out.strip().splitlines()[-1]}")
+
+
+def platform_phase(torch, cfg, bare_step_ms, device):
+    """Phase 13: the train -> checkpoint -> evaluate platform at `cfg`'s
+    widths and budgets on a ScanNet-layout dataset written to a temporary
+    directory. Returns launches, launches by variant and K1 records of the
+    training path (with its eval hook) and of the evaluation path."""
+    import tempfile
+
+    from fcaf3d_tpu_torch.tools.train import build_datasets
+
+    tcfg = dataclasses.replace(cfg, max_epochs=2, lr_steps=(1,),
+                               batch_size=TRAIN_BATCH)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_platform_") as tmp:
+        root = os.path.join(tmp, "scannet")
+        t0 = time.perf_counter()
+        write_scannet_root(root, *PLATFORM_SCENES, cfg.n_classes)
+        log(f"   -- (a) {PLATFORM_SCENES[0]} train and {PLATFORM_SCENES[1]} "
+            f"val scenes of {TRAIN_BOXES} boxes, {SCAN_POINTS} points, "
+            f"written in {time.perf_counter() - t0:.2f} s")
+        # tools/train.py's ScanNet pipelines and its 10 repeats
+        _, train_set, val = build_datasets("scannet", root, tcfg)
+        work = os.path.join(tmp, "work")
+        log(f"   -- (b) train_model: {tcfg.max_epochs} epochs, LR x0.1 "
+            f"after the first, batch {TRAIN_BATCH}, bf16, eval hook")
+        model, opt, l_tr, v_tr, k1_tr = platform_training(
+            torch, tcfg, train_set, val, work, bare_step_ms, device)
+        log("   -- (c) restore and resume")
+        platform_resume(torch, tcfg, train_set, work, tmp, model, opt,
+                        device)
+        del model, opt
+        log(f"   -- (d) evaluate_dataset through init_detector(work_dir=), "
+            f"bf16, batch 1 and {PLATFORM_EVAL_BATCH}, with and without TTA")
+        l_ev, v_ev, k1_ev = platform_eval(torch, tcfg, val, work, device)
+        platform_f32(torch, tcfg, root, work, tmp, device)
+        log("   -- (e) the CLIs as subprocesses on the card")
+        platform_clis(root, work, tmp, device)
+    return ({"fcaf3d_platform_training": l_tr, "fcaf3d_platform_eval": l_ev},
+            {"fcaf3d_platform_training": v_tr, "fcaf3d_platform_eval": v_ev},
+            {"fcaf3d_platform_training": k1_tr, "fcaf3d_platform_eval": k1_ev})
+
+
 KERNELS = (
     ("searchsorted", "fcaf3d_tpu_torch/csrc/search.cu",
      "fcaf3d_tpu/ops/sparse/search.py:149"),
@@ -4001,8 +4651,8 @@ def main():
     rec["gather_gemm"]["f32_scan"] = compare_f32(torch, cfg, scans[0], "cuda")
     log(f"== 6 training: fcaf3d_scannet, bf16, batch {TRAIN_BATCH}, "
         f"{cfg.num_points} points per scan")
-    train_launches, train_variants, k1_train = train_phase(torch, cfg, batch,
-                                                           "cuda")
+    train_launches, train_variants, k1_train, step_ms = train_phase(
+        torch, cfg, batch, "cuda")
     _native.reset_launches()
     compare_train_tiny(torch, "cuda")
     compare_train_f32(torch, cfg, "cuda")
@@ -4053,6 +4703,12 @@ def main():
     for kernel, r in iv_rows.items():
         rec[kernel]["aggregation_shapes"] = r
     rec["fps"]["imvotenet"] = iv_recs
+    log("== 13 the platform: fcaf3d_scannet, ScanNet-layout dataset, "
+        f"train_model (bf16, batch {TRAIN_BATCH}, 2 epochs), checkpoints, "
+        "resume, evaluate_dataset with TTA, f32 card vs CPU, the CLIs")
+    pf_launches, pf_variants, pf_k1 = platform_phase(torch, cfg, step_ms,
+                                                     "cuda")
+    rec["searchsorted"]["path_calls"].update(pf_k1)
     log(f"== all phases passed in {time.perf_counter() - t_start:.1f} s")
     for what, ms, first, second in NOT_FASTER:
         log(f"   not faster than a yardstick: {what}: kernel {ms:.4f} ms, "
@@ -4060,11 +4716,13 @@ def main():
     by_path = {"fcaf3d_inference": infer_launches,
                "fcaf3d_training": train_launches,
                "votenet_inference": vote_launches, **other_launches,
-               **rest_launches, **vt_launches, **iv_launches}
+               **rest_launches, **vt_launches, **iv_launches,
+               **pf_launches}
     variants = {"fcaf3d_inference": infer_variants,
                 "fcaf3d_training": train_variants,
                 "votenet_inference": vote_variants, **other_variants,
-                **rest_variants, **vt_variants, **iv_variants}
+                **rest_variants, **vt_variants, **iv_variants,
+                **pf_variants}
     kernels = []
     for name, src, tpu in KERNELS:
         k = {"name": name, "route": "cuda", "source": src, "replaces": tpu,

@@ -25,19 +25,27 @@ from ..params import (
     init_votenet_variables,
     load_variables,
 )
+from ..train.checkpoint import restore_checkpoint
 from .test import detections_to_numpy
 
 
 def init_detector(cfg: FCAF3DConfig, seed: int = 0,
                   params_file: Optional[str] = None,
-                  device="cuda") -> FCAF3D:
+                  device="cuda", work_dir: Optional[str] = None) -> FCAF3D:
     """Build a detector in eval mode on `device`, with the weights of a
     converted-checkpoint pickle (`{"params", "batch_stats"}` numpy tree in
-    the flax layout, `tools/convert_checkpoint.py`) or, without one, the
+    the flax layout, `tools/convert_checkpoint.py`), of the latest
+    checkpoint of a training run's `work_dir`, or, with neither, the
     seeded numpy draw of `params.init_variables`."""
+    if params_file is not None and work_dir is not None:
+        raise ValueError("init_detector takes params_file or work_dir, "
+                         "not both")
     model = FCAF3D(cfg, device=device)
-    load_variables(model, _variables(params_file,
-                                     lambda: init_variables(cfg, seed)))
+    if work_dir is not None:
+        restore_checkpoint(work_dir, model)
+    else:
+        load_variables(model, _variables(params_file,
+                                         lambda: init_variables(cfg, seed)))
     return model.eval()
 
 

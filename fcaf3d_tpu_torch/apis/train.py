@@ -1,8 +1,9 @@
-"""Epoch loop with JSON-line logging (port of the loop of
-`fcaf3d_tpu/apis/train.py`). Checkpoints, `resume`, `load_from` and the
-eval hook are not ported yet."""
+"""The training loop (port of `fcaf3d_tpu/apis/train.py`): epochs of train
+steps, JSON-line logging (the analog of `TextLoggerHook`), a checkpoint
+after every epoch, `resume` / `load_from` and an optional eval hook."""
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import time
@@ -11,43 +12,66 @@ from typing import Callable, Optional
 import numpy as np
 
 from ..configs.fcaf3d import FCAF3DConfig
+from ..train.checkpoint import (latest_epoch, load_params,
+                                restore_checkpoint, save_checkpoint,
+                                save_meta)
 from ..train.trainer import create_train_state, make_train_step
 
 
 def train_model(cfg: FCAF3DConfig, loader, work_dir: str, seed: int = 0,
                 log_interval: int = 50, eval_hook: Optional[Callable] = None,
                 resume: bool = False, load_from: Optional[str] = None,
-                device="cuda"):
+                classes: Optional[tuple] = None, device="cuda"):
     """Train FCAF3D for `cfg.max_epochs` epochs on `device`; returns
     (model, optimizer).
 
-    `loader` is any object with `steps_per_epoch()` and `epoch(e)` yielding
-    batch dicts (as `fcaf3d_tpu.data.loader.Loader` does). Every
-    `log_interval` steps and at the end of an epoch a record {epoch, iter,
-    total, time, <metrics>} is appended to `work_dir/train_log.jsonl`, and
-    after each epoch {epoch, epoch_time}, as the JAX loop writes them.
-    Raises NotImplementedError for `eval_hook`, `resume` and `load_from`.
+    `loader` has `steps_per_epoch()` and `epoch(e)` yielding batch dicts
+    (`data.loader.Loader`). Before the first step the run's metadata
+    (`classes`, the config, its class name and `seed`) goes to
+    `work_dir/ckpts/meta.json`. Every `log_interval` steps and at the end
+    of an epoch a record {epoch, iter, total, time, <metrics>} is appended
+    to `work_dir/train_log.jsonl`; after each epoch a checkpoint is saved,
+    then {epoch, epoch_time} is logged, then `eval_hook(model, epoch)`
+    runs and {epoch, eval: its result} is logged.
+
+    `resume` continues from the latest checkpoint of `work_dir` (if any)
+    at its epoch boundary; `load_from` (a work dir; ignored with `resume`)
+    loads another run's weights only (`train.checkpoint.load_params`).
     """
-    if eval_hook is not None or resume or load_from:
-        raise NotImplementedError(
-            "eval_hook, resume and load_from need checkpoints, which the "
-            "port does not save yet")
     os.makedirs(work_dir, exist_ok=True)
+    save_meta(work_dir, {
+        "classes": list(classes) if classes is not None else None,
+        "config": dataclasses.asdict(cfg),
+        "config_class": type(cfg).__name__,
+        "seed": seed,
+    })
     log_path = os.path.join(work_dir, "train_log.jsonl")
+    # the LR boundaries are epochs of this loader's steps: a resumed run
+    # must count steps the same way
     steps_per_epoch = loader.steps_per_epoch()
     model, opt, _ = create_train_state(cfg, seed, device, steps_per_epoch)
     step_fn = make_train_step(model, cfg, opt)
+
+    start_epoch = 0
+    if load_from and not resume:
+        load_params(load_from, model)
+        print(f"loaded weights from {load_from}")
+    if resume and latest_epoch(work_dir) is not None:
+        start_epoch = restore_checkpoint(work_dir, model, opt)
+        print(f"resumed from epoch {start_epoch}")
 
     def log(record):
         with open(log_path, "a") as f:
             f.write(json.dumps(record) + "\n")
 
-    for epoch in range(cfg.max_epochs):
+    for epoch in range(start_epoch, cfg.max_epochs):
         t_epoch = time.time()
         window = []
         for i, batch in enumerate(loader.epoch(epoch)):
             t0 = time.time()
             metrics = step_fn(batch)
+            # the metrics are device tensors: reading them waits for the
+            # step, so only the logged steps do
             if (i + 1) % log_interval == 0 or i + 1 == steps_per_epoch:
                 metrics = {k: float(v) for k, v in metrics.items()}
                 window.append(time.time() - t0)
@@ -62,6 +86,9 @@ def train_model(cfg: FCAF3DConfig, loader, work_dir: str, seed: int = 0,
                 log(rec)
             else:
                 window.append(time.time() - t0)
+        save_checkpoint(work_dir, epoch + 1, model, opt)
         log({"epoch": epoch + 1,
              "epoch_time": round(time.time() - t_epoch, 1)})
+        if eval_hook is not None:
+            log({"epoch": epoch + 1, "eval": eval_hook(model, epoch + 1)})
     return model, opt

@@ -9,6 +9,7 @@ from .fcaf3d import (  # noqa: F401
     fcaf3d_sunrgbd,
     fcaf3d_tiny,
 )
+from .override import add_set_argument, apply_overrides  # noqa: F401
 from .votenet import (  # noqa: F401
     VoteNetConfig,
     votenet_sunrgbd,

@@ -6,6 +6,8 @@ dy, dz, yaw); `gravity_center` lifts z by dz / 2.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 
@@ -72,3 +74,17 @@ def points_in_boxes(points: torch.Tensor, boxes7: torch.Tensor
     local = rotate_points_z(shift.transpose(-3, -2), -boxes7[..., 6])
     half = boxes7[..., None, :, 3:6] * 0.5
     return (local.transpose(-3, -2).abs() < half).all(-1)
+
+
+def flip_box7(boxes7: torch.Tensor, axis: str) -> torch.Tensor:
+    """BEV flip of boxes [..., 7]: "horizontal" negates x and maps the yaw
+    to pi - yaw, "vertical" negates y and the yaw (`DepthInstance3DBoxes.
+    flip`)."""
+    x, y, z, dx, dy, dz, yaw = boxes7.split(1, dim=-1)
+    if axis == "horizontal":
+        x, yaw = -x, math.pi - yaw
+    elif axis == "vertical":
+        y, yaw = -y, -yaw
+    else:
+        raise ValueError(axis)
+    return torch.cat([x, y, z, dx, dy, dz, yaw], dim=-1)

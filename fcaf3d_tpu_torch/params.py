@@ -212,3 +212,18 @@ def load_variables(model: torch.nn.Module, variables: Mapping) -> None:
                 raise ValueError(f"{name}: shape {tuple(src.shape)}, model "
                                  f"wants {tuple(state[name].shape)}")
             state[name].copy_(src)
+
+
+def export_variables(model: torch.nn.Module) -> dict:
+    """The inverse of `load_variables`: the model's `{"params",
+    "batch_stats"}` tree in the flax layout, numpy float32 leaves on the
+    host (`load_variables(m, export_variables(m))` changes nothing)."""
+    names = {n for n, _ in model.named_parameters()}
+    params, stats = {}, {}
+    for name, value in model.state_dict().items():
+        leaf = value.detach().to("cpu", torch.float32).numpy().copy()
+        (params if name in names else stats)[name] = leaf
+    tree = {"params": _nest(params)}
+    if stats:
+        tree["batch_stats"] = _nest(stats)
+    return tree

@@ -1,4 +1,5 @@
-"""Training of the port: optimizer, schedule and the train step."""
+"""Training of the port: optimizer, schedule, the train steps and
+checkpoints."""
 from .optim import (  # noqa: F401
     ClipAdamW,
     constant_schedule,
@@ -15,4 +16,12 @@ from .trainer import (  # noqa: F401
     make_train_step,
     make_votenet_train_step,
     make_votenet_v1_train_step,
+)
+from .checkpoint import (  # noqa: F401
+    latest_epoch,
+    load_meta,
+    load_params,
+    restore_checkpoint,
+    save_checkpoint,
+    save_meta,
 )

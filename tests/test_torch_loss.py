@@ -281,6 +281,10 @@ def test_train_model_writes_the_jax_records(tmp_path):
         [sorted(r) for r in records["jax"]]
     assert len(records["port"]) == 4
     assert all(np.isfinite(r["loss"]) for r in records["port"] if "loss" in r)
-    with pytest.raises(NotImplementedError):
-        train_model(cfg, loader(), str(tmp_path / "x"), resume=True,
-                    device="cpu")
+    # resuming the finished run restores its last checkpoint and takes no
+    # further step
+    _, opt = train_model(cfg, loader(), str(tmp_path / "port"), resume=True,
+                         device="cpu")
+    assert opt.count == 2
+    with open(tmp_path / "port" / "train_log.jsonl") as f:
+        assert len(f.readlines()) == 4
