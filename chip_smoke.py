@@ -213,6 +213,39 @@ Phases (any failure raises and the script exits non-zero):
    IOU_TIE_ATOL of a threshold. (e) `python -m fcaf3d_tpu_torch.tools.test
    --tta --out`, `tools.pcd_demo` and `tools.train --epochs 1` as
    subprocesses on the card, exit 0 with their metric keys and files.
+14. The rest of the platform's tools at full widths, on datasets in the
+   reference's prepared SUN RGB-D layout written to a temporary directory
+   (`write_sunrgbd_root`: 32 of phase 6's crowded scenes with yawed boxes;
+   16 `imvote_frame` frames with their clouds, calibration and 2D boxes,
+   the images as `.npy`, read through `tools.train_detector2d.read_image`
+   pointed at them). (a) `tools.train_votenet` in process for 1 epoch of
+   TOOL_STEPS steps at batch 16, head v2 then v1: finite metrics and live
+   vote and centre losses at every step, the log record, 5 K5 on the
+   cluster kernel and 5 K6 on the tiled kernel a step, the first step's
+   calls `torch.equal` to plain, the checkpoint restored exactly; each
+   step's wall beside phase 11's bare step and the loader's share. (b)
+   `tools.train_detector2d` for 1 epoch of TOOL_STEPS steps at batch 8:
+   finite losses, `detector2d.pkl` equal to the trained model and loaded
+   by `init_detector2d(params_file=)`, whose `extract_bboxes_2d` gives the
+   in-memory model's boxes. (c) `tools.train_imvotenet` with (b)'s pickle,
+   then with `--gt-boxes-2d`, each 1 epoch of TOOL_STEPS steps at batch
+   8: 7 K5 and 7 K6 a step on their variants, the first step's calls held
+   to plain, `imvotenet.pkl` through `init_imvotenet(params_file=)` giving
+   the trained model's predictions bitwise, `inference_imvotenet` on it.
+   (d) The converter: the seeded variables of `fcaf3d_scannet`,
+   `votenet_sunrgbd` and ImVoteNet written under the reference's names and
+   layouts (`reference_state_dict`: ME-order kernels, 1x1 conv weights),
+   `torch.save`d with an mmcv-style meta and converted by `python -m
+   fcaf3d_tpu_torch.tools.convert_checkpoint` as subprocesses, each pickle
+   equal to those variables; the converted stem conv's ME-order taps on
+   the card against a dense float64 conv (the impulse); FCAF3D through
+   `init_detector(params_file=)` as phase 5 runs it on two scans and one
+   f32 scan card vs CPU; one VoteNet scan and one ImVoteNet frame (5 K5 +
+   5 K6, held to plain). (e) `tools.fuse_conv_bn` in process on a work
+   dir of the converted weights: every BatchNorm fused, count 0 and zero
+   moments; the fused model's f32 detections within FUSE_ATOL of the
+   unfused; bf16 inference on the path's variants; `tools.publish_model`:
+   the hash-named pickle gives bitwise the fused work dir's detections.
 
 Output: progress lines, then a JSON line of per-kernel results (launches
 of each main path: FCAF3D inference, FCAF3D training, VoteNet inference,
@@ -220,8 +253,9 @@ the inference of each phase-9 config and SUN RGB-D training, phase
 10's reference-neck and depth-50 / 101 inference and training and
 `voxelize_reduce`, phase 11's VoteNet-v2 training and v1 inference
 and training of both configs, phase 12's ImVoteNet inference and
-training, and phase 13's platform training (with its eval hook) and
-evaluation;
+training, phase 13's platform training (with its eval hook) and
+evaluation, and phase 14's tool loops (VoteNet v2 / v1, ImVoteNet with
+extracted and GT 2D boxes) and converted, fused and published inference;
 K1-K6 also by variant; the recorded shape's times, bound and share; K1 at
 every distinct call of the two FCAF3D paths, K2 at every f32 path shape and
 over the f32 scan, K3 at both stem pool maps, K6 at every VoteNet shape,
@@ -346,6 +380,12 @@ BOX_DIM_RTOL = 1e-3
 # `indoor_eval`'s floor under an IoU's union (m^3): a GT box made from a
 # detection at least this large has its true IoU with that detection
 GT_MIN_VOLUME = 1e-8
+# phase 14: the platform's other tools at full widths: each train loop runs
+# 1 epoch of TOOL_STEPS steps (VoteNet at batch 16, Detector2D and ImVoteNet
+# at IMVOTE_TRAIN_BATCH); the fused model's f32 detections within FUSE_ATOL
+# of the unfused model's (the JAX package's fuse test's tolerance)
+TOOL_STEPS = 2
+FUSE_ATOL = 1e-4
 # published dense peaks of one H100 SXM: a kernel's bound is the larger of
 # its operations over the peak of their type (bf16 on the tensor cores;
 # float32 and integer work on the CUDA cores) and its bytes over the memory
@@ -415,6 +455,14 @@ PATH_KERNELS = {
     "imvotenet_training": ("fps", "ball_query"),
     "fcaf3d_platform_training": TRAINING_KERNELS,
     "fcaf3d_platform_eval": INFERENCE_KERNELS,
+    "votenet_tool_training": ("fps", "ball_query"),
+    "votenet_v1_tool_training": ("fps", "ball_query"),
+    "imvotenet_tool_training_detector2d": ("fps", "ball_query"),
+    "imvotenet_tool_training_gt": ("fps", "ball_query"),
+    "converted_fcaf3d_inference": INFERENCE_KERNELS,
+    "converted_votenet_inference": ("fps", "ball_query"),
+    "converted_imvotenet_inference": ("fps", "ball_query"),
+    "fused_fcaf3d_inference": INFERENCE_KERNELS,
 }
 
 
@@ -1054,13 +1102,14 @@ def k2_timing(torch, feats, idx, w, kw, dname):
     return rec
 
 
-def compare_f32(torch, cfg, points, device):
+def compare_f32(torch, cfg, points, device, params_file=None):
     """One scan in f32: the card against the plain path on the CPU (voxel
     keys and backbone maps exactly; with the reference neck its child maps
     exactly and its pruned maps by `check_reference_neck`; every BEV NMS
     keep mask exactly, detections within BOX_ATOL / SCORE_ATOL), every f32
     K2 launch on the narrow and tiled kernels and every K1 launch on the
-    gallop kernel. Returns the scan's K2 device time (`k2_scan_times`)."""
+    gallop kernel; the weights of both the seeded draw or `params_file`'s.
+    Returns the scan's K2 device time (`k2_scan_times`)."""
     from fcaf3d_tpu_torch import _native
     from fcaf3d_tpu_torch.apis import inference_detector, init_detector
 
@@ -1073,7 +1122,7 @@ def compare_f32(torch, cfg, points, device):
             raise AssertionError(f"f32 slice: {name} differs card vs CPU")
     log(f"   f32: voxel keys and {len(gpu_maps) - 1} backbone maps equal "
         "card vs CPU")
-    model = init_detector(cfg32, 0, device=device)
+    model = init_detector(cfg32, 0, params_file, device=device)
     _native.reset_launches()
     k2_calls, keep_got, keep_want = {"fused_gather_gemm": []}, [], []
     neck_got, neck_want = [], []
@@ -1083,7 +1132,7 @@ def compare_f32(torch, cfg, points, device):
     check_variants(f"f32 inference scan, {cfg.n_classes} classes", f32=True)
     with recorded_nms(keep_want), recorded_reference_neck(neck_want):
         want, want_ovf = inference_detector(
-            init_detector(cfg32, 0, device="cpu"), points)
+            init_detector(cfg32, 0, params_file, device="cpu"), points)
     if cfg.neck_mode == "reference":
         check_reference_neck(torch, neck_got, neck_want, "f32 reference scan")
     if len(keep_got) != len(keep_want) or not all(
@@ -1343,18 +1392,20 @@ def k2_scan_times(torch, calls, what):
 
 
 def slice_phase(torch, cfg, scans, device, path="fcaf3d_inference",
-                on_calls=None):
+                on_calls=None, params_file=None):
     """bf16 inference on every scan after a warm-up scan whose K1 calls are
     checked and timed (`k1_path_phase`) and whose K2 and K3 calls are held
     to their plain versions (`hold_calls_to_plain`), then handed to
     `on_calls` if given; zero overflow and well-formed detections (with
-    rotated boxes, some yaw non-zero) on every scan. Returns launches per
+    rotated boxes, some yaw non-zero) on every scan. The weights are the
+    seeded draw or, with `params_file`, that pickle's. Returns launches per
     kernel, the launches by variant (`check_variants`) and the K1
     record."""
     from fcaf3d_tpu_torch import _native
     from fcaf3d_tpu_torch.apis import inference_detector, init_detector
 
-    model = init_detector(cfg, seed=0, device=device)
+    model = init_detector(cfg, seed=0, params_file=params_file,
+                          device=device)
     calls = {}
     conv_calls = {"fused_gather_gemm": [], "fused_gather_max": []}
     with recorded_k1_calls(calls), recorded_conv_calls(conv_calls):
@@ -1669,6 +1720,180 @@ def write_scannet_root(root, n_train, n_val, n_classes, n_boxes=TRAIN_BOXES,
         with open(os.path.join(root, f"scannet_infos_{split}.pkl"),
                   "wb") as f:
             pickle.dump(infos, f)
+
+
+def write_sunrgbd_root(root, scenes, image_suffix=".jpg"):
+    """A SUN RGB-D train split in the reference's prepared layout under
+    `root`: `sunrgbd_infos_train.pkl` and one float32 [N, 6] `.bin` a scene
+    (xyz + rgb, zero colours where the scene has none), its info with
+    gravity-centred `gt_boxes_upright_depth`, `class` and `gt_num`. A
+    scene with an "image" also gets the image file (`image_suffix` ".jpg"
+    through Pillow, or ".npy"), its `calib` and the 2D boxes `annos.bbox`,
+    one a 3D box. `scenes`: dicts {points [N, 3|6], gt_boxes [n, 7]
+    bottom-centred, gt_labels [n]} and optionally {image [H, W, 3], calib,
+    bbox [n, 4] xyxy}."""
+    import pickle
+
+    os.makedirs(os.path.join(root, "points"), exist_ok=True)
+    os.makedirs(os.path.join(root, "image"), exist_ok=True)
+    infos = []
+    for i, sc in enumerate(scenes):
+        pts = np.zeros((len(sc["points"]), 6), np.float32)
+        pts[:, :sc["points"].shape[1]] = sc["points"]
+        rel = f"points/{i:06d}.bin"
+        pts.tofile(os.path.join(root, rel))
+        boxes = np.asarray(sc["gt_boxes"], np.float32).copy()
+        boxes[:, 2] += boxes[:, 5] / 2  # bottom -> gravity centre
+        info = {"pts_path": rel, "annos": {
+            "gt_num": len(boxes), "gt_boxes_upright_depth": boxes,
+            "class": np.asarray(sc["gt_labels"], np.int64)}}
+        if "image" in sc:
+            img = f"image/{i:06d}{image_suffix}"
+            if image_suffix == ".npy":
+                np.save(os.path.join(root, img), sc["image"])
+            else:
+                from PIL import Image
+
+                Image.fromarray(sc["image"].astype(np.uint8)).save(
+                    os.path.join(root, img))
+            info["image"] = {"image_path": img}
+            info["calib"] = sc["calib"]
+            info["annos"]["bbox"] = np.asarray(sc["bbox"], np.float32)
+        infos.append(info)
+    with open(os.path.join(root, "sunrgbd_infos_train.pkl"), "wb") as f:
+        pickle.dump(infos, f)
+
+
+def frame_scene(frame):
+    """An `imvote_frame` as a `write_sunrgbd_root` scene: the GT boxes that
+    have a 2D box, with it."""
+    idx = frame["boxes2d_index"]
+    return {"points": frame["points"], "image": frame["image"],
+            "calib": frame["calib"], "gt_boxes": frame["gt_boxes"][idx],
+            "gt_labels": frame["gt_labels"][idx],
+            "bbox": frame["boxes2d"][:, :4]}
+
+
+def read_npy_image(path, hw):
+    """`tools.train_detector2d.read_image` for `.npy` frames already at
+    `hw`: (float32 [H, W, 3], (width, height))."""
+    img = np.load(path).astype(np.float32)
+    if img.shape[:2] != tuple(hw):
+        raise AssertionError(f"{path}: frame {img.shape}, expected {hw}")
+    return img, (hw[1], hw[0])
+
+
+def crowded_scenes(n, cfg, seed0=0):
+    """`train_batch`'s crowded scenes (yawed boxes with `cfg.with_yaw`) as
+    `write_sunrgbd_root` scenes: 50 000 raw points, xyz + rgb."""
+    from fcaf3d_tpu_torch.data.synth import crowded_scene, densify
+
+    out = []
+    for i in range(n):
+        rng = np.random.default_rng(seed0 + i)
+        out.append(densify(crowded_scene(TRAIN_BOXES, cfg.n_classes, rng,
+                                         extent=5.0, with_yaw=cfg.with_yaw),
+                           TRAIN_BOX_POINTS, TRAIN_FLOOR_POINTS, rng))
+    return out
+
+
+def _me_order(kernel):
+    """A [K^3, Cin, Cout] kernel in the framework's offset order (x
+    slowest) written in MinkowskiEngine's (x fastest): the inverse of the
+    converter's permutation."""
+    from fcaf3d_tpu_torch.tools.convert_checkpoint import me_offset_permutation
+
+    if kernel.shape[0] not in (8, 27):
+        return kernel
+    k = round(kernel.shape[0] ** (1 / 3))
+    out = np.empty_like(kernel)
+    out[me_offset_permutation(k)] = kernel
+    return out
+
+
+def reference_state_dict(variables, model):
+    """A state dict with the reference's module names and tensor layouts
+    (MinkowskiEngine kernels [K^3, Cin, Cout] in ME's offset order, 1x1
+    conv weights [out, in, 1(, 1)]) holding the flax-layout `variables` of
+    the port's FCAF3D at depth 34 (`model` "fcaf3d"), VoteNet-v2
+    ("votenet") or ImVoteNet ("imvotenet"): the input of
+    `tools/convert_checkpoint.py`, written independently of it from the
+    reference's names. The converter must give `variables` back."""
+    from fcaf3d_tpu_torch.params import flatten
+
+    p = flatten(variables["params"])
+    b = flatten(variables.get("batch_stats", {}))
+    sd = {}
+
+    def bn(dst, src):
+        sd[f"{dst}.weight"] = p[f"{src}.scale"]
+        sd[f"{dst}.bias"] = p[f"{src}.bias"]
+        sd[f"{dst}.running_mean"] = b[f"{src}.mean"]
+        sd[f"{dst}.running_var"] = b[f"{src}.var"]
+
+    def conv(dst, src):
+        sd[dst] = _me_order(p[f"{src}.kernel"])
+
+    if model == "fcaf3d":
+        conv("backbone.conv1.0.kernel", "backbone.conv1")
+        sd["backbone.conv1.1.weight"] = p["backbone.norm1.scale"]
+        sd["backbone.conv1.1.bias"] = p["backbone.norm1.bias"]
+        for i, n_blocks in enumerate((3, 4, 6, 3)):
+            for j in range(n_blocks):
+                src, dst = f"backbone.layer{i + 1}_{j}", \
+                    f"backbone.layer{i + 1}.{j}"
+                for c in (1, 2):
+                    conv(f"{dst}.conv{c}.kernel", f"{src}.conv{c}")
+                    bn(f"{dst}.norm{c}", f"{src}.norm{c}")
+                if f"{src}.downsample_conv.kernel" in p:
+                    conv(f"{dst}.downsample.0.kernel",
+                         f"{src}.downsample_conv")
+                    bn(f"{dst}.downsample.1.bn", f"{src}.downsample_norm")
+        h = "neck_with_head"
+        for i in range(1, 4):
+            conv(f"{h}.up_block_{i}.0.kernel", f"{h}.up_block_{i}_tr")
+            bn(f"{h}.up_block_{i}.1.bn", f"{h}.up_block_{i}_bn1")
+            conv(f"{h}.up_block_{i}.3.kernel", f"{h}.up_block_{i}_conv")
+            bn(f"{h}.up_block_{i}.4.bn", f"{h}.up_block_{i}_bn2")
+        for i in range(4):
+            conv(f"{h}.out_block_{i}.0.kernel", f"{h}.out_block_{i}_conv")
+            bn(f"{h}.out_block_{i}.1.bn", f"{h}.out_block_{i}_bn")
+            sd[f"{h}.scales.{i}.scale"] = p[f"{h}.scale_{i}"].reshape(1)
+        for name in ("centerness_conv", "reg_conv", "cls_conv"):
+            conv(f"{h}.{name}.kernel", f"{h}.{name}")
+        sd[f"{h}.cls_conv.bias"] = p[f"{h}.cls_conv.bias"]
+        return sd
+
+    def dense(dst, src, ndim):
+        w = p[f"{src}.kernel"].T
+        sd[f"{dst}.weight"] = w.reshape(w.shape + (1,) * (ndim - 2))
+        sd[f"{dst}.bias"] = p[f"{src}.bias"]
+
+    def dense_bn(dst, src, ndim):
+        dense(f"{dst}.conv", f"{src}.Dense_0", ndim)
+        bn(f"{dst}.bn", f"{src}.BatchNorm_0")
+
+    def layers(dst, src, ndim):
+        j = 0
+        while f"{src}{j}.Dense_0.kernel" in p:
+            dense_bn(f"{dst}{j}", f"{src}{j}", ndim)
+            j += 1
+
+    bb, hd = (("backbone", "bbox_head") if model == "votenet"
+              else ("pts_backbone", "pts_bbox_head_joint"))
+    for i in range(4):
+        layers(f"{bb}.SA_modules.{i}.mlps.0.layer", f"backbone.sa{i}.mlp", 4)
+    for i in range(2):
+        layers(f"{bb}.FP_modules.{i}.mlps.layer", f"backbone.fp{i}.mlp", 4)
+    layers(f"{hd}.vote_module.vote_conv.", "vote_module.vote_conv", 3)
+    dense(f"{hd}.vote_module.conv_out", "vote_module.conv_out", 3)
+    layers(f"{hd}.vote_aggregation.mlps.0.layer", "vote_aggregation.mlp", 4)
+    layers(f"{hd}.conv_pred.shared_convs.layer", "shared_conv", 3)
+    for name in ("cls", "reg"):
+        dense(f"{hd}.conv_pred.conv_{name}", f"conv_{name}", 3)
+    if model == "imvotenet":
+        layers("img_mlp.mlp.layer", "img_mlp", 3)
+    return sd
 
 
 def train_phase(torch, cfg, batch, device, steps=TRAIN_STEPS,
@@ -2116,7 +2341,9 @@ def imvote_frame(seed, n_points, n_classes, with_yaw=True, hw=(480, 640),
     painted in its class's colour, far boxes first), depth2img [3, 3],
     gt_boxes [n, 7] bottom-centred, gt_labels [n], boxes2d [m, 6]: the
     boxes' projected corners' bounds clipped to the image, conf 1, of every
-    box wholly in front of the camera whose bounds keep an area}."""
+    box wholly in front of the camera whose bounds keep an area,
+    boxes2d_index [m]: the GT box of each, calib: the SUN RGB-D {"K",
+    "Rt"} of depth2img}."""
     from fcaf3d_tpu_torch.data.calib import sunrgbd_depth2img
     from fcaf3d_tpu_torch.data.synth import crowded_scene, densify
 
@@ -2127,11 +2354,14 @@ def imvote_frame(seed, n_points, n_classes, with_yaw=True, hw=(480, 640),
     per_box = n_points * 4 // 5 // n_boxes
     scene = densify(sample, per_box, n_points - per_box * n_boxes, rng)
     h, w = hw
-    d2i = sunrgbd_depth2img({"K": [[focal, 0, 0], [0, focal, 0],
-                                   [w / 2, h / 2, 1]], "Rt": np.eye(3)})
+    calib = {"K": np.float32([[focal, 0, 0], [0, focal, 0],
+                              [w / 2, h / 2, 1]]),
+             "Rt": np.eye(3, dtype=np.float32)}
+    d2i = sunrgbd_depth2img(calib)
     image = np.full((h, w, 3), 110.0, np.float32)
-    boxes2d, depth = [], []
-    for box, label in zip(sample["gt_boxes"], sample["gt_labels"]):
+    boxes2d, depth, index = [], [], []
+    for j, (box, label) in enumerate(zip(sample["gt_boxes"],
+                                         sample["gt_labels"])):
         cx, cy, cz, dx, dy, dz, yaw = box
         unit = np.array([[x, y, z] for x in (-0.5, 0.5) for y in (-0.5, 0.5)
                          for z in (0.0, 1.0)], np.float32)
@@ -2147,6 +2377,7 @@ def imvote_frame(seed, n_points, n_classes, with_yaw=True, hw=(480, 640),
         if x2 - x1 >= 1 and y2 - y1 >= 1:
             boxes2d.append([x1, y1, x2, y2, 1.0, label])
             depth.append(cy)
+            index.append(j)
     for i in np.argsort(depth)[::-1]:
         x1, y1, x2, y2, _, label = boxes2d[i]
         image[int(y1):int(np.ceil(y2)), int(x1):int(np.ceil(x2))] = (
@@ -2155,7 +2386,8 @@ def imvote_frame(seed, n_points, n_classes, with_yaw=True, hw=(480, 640),
             "depth2img": d2i.astype(np.float32),
             "gt_boxes": sample["gt_boxes"],
             "gt_labels": sample["gt_labels"].astype(np.int32),
-            "boxes2d": np.asarray(boxes2d, np.float32).reshape(-1, 6)}
+            "boxes2d": np.asarray(boxes2d, np.float32).reshape(-1, 6),
+            "boxes2d_index": np.asarray(index, np.int64), "calib": calib}
 
 
 def imvote_batch(cfg, frames, max_det=32, seed=0):
@@ -4592,6 +4824,610 @@ def platform_phase(torch, cfg, bare_step_ms, device):
             {"fcaf3d_platform_training": k1_tr, "fcaf3d_platform_eval": k1_ev})
 
 
+@contextlib.contextmanager
+def recorded_tool_steps(torch, module, name, store, calls=None):
+    """The train steps that a tool builds through `module.<name>` inside
+    append (metrics, wall ms after a synchronise) to `store`; with `calls`,
+    the first step's K5 / K6 calls are recorded into it (`grad_recorder`)."""
+    real = getattr(module, name)
+
+    def make(*args, **kw):
+        step = real(*args, **kw)
+
+        def recorded(batch):
+            t0 = time.perf_counter()
+            if calls is not None and not store:
+                with wrapped_selections(grad_recorder(torch, calls)):
+                    metrics = step(batch)
+            else:
+                metrics = step(batch)
+            torch.cuda.synchronize()
+            store.append((metrics, (time.perf_counter() - t0) * 1e3))
+            return metrics
+        return recorded
+
+    setattr(module, name, make)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def check_tool_run(torch, store, work, path, steps, live=()):
+    """Finite metrics at every one of `steps` recorded steps, the losses
+    `live` above 0, and one `train_log.jsonl` record (the epoch's last
+    iteration) with the last step's metrics rounded to 4 places. Returns
+    the step walls (ms)."""
+    if len(store) != steps:
+        raise AssertionError(f"{path}: {len(store)} steps, expected {steps}")
+    metrics = [{k: float(v) for k, v in m.items()} for m, _ in store]
+    for i, m in enumerate(metrics):
+        if not all(np.isfinite(v) for v in m.values()) \
+                or min([m[k] for k in live], default=1) <= 0:
+            raise AssertionError(f"{path}, step {i}: {m}")
+    with open(os.path.join(work, "train_log.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    if len(recs) != 1 or recs[0]["iter"] != steps or any(
+            v != round(metrics[-1][k], 4) for k, v in recs[0].items()
+            if k not in ("epoch", "iter")):
+        raise AssertionError(f"{path}: train_log.jsonl {recs}, last step "
+                             f"{metrics[-1]}")
+    log(f"   {path}: " + "; ".join(
+        f"step {i} {w:.1f} ms, loss {m['loss']:.5g}"
+        for i, ((_, w), m) in enumerate(zip(store, metrics))))
+    return [w for _, w in store]
+
+
+def held_tool_calls(torch, calls, what):
+    """The first step's K5 / K6 calls equal to plain, the proposals' taking
+    the votes (`hold_selections_to_plain`)."""
+    if hold_selections_to_plain(torch, calls, what) < 2:
+        raise AssertionError(f"{what}: the proposals' FPS and ball query "
+                             "did not take the votes (vote mode)")
+
+
+def tool_launches(path, calls_per_step, steps):
+    """The launches since the last reset: `calls_per_step` K5 and K6 a step
+    on the cluster and tiled kernels (`check_vote_launches`)."""
+    from fcaf3d_tpu_torch import _native
+
+    launches = dict(_native.LAUNCHES)
+    variants = {"/".join(key): n
+                for key, n in sorted(_native.VARIANT_LAUNCHES.items())}
+    check_vote_launches(launches, variants, calls_per_step, steps, path)
+    return launches, variants
+
+
+def votenet_tool_loop(torch, root, tmp, bare_ms, device):
+    """(a) `tools.train_votenet.train` for 1 epoch of TOOL_STEPS steps at
+    `votenet_sunrgbd`'s batch 16, head v2 then v1, on the SUN RGB-D root:
+    finite metrics and live losses at every step, the log record, 5 K5
+    and 5 K6 launches a step on the path's variants, the first step's
+    calls held to plain, the checkpoint restored exactly into a fresh
+    model and optimizer. Logs each step's wall beside phase 11's bare step
+    (`bare_ms` by head) and the share of the run the host waited for the
+    loader. Returns (launches, variants) by path."""
+    from fcaf3d_tpu_torch import _native
+    from fcaf3d_tpu_torch.models.votenet_v1 import sunrgbd_coder
+    from fcaf3d_tpu_torch.tools import train_votenet
+    from fcaf3d_tpu_torch.train import (create_votenet_train_state,
+                                        restore_checkpoint)
+
+    launches, variants = {}, {}
+    for head in ("v2", "v1"):
+        cfg = train_votenet.build_config(head, epochs=1)
+        path = f"votenet{'_v1' if head == 'v1' else ''}_tool_training"
+        factory = ("make_votenet_v1_train_step" if head == "v1"
+                   else "make_votenet_train_step")
+        loader = TimedLoader(train_votenet.build_loader(cfg, root))
+        work = os.path.join(tmp, f"votenet_{head}")
+        store, calls = [], []
+        torch.cuda.synchronize()
+        _native.reset_launches()
+        t0 = time.perf_counter()
+        with recorded_tool_steps(torch, train_votenet, factory, store,
+                                 calls):
+            model, opt = train_votenet.train(cfg, loader, work,
+                                             device=device)
+        wall = time.perf_counter() - t0
+        launches[path], variants[path] = tool_launches(path, 5, TOOL_STEPS)
+        walls = check_tool_run(torch, store, work, path, TOOL_STEPS,
+                               ("vote_loss", "center_loss"))
+        held_tool_calls(torch, calls, f"the first step of {path}")
+        del calls
+        coder = sunrgbd_coder() if head == "v1" else None
+        fresh, fopt, _ = create_votenet_train_state(cfg, seed=1,
+                                                    device=device,
+                                                    coder=coder)
+        epoch = restore_checkpoint(work, fresh, fopt)
+        same = epoch == 1 and fopt.count == opt.count == TOOL_STEPS and all(
+            torch.equal(a, b) for a, b in zip(model.state_dict().values(),
+                                              fresh.state_dict().values()))
+        same = same and all(torch.equal(opt.state[p][k], fopt.state[q][k])
+                            for p, q in zip(model.parameters(),
+                                            fresh.parameters())
+                            for k in ("mu", "nu"))
+        if not same or sorted(os.listdir(os.path.join(work, "ckpts"))) \
+                != ["epoch_1.pt"]:
+            raise AssertionError(f"{path}: the checkpoint does not restore "
+                                 "the trained state")
+        del model, opt, fresh, fopt
+        waits = loader.epochs[0]["waits"]
+        log(f"   {path}: batch {cfg.batch_size}, {TOOL_STEPS} steps in "
+            f"{wall * 1e3:.1f} ms (the run, checkpoint included); steps "
+            + ", ".join(f"{w:.1f}" for w in walls)
+            + f" ms beside phase 11's bare step {bare_ms[head]:.1f} ms; "
+            f"waited for the loader {sum(waits) * 1e3:.1f} ms (first batch "
+            f"{waits[0] * 1e3:.1f}), share {sum(waits) / wall:.3f}; "
+            "checkpoint restored exactly; launches "
+            f"{launches[path]}")
+    return launches, variants
+
+
+def detector2d_tool_loop(torch, root, tmp, frames, bare_ms, device):
+    """(b) `tools.train_detector2d.train` for 1 epoch of TOOL_STEPS steps
+    at batch IMVOTE_TRAIN_BATCH on the frames (`read_image` pointed at
+    their `.npy` files): finite losses, the log record, `detector2d.pkl`
+    equal to the trained model and loaded through
+    `init_detector2d(params_file=)`, whose `extract_bboxes_2d` on a frame
+    gives the in-memory model's boxes exactly. Returns the pickle's path."""
+    import pickle
+
+    from fcaf3d_tpu_torch.apis import init_detector2d
+    from fcaf3d_tpu_torch.models.detector2d import extract_bboxes_2d
+    from fcaf3d_tpu_torch.params import export_variables, flatten
+    from fcaf3d_tpu_torch.tools import train_detector2d
+
+    work = os.path.join(tmp, "detector2d")
+    store = []
+    t0 = time.perf_counter()
+    with recorded_tool_steps(torch, train_detector2d,
+                             "make_detector2d_train_step", store):
+        model, _ = train_detector2d.train(root, work,
+                                          batch=IMVOTE_TRAIN_BATCH, epochs=1,
+                                          device=device)
+    wall = (time.perf_counter() - t0) * 1e3
+    walls = check_tool_run(torch, store, work, "detector2d tool",
+                           TOOL_STEPS)
+    path = os.path.join(work, "detector2d.pkl")
+    loaded = init_detector2d(model.n_classes, params_file=path,
+                             device=device)
+    with open(path, "rb") as f:
+        tree = pickle.load(f)
+    want = flatten(export_variables(model))
+    if set(flatten(tree)) != set(want) or not all(
+            np.array_equal(v, want[k]) for k, v in flatten(tree).items()):
+        raise AssertionError("detector2d.pkl differs from the trained model")
+    img = torch.as_tensor(frames[0]["image"][None], device=device)
+    model.eval()
+    got, want_b = extract_bboxes_2d(loaded, img), extract_bboxes_2d(model,
+                                                                    img)
+    if not all(torch.equal(a, b) for a, b in zip(got, want_b)) \
+            or not got[1].any():
+        raise AssertionError("extract_bboxes_2d of the loaded detector "
+                             "differs from the trained model's, or is empty")
+    log(f"   detector2d tool: batch {IMVOTE_TRAIN_BATCH}, the run "
+        f"{wall:.1f} ms, steps " + ", ".join(f"{w:.1f}" for w in walls)
+        + f" ms beside phase 12's bare step {bare_ms:.1f} ms, host share "
+        f"(reading and collating the frames) {1 - sum(walls) / wall:.3f}; "
+        f"detector2d.pkl ({os.path.getsize(path)} bytes) loads, "
+        f"{int(got[1].sum())} extracted boxes on frame 0 equal the trained "
+        "model's")
+    return path
+
+
+def imvotenet_tool_loop(torch, root, tmp, frames, det2d, bare_ms, device):
+    """(c) `tools.train_imvotenet.train` for 1 epoch of TOOL_STEPS steps at
+    batch IMVOTE_TRAIN_BATCH, with the 2D pickle of (b) and then with the
+    GT 2D boxes: finite losses, the log record, 7 K5 and 7 K6 launches a
+    step on the path's variants, the first step's calls held to plain;
+    `imvotenet.pkl` loads through `init_imvotenet(params_file=)`, and on
+    frame 0 with its GT boxes the loaded model's joint-tower predictions
+    are finite and bitwise the trained model's (in eval mode), and
+    `inference_imvotenet` gives non-empty detections. Returns (launches,
+    variants) by path."""
+    from fcaf3d_tpu_torch import _native
+    from fcaf3d_tpu_torch.apis import inference_imvotenet, init_imvotenet
+    from fcaf3d_tpu_torch.apis.inference import imvotenet_inputs
+    from fcaf3d_tpu_torch.configs import votenet_sunrgbd
+    from fcaf3d_tpu_torch.tools import train_imvotenet
+
+    cfg = votenet_sunrgbd()
+    launches, variants = {}, {}
+    for boxes, bare, path in (
+            (det2d, bare_ms["extracted_boxes"],
+             "imvotenet_tool_training_detector2d"),
+            (None, bare_ms["gt_boxes"], "imvotenet_tool_training_gt")):
+        work = os.path.join(tmp, path)
+        store, calls = [], []
+        torch.cuda.synchronize()
+        _native.reset_launches()
+        t0 = time.perf_counter()
+        with recorded_tool_steps(torch, train_imvotenet,
+                                 "make_imvotenet_train_step", store, calls):
+            trained, _ = train_imvotenet.train(
+                root, work, detector2d=boxes, batch=IMVOTE_TRAIN_BATCH,
+                epochs=1, num_points=cfg.num_points,
+                max_det2d=IMVOTE_MAX_DET, device=device)
+        wall = (time.perf_counter() - t0) * 1e3
+        launches[path], variants[path] = tool_launches(path, 7, TOOL_STEPS)
+        walls = check_tool_run(torch, store, work, path, TOOL_STEPS)
+        held_tool_calls(torch, calls, f"the first step of {path}")
+        del calls, store
+        model = init_imvotenet(cfg, params_file=os.path.join(
+            work, "imvotenet.pkl"), device=device)
+        f = frames[0]
+        inputs = imvotenet_inputs(f["points"], f["image"], f["boxes2d"],
+                                  f["depth2img"], cfg.num_points, 0, device)
+        with torch.inference_mode():
+            got = model(*inputs[:4], depth2img=inputs[4], towers=("joint",))
+            want = trained.eval()(*inputs[:4], depth2img=inputs[4],
+                                  towers=("joint",))
+        got, want = got["joint"], want["joint"]
+        if set(got) != set(want) or not all(
+                torch.equal(got[k], want[k]) for k in want) or not all(
+                torch.isfinite(v).all() for v in got.values()
+                if v.is_floating_point()):
+            raise AssertionError(f"{path}: imvotenet.pkl's predictions differ "
+                                 "from the trained model's or are not "
+                                 "finite")
+        dets = inference_imvotenet(model, f["points"], f["image"],
+                                   f["boxes2d"], f["depth2img"],
+                                   num_points=cfg.num_points,
+                                   n_classes=cfg.n_classes)
+        n = check_detections(dets, cfg.n_classes,
+                             f"{path}: imvotenet.pkl, frame 0, GT boxes")
+        del model, trained
+        log(f"   {path}: batch {IMVOTE_TRAIN_BATCH}, the run {wall:.1f} ms, "
+            "steps " + ", ".join(f"{w:.1f}" for w in walls)
+            + f" ms beside phase 12's bare step {bare:.1f} ms, host share "
+            f"{1 - sum(walls) / wall:.3f}; imvotenet.pkl loads, its "
+            f"predictions on frame 0 equal the trained model's; {n} "
+            f"detections with the GT boxes; launches {launches[path]}")
+    return launches, variants
+
+
+def convert_tool(tmp, name, sd, model, *args):
+    """`torch.save` `sd` with an mmcv-style meta and convert it with `python
+    -m fcaf3d_tpu_torch.tools.convert_checkpoint --model model args` as a
+    subprocess. Returns (pickle path, .pth bytes, seconds)."""
+    import torch
+
+    pth = os.path.join(tmp, f"{name}.pth")
+    torch.save({"state_dict": {k: torch.from_numpy(np.ascontiguousarray(v))
+                               for k, v in sd.items()},
+                "meta": {"CLASSES": tuple(str(i) for i in range(18)),
+                         "epoch": 12, "config": "synthetic"}}, pth)
+    out = os.path.join(tmp, f"{name}.pkl")
+    printed, dt = run_tool("convert_checkpoint", "--pth", pth, "--out", out,
+                           "--model", model, *args)
+    if not printed.startswith(f"wrote {out} ("):
+        raise AssertionError(f"convert_checkpoint printed {printed!r}")
+    return out, os.path.getsize(pth), dt
+
+
+def same_tree(path, variables, what):
+    """The pickle at `path` holds `variables` exactly."""
+    import pickle
+
+    from fcaf3d_tpu_torch.params import flatten
+
+    with open(path, "rb") as f:
+        got = {c: flatten(t) for c, t in pickle.load(f).items()}
+    want = {c: flatten(t) for c, t in variables.items()}
+    if {c: set(t) for c, t in got.items()} != \
+            {c: set(t) for c, t in want.items()} or not all(
+                np.array_equal(v, want[c][k])
+                for c, t in got.items() for k, v in t.items()):
+        raise AssertionError(f"{what}: the converted tree differs from the "
+                             "variables written as the reference's")
+
+
+def stem_impulse(torch, sd, converted, device):
+    """The card's twin of `test_me_offset_order_impulse` on the converted
+    stem conv: on a random 8^3 occupancy (3 channels), the f32 sparse conv
+    with the converted kernel equals, at every output voxel, a dense
+    float64 conv whose taps are assembled from the reference's ME-order
+    kernel (x fastest: tap dx + 3 dy + 9 dz), within 1e-5 of the largest
+    output; the unpermuted ME-order kernel does not."""
+    from fcaf3d_tpu_torch.ops.sparse import conv as sconv
+    from fcaf3d_tpu_torch.ops.sparse import tensor as stensor
+
+    w_me = sd["backbone.conv1.0.kernel"].astype(np.float64)  # [27, 3, 64]
+    w_ours = converted["params"]["backbone"]["conv1"]["kernel"]
+    rng = np.random.default_rng(0)
+    size = 8
+    grid = rng.random((size,) * 3) < 0.5
+    coords = np.argwhere(grid).astype(np.int32)
+    feats = rng.standard_normal((len(coords), 3)).astype(np.float32)
+    dense = np.zeros((size + 2,) * 3 + (3,))
+    dense[tuple((coords + 1).T)] = feats
+    taps = np.stack([w_me[dx + 3 * dy + 9 * dz] for dx in range(3)
+                     for dy in range(3) for dz in range(3)])  # ours' order
+
+    c = torch.as_tensor(coords[None], device=device)
+    c, f, keys = stensor.sort_rows(c, torch.as_tensor(feats[None],
+                                                      device=device),
+                                   stensor.encode_coords(c))
+    st = stensor.SparseTensor(coords=c, feats=f, keys=keys, shift=torch.zeros(
+        (1, 3), dtype=torch.int32, device=device))
+    out = sconv.sparse_conv(st, torch.as_tensor(w_ours, device=device), 3, 1)
+    wrong = sconv.sparse_conv(st, torch.as_tensor(
+        w_me.astype(np.float32), device=device), 3, 1)
+    oc = out.coords[0].cpu().numpy()
+    want = np.stack([np.einsum("kc,kce->e", np.stack(
+        [dense[x + dx, y + dy, z + dz] for dx in range(3) for dy in range(3)
+         for dz in range(3)]), taps) for x, y, z in oc])
+    tol = 1e-5 * np.abs(want).max()
+    err = np.abs(out.feats[0].cpu().numpy() - want).max()
+    wrong_err = np.abs(wrong.feats[0].cpu().numpy() - want).max()
+    if err > tol or wrong_err <= 100 * tol:
+        raise AssertionError(f"stem impulse: converted kernel err {err:.3g} "
+                             f"(tol {tol:.3g}), unpermuted kernel err "
+                             f"{wrong_err:.3g}")
+    log(f"   stem impulse on the card: {len(oc)} output voxels of the "
+        f"converted stem conv equal the ME-order dense conv within "
+        f"{err:.3g} (tol {tol:.3g}); the unpermuted kernel is off by "
+        f"{wrong_err:.3g}")
+
+
+def converter_phase(torch, cfg, scans, tmp, frame, device):
+    """(d) The converter: reference-named state dicts of the seeded
+    variables of `fcaf3d_scannet`, `votenet_sunrgbd` and ImVoteNet
+    (`reference_state_dict`), `torch.save`d and converted by the CLI as
+    subprocesses, each pickle equal to those variables and loaded through
+    its `init_*(params_file=)`: FCAF3D bf16 on two scans (`slice_phase`)
+    and one f32 scan card vs CPU (`compare_f32`); one VoteNet scan and one
+    ImVoteNet frame (with its GT boxes) with 5 K5 and 5 K6 launches on the
+    path's variants, held to plain; the stem impulse. Returns (launches,
+    variants, K1 record, the FCAF3D pickle's path)."""
+    import pickle
+
+    from fcaf3d_tpu_torch import _native
+    from fcaf3d_tpu_torch.apis import (inference_imvotenet,
+                                       inference_votenet, init_imvotenet,
+                                       init_votenet)
+    from fcaf3d_tpu_torch.configs import votenet_sunrgbd
+    from fcaf3d_tpu_torch.params import (init_imvotenet_variables,
+                                         init_variables,
+                                         init_votenet_variables)
+
+    launches, variants, k1 = {}, {}, {}
+    variables = init_variables(cfg, seed=0)
+    sd = reference_state_dict(variables, "fcaf3d")
+    path, nbytes, dt = convert_tool(tmp, "fcaf3d_scannet", sd, "fcaf3d",
+                                    "--depth", str(cfg.depth))
+    same_tree(path, variables, "fcaf3d_scannet")
+    with open(path, "rb") as f:
+        converted = pickle.load(f)
+    del variables
+    stem_impulse(torch, sd, converted, device)
+    del sd, converted
+    log(f"   fcaf3d_scannet: {nbytes} bytes of .pth, converted in "
+        f"{dt:.1f} s (the subprocess) to {os.path.getsize(path)} bytes, "
+        "equal to the seeded variables")
+    p = "converted_fcaf3d_inference"
+    launches[p], variants[p], k1[p] = slice_phase(
+        torch, cfg, scans[:2], device, path=p, params_file=path)
+    compare_f32(torch, cfg, scans[0], device, params_file=path)
+
+    vcfg = votenet_sunrgbd()
+    for model_name, draw, p in (
+            ("votenet", lambda: init_votenet_variables(vcfg, seed=0),
+             "converted_votenet_inference"),
+            ("imvotenet", lambda: init_imvotenet_variables(vcfg, seed=0),
+             "converted_imvotenet_inference")):
+        variables = draw()
+        vpath, nbytes, dt = convert_tool(
+            tmp, model_name, reference_state_dict(variables, model_name),
+            model_name)
+        same_tree(vpath, variables, model_name)
+        del variables
+        if model_name == "votenet":
+            model = init_votenet(vcfg, params_file=vpath, device=device)
+
+            def run():
+                return inference_votenet(model, vote_scan(0, vcfg.num_points))
+        else:
+            model = init_imvotenet(vcfg, params_file=vpath, device=device)
+
+            def run():
+                return inference_imvotenet(
+                    model, frame["points"], frame["image"], frame["boxes2d"],
+                    frame["depth2img"], num_points=vcfg.num_points,
+                    n_classes=vcfg.n_classes)
+        run()  # warm-up
+        torch.cuda.synchronize()
+        _native.reset_launches()
+        calls = []
+        t0 = time.perf_counter()
+        with wrapped_selections(grad_recorder(torch, calls)):
+            n = check_detections(run(), vcfg.n_classes, p)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        launches[p], variants[p] = tool_launches(p, 5, 1)
+        hold_selections_to_plain(torch, calls, p)
+        del model, calls
+        log(f"   {model_name}: {nbytes} bytes of .pth, converted in "
+            f"{dt:.1f} s to {os.path.getsize(vpath)} bytes, equal to the "
+            f"seeded variables; {p}: {wall:.1f} ms wall, {n} detections, "
+            f"launches {launches[p]}")
+    return launches, variants, k1, path
+
+
+def fuse_publish_phase(torch, cfg, scans, converted, tmp, device):
+    """(e) A work dir holding the converted FCAF3D weights as an epoch-12
+    checkpoint and `config.json`; `tools.fuse_conv_bn` on it: the fused
+    checkpoint at epoch 12 with count 0 and zero moments, every BatchNorm
+    of the tree fused (scale 1, mean 0, var 1 - eps); the fused model's
+    f32 detections on a scan equal to the unfused model's in count and
+    labels, boxes and scores within FUSE_ATOL; bf16 inference on the path's
+    variants; `tools.publish_model` on the fused dir: the
+    `{out}-{sha256[:8]}.pkl` named by its own hash, whose
+    `init_detector(params_file=)` gives bitwise the detections of
+    `init_detector(work_dir=fused)`. Returns (launches, variants)."""
+    import hashlib
+    import pickle
+
+    from fcaf3d_tpu_torch import _native
+    from fcaf3d_tpu_torch.apis import inference_detector, init_detector
+    from fcaf3d_tpu_torch.tools import fuse_conv_bn, publish_model
+    from fcaf3d_tpu_torch.train import (load_checkpoint, make_optimizer,
+                                        save_checkpoint)
+    from fcaf3d_tpu_torch.utils.fuse_bn import BN_EPS
+
+    work, fused = os.path.join(tmp, "work"), os.path.join(tmp, "fused")
+    model = init_detector(cfg, params_file=converted, device=device)
+    save_checkpoint(work, 12, model, make_optimizer(model.parameters()))
+    n_bn = sum(name.endswith(".mean") for name, _ in model.named_buffers())
+    del model
+    with open(os.path.join(work, "config.json"), "w") as f:
+        json.dump(dataclasses.asdict(cfg), f, indent=2)
+    t0 = time.perf_counter()
+    fuse_conv_bn.main(["--work-dir", work, "--out-dir", fused, "--device",
+                       device])
+    fuse_s = time.perf_counter() - t0
+    ckpt = load_checkpoint(fused)
+    v = ckpt["variables"]
+    means = [k for k in v if k.startswith("batch_stats/")
+             and k.endswith("/mean")]
+    done = [k for k in means if not v[k].any()
+            and (v[k[:-4] + "var"] == np.float32(1 - BN_EPS)).all()
+            and (v["params/" + k[len("batch_stats/"):-4] + "scale"]
+                 == 1).all()]
+    if ckpt["epoch"] != 12 or ckpt["count"] != 0 or len(done) != n_bn \
+            or len(means) != n_bn or any(
+                t.any() for k in ("mu", "nu") for t in ckpt[k].values()):
+        raise AssertionError(f"fused checkpoint: epoch {ckpt['epoch']}, count "
+                             f"{ckpt['count']}, {len(done)} of {n_bn} BNs "
+                             "fused, or non-zero moments")
+    del ckpt, v
+    sizes = {d: os.path.getsize(os.path.join(d, "ckpts", "epoch_12.pt"))
+             for d in (work, fused)}
+
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    got, _ = inference_detector(init_detector(cfg32, work_dir=fused,
+                                              device=device), scans[0])
+    want, _ = inference_detector(init_detector(cfg32, work_dir=work,
+                                               device=device), scans[0])
+    n = len(want["scores_3d"])
+    box_err = float(np.abs(got["boxes_3d"] - want["boxes_3d"]).max(initial=0)
+                    ) if len(got["scores_3d"]) == n else np.inf
+    score_err = float(np.abs(got["scores_3d"] - want["scores_3d"]).max(
+        initial=0)) if len(got["scores_3d"]) == n else np.inf
+    if not n or len(got["scores_3d"]) != n or not np.array_equal(
+            got["labels_3d"], want["labels_3d"]) or box_err > FUSE_ATOL \
+            or score_err > FUSE_ATOL:
+        raise AssertionError(f"fused f32: {len(got['scores_3d'])} detections,"
+                             f" unfused {n}; box err {box_err}, score err "
+                             f"{score_err} (tol {FUSE_ATOL})")
+    log(f"   fuse_conv_bn: {n_bn} BatchNorms fused in {fuse_s:.1f} s "
+        f"(in process; checkpoints {sizes[work]} and {sizes[fused]} bytes); "
+        f"f32 scan: {n} detections equal to the unfused model's, max box err "
+        f"{box_err:.3g}, max score err {score_err:.3g} (tol {FUSE_ATOL})")
+
+    path = "fused_fcaf3d_inference"
+    model = init_detector(cfg, work_dir=fused, device=device)
+    inference_detector(model, scans[0])  # warm-up
+    torch.cuda.synchronize()
+    _native.reset_launches()
+    dets = [inference_detector(model, pts) for pts in scans[:2]]
+    launches = dict(_native.LAUNCHES)
+    check_path_launches(launches, path)
+    var = check_variants(f"bf16 {path}", ("gather_gemm",))
+    for d, overflow in dets:
+        if any(overflow.values()):
+            raise AssertionError(f"{path}: budgets dropped voxels {overflow}")
+    t0 = time.perf_counter()
+    published = publish_model.main(["--work-dir", fused, "--out",
+                                    os.path.join(tmp, "fcaf3d_scannet")])
+    publish_s = time.perf_counter() - t0
+    with open(published, "rb") as f:
+        blob = f.read()
+    sha = hashlib.sha256(blob).hexdigest()[:8]
+    tree = pickle.loads(blob)
+    del blob
+    if not published.endswith(f"fcaf3d_scannet-{sha}.pkl") \
+            or set(tree) != {"params", "batch_stats", "epoch"} \
+            or tree["epoch"] != 12:
+        raise AssertionError(f"published {published}: keys {set(tree)}")
+    del tree
+    pub = init_detector(cfg, params_file=published, device=device)
+    for i, ((want_d, _), pts) in enumerate(zip(dets, scans[:2])):
+        got_d, _ = inference_detector(pub, pts)
+        if not all(np.array_equal(got_d[k], want_d[k]) for k in want_d):
+            raise AssertionError(f"published scan {i}: detections differ "
+                                 "from the fused work dir's")
+    log(f"   bf16 {path}: {[len(d['scores_3d']) for d, _ in dets]} "
+        f"detections, zero overflow, launches {launches}; publish_model "
+        f"{publish_s:.1f} s -> {os.path.basename(published)} "
+        f"({os.path.getsize(published)} bytes), its detections bitwise "
+        "those of the fused work dir on both scans")
+    return {path: launches}, {path: var}
+
+
+def tools_phase(torch, cfg, scans, vt_recs, iv_recs, device):
+    """Phase 14: the rest of the platform's tools at full widths (module
+    docstring). Returns launches, launches by variant and K1 records of the
+    paths that run K1-K6."""
+    import tempfile
+
+    from fcaf3d_tpu_torch.configs import votenet_sunrgbd
+    from fcaf3d_tpu_torch.tools import train_detector2d
+
+    launches, variants = {}, {}
+    vcfg = votenet_sunrgbd()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tools_") as tmp:
+        t0 = time.perf_counter()
+        vote_root = os.path.join(tmp, "sunrgbd_votenet")
+        n = vcfg.batch_size * TOOL_STEPS
+        write_sunrgbd_root(vote_root, [
+            {"points": s["points"], "gt_boxes": s["gt_boxes"],
+             "gt_labels": s["gt_labels"]} for s in crowded_scenes(n, vcfg)])
+        frames = [imvote_frame(100 + s, vcfg.num_points, vcfg.n_classes)
+                  for s in range(IMVOTE_TRAIN_BATCH * TOOL_STEPS)]
+        frame_root = os.path.join(tmp, "sunrgbd_frames")
+        write_sunrgbd_root(frame_root, [frame_scene(f) for f in frames],
+                           image_suffix=".npy")
+        log(f"   -- (a) VoteNet loop: {n} crowded scenes of {TRAIN_BOXES} "
+            f"yawed boxes and {len(frames)} frames written in "
+            f"{time.perf_counter() - t0:.2f} s")
+        l, v = votenet_tool_loop(
+            torch, vote_root, tmp,
+            {"v2": vt_recs["votenet_training"]["step_wall_ms"],
+             "v1": vt_recs["votenet_v1_sunrgbd_training"]["step_wall_ms"]},
+            device)
+        launches.update(l)
+        variants.update(v)
+        real_read = train_detector2d.read_image
+        train_detector2d.read_image = read_npy_image
+        try:
+            log("   -- (b) the Detector2D loop")
+            det2d = detector2d_tool_loop(
+                torch, frame_root, tmp, frames,
+                iv_recs["training"]["detector2d"]["step_wall_ms"], device)
+            log("   -- (c) the ImVoteNet loop, with (b)'s 2D boxes, then GT")
+            l, v = imvotenet_tool_loop(
+                torch, frame_root, tmp, frames, det2d,
+                {k: iv_recs["training"][k]["step_wall_ms"]
+                 for k in ("extracted_boxes", "gt_boxes")}, device)
+        finally:
+            train_detector2d.read_image = real_read
+        launches.update(l)
+        variants.update(v)
+        log("   -- (d) the converter: fcaf3d_scannet, votenet_sunrgbd, "
+            "ImVoteNet")
+        l, v, k1, converted = converter_phase(torch, cfg, scans, tmp,
+                                              frames[0], device)
+        launches.update(l)
+        variants.update(v)
+        log("   -- (e) fuse and publish")
+        l, v = fuse_publish_phase(torch, cfg, scans, converted, tmp, device)
+        launches.update(l)
+        variants.update(v)
+    return launches, variants, k1
+
+
 KERNELS = (
     ("searchsorted", "fcaf3d_tpu_torch/csrc/search.cu",
      "fcaf3d_tpu/ops/sparse/search.py:149"),
@@ -4709,6 +5545,12 @@ def main():
     pf_launches, pf_variants, pf_k1 = platform_phase(torch, cfg, step_ms,
                                                      "cuda")
     rec["searchsorted"]["path_calls"].update(pf_k1)
+    log("== 14 the rest of the platform: the VoteNet v2 / v1, Detector2D and "
+        "ImVoteNet train loops, the .pth converter (fcaf3d_scannet, VoteNet, "
+        "ImVoteNet), BN fusing and publishing")
+    tl_launches, tl_variants, tl_k1 = tools_phase(torch, cfg, scans, vt_recs,
+                                                  iv_recs, "cuda")
+    rec["searchsorted"]["path_calls"].update(tl_k1)
     log(f"== all phases passed in {time.perf_counter() - t_start:.1f} s")
     for what, ms, first, second in NOT_FASTER:
         log(f"   not faster than a yardstick: {what}: kernel {ms:.4f} ms, "
@@ -4717,12 +5559,12 @@ def main():
                "fcaf3d_training": train_launches,
                "votenet_inference": vote_launches, **other_launches,
                **rest_launches, **vt_launches, **iv_launches,
-               **pf_launches}
+               **pf_launches, **tl_launches}
     variants = {"fcaf3d_inference": infer_variants,
                 "fcaf3d_training": train_variants,
                 "votenet_inference": vote_variants, **other_variants,
                 **rest_variants, **vt_variants, **iv_variants,
-                **pf_variants}
+                **pf_variants, **tl_variants}
     kernels = []
     for name, src, tpu in KERNELS:
         k = {"name": name, "route": "cuda", "source": src, "replaces": tpu,

@@ -42,8 +42,9 @@ class BatchNorm(nn.Module):
     """flax `nn.BatchNorm(momentum=0.9, epsilon=1e-5)`, normalising in
     flax's order: `(x - mean) * (rsqrt(var + eps) * scale) + bias`.
 
-    In training mode the statistics are flax's: f32 over every axis but the
-    last (padding rows count whole), the variance in the fast form
+    In training mode the statistics are flax's: in at least f32 (float64
+    input keeps float64) over every axis but the last (padding rows count
+    whole), the variance in the fast form
     `max(0, mean(x^2) - mean(x)^2)`; gradients flow through both, and the
     running statistics become `0.9 * running + 0.1 * batch` (the biased
     variance) outside the graph."""
@@ -61,7 +62,7 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
             axes = tuple(range(x.dim() - 1))
-            x32 = x.float()
+            x32 = x.to(torch.promote_types(x.dtype, torch.float32))
             mean = x32.mean(axes)
             var = torch.maximum((x32 * x32).mean(axes) - mean * mean,
                                 x32.new_zeros(()))

@@ -1,2 +1,4 @@
 """Command-line entry points of the port: `python -m
-fcaf3d_tpu_torch.tools.train`, `.test` and `.pcd_demo`."""
+fcaf3d_tpu_torch.tools.<name>` for `train`, `test`, `pcd_demo`,
+`train_votenet`, `train_detector2d`, `train_imvotenet`,
+`convert_checkpoint`, `fuse_conv_bn` and `publish_model`."""

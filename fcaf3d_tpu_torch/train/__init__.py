@@ -19,6 +19,7 @@ from .trainer import (  # noqa: F401
 )
 from .checkpoint import (  # noqa: F401
     latest_epoch,
+    load_checkpoint,
     load_meta,
     load_params,
     restore_checkpoint,

@@ -101,7 +101,10 @@ def latest_epoch(work_dir: str) -> Optional[int]:
     return epochs[-1] if epochs else None
 
 
-def _load(work_dir: str, epoch: Optional[int]) -> dict:
+def load_checkpoint(work_dir: str, epoch: Optional[int] = None) -> dict:
+    """The checkpoint file of epoch `epoch` (default the latest) as saved:
+    {"epoch", "count", "variables", "mu", "nu"}, CPU tensors. Raises
+    FileNotFoundError without a checkpoint."""
     if epoch is None:
         epoch = latest_epoch(work_dir)
         if epoch is None:
@@ -117,7 +120,7 @@ def restore_checkpoint(work_dir: str, model: torch.nn.Module,
     and, if given, `optimizer` (moments and count), in place; returns the
     epoch. Raises FileNotFoundError without a checkpoint and ValueError
     unless its variables are exactly the model's names and shapes."""
-    ckpt = _load(work_dir, epoch)
+    ckpt = load_checkpoint(work_dir, epoch)
     load_variables(model, _nest({k.replace("/", "."): v
                                  for k, v in ckpt["variables"].items()}))
     if optimizer is not None:
@@ -136,7 +139,7 @@ def load_params(work_dir: str, model: torch.nn.Module) -> List[str]:
     `model`; the others (e.g. the cls conv when a ScanNet-trained run is
     loaded into S3DIS's 5 classes) keep their fresh values and are reported
     and returned by flax name. The optimizer is not touched."""
-    saved = _load(work_dir, None)["variables"]
+    saved = load_checkpoint(work_dir)["variables"]
     names = _flax_names(model)
     skipped = []
     with torch.no_grad():

@@ -80,16 +80,17 @@ def create_votenet_train_state(cfg: VoteNetConfig, seed: int = 0,
 
 def create_detector2d_train_state(n_classes: int = 10, width: int = 64,
                                   fpn_ch: int = 128, seed: int = 0,
-                                  device="cuda"
+                                  device="cuda", lr: float = DETECTOR2D_LR
                                   ) -> Tuple[Detector2D, ClipAdamW, int]:
     """(Detector2D in train mode with the seeded
     `params.init_detector2d_variables` draw, its optimizer, 0):
-    `tools/train_detector2d.py`'s recipe, clip 10 then AdamW 1e-3, weight
-    decay 1e-4, at a constant learning rate."""
+    `tools/train_detector2d.py`'s recipe, clip 10 then AdamW at `lr` (its
+    `--lr`, default 1e-3), weight decay 1e-4, at a constant learning
+    rate."""
     model = Detector2D(n_classes, width, fpn_ch, device=device)
     load_variables(model, init_detector2d_variables(n_classes, width, fpn_ch,
                                                     seed))
-    opt = ClipAdamW(model.parameters(), constant_schedule(DETECTOR2D_LR),
+    opt = ClipAdamW(model.parameters(), constant_schedule(lr),
                     weight_decay=DETECTOR2D_WEIGHT_DECAY,
                     grad_clip=DETECTOR2D_GRAD_CLIP)
     return model.train(), opt, opt.count
