@@ -246,6 +246,42 @@ Phases (any failure raises and the script exits non-zero):
    moments; the fused model's f32 detections within FUSE_ATOL of the
    unfused; bf16 inference on the path's variants; `tools.publish_model`:
    the hash-named pickle gives bitwise the fused work dir's detections.
+15. Data parallelism (`fcaf3d_tpu_torch/parallel/`) at DP_WORLD gloo ranks
+   sharing the card (spawned, one process a rank; gloo stages every
+   collective through the host), the rank work in one spawn. (a)
+   `make_train_step(group=)` at `fcaf3d_scannet` in bf16, global batch 8
+   of phase 6's scenes: each rank's warm-up step with its K1 calls exact
+   and K2-K4 calls held as phase 6's (`hold_recorded`), DP_TRAIN_STEPS
+   timed steps and one with its collectives timed (each between
+   synchronises), finite metrics, a live box loss, zero overflow, K1-K4
+   on the path's variants; every rank's variables bitwise equal; step
+   wall, the collectives' share of the timed step and peak memory per
+   rank, beside phase 6's bare step.
+   (b) The tight f32 gate at `fcaf3d_tiny`, W = DP_WORLD against one
+   process on the card (`dp_tiny_gate`: losses TRAIN_LOSS_RTOL of the
+   total, gradients TINY_GRAD_RTOL of a leaf's largest). (c)
+   `make_votenet_train_step(group=)` at `votenet_sunrgbd` in f32, global
+   batch 16 of phase 11's scenes, as phase 11 runs it
+   (`held_and_timed_steps`: K5 / K6 calls of the warm-up step equal to
+   plain, 5 + 5 launches a step on the path's variants), variables
+   bitwise equal over the ranks, and (b)'s gate at `votenet_tiny` (its
+   gradients in L2 norm: `dp_tiny_gate`). (d)
+   `evaluate_dataset(group=)` of the seeded bf16 detector on a dataset of
+   phase 13's kind (DP_TRAIN_SCENES train and PLATFORM_SCENES[1] val
+   scenes, the val GT from the seeded detector's own detections:
+   `gt_from_detections`) at global batch DP_EVAL_BATCH, with and without
+   TTA: each rank's K1-K3 calls of its first forward and of the flipped
+   forwards of its first TTA batch held to plain (`hold_recorded`), then
+   every rank's metrics (mAP_0.25 above 0) and per-scene detections equal
+   to one process's at DP_EVAL_BATCH / DP_WORLD scenes a forward. The CLI
+   runs, started together as subprocesses (`run_together`): (e)
+   `tools.train` for one epoch under `torchrun --nproc_per_node=1 ...
+   --launcher pytorch --dist-backend nccl`, its checkpoint bitwise equal
+   to the launcher-less run's; (f) the same at
+   `--nproc_per_node=DP_WORLD --dist-backend gloo` on the one card,
+   finishing with one checkpoint; `tools.test --sharded` at DP_WORLD gloo
+   ranks on the seeded weights (`--params`), its metrics equal to (d)'s
+   one process's.
 
 Output: progress lines, then a JSON line of per-kernel results (launches
 of each main path: FCAF3D inference, FCAF3D training, VoteNet inference,
@@ -255,7 +291,9 @@ the inference of each phase-9 config and SUN RGB-D training, phase
 and training of both configs, phase 12's ImVoteNet inference and
 training, phase 13's platform training (with its eval hook) and
 evaluation, and phase 14's tool loops (VoteNet v2 / v1, ImVoteNet with
-extracted and GT 2D boxes) and converted, fused and published inference;
+extracted and GT 2D boxes) and converted, fused and published inference,
+and phase 15's data-parallel FCAF3D and VoteNet training and sharded
+evaluation, summed over the ranks;
 K1-K6 also by variant; the recorded shape's times, bound and share; K1 at
 every distinct call of the two FCAF3D paths, K2 at every f32 path shape and
 over the f32 scan, K3 at both stem pool maps, K6 at every VoteNet shape,
@@ -274,6 +312,11 @@ Two further modes measure instead of checking (device and build first):
     python3 chip_smoke.py --grad-control 3  # f32 ScanNet gradients, seeds
                                             # 0-2: card vs CPU against CPU vs
                                             # CPU with colours x (1 + 1e-6)
+    python3 chip_smoke.py --nccl 4          # phase 15 over NCCL at 4 ranks,
+                                            # one a card (needs 4 cards),
+                                            # and (a) at 8 a rank, beside
+                                            # the bare steps of phases 6
+                                            # and 11
 """
 import argparse
 import contextlib
@@ -386,6 +429,12 @@ GT_MIN_VOLUME = 1e-8
 # of the unfused model's (the JAX package's fuse test's tolerance)
 TOOL_STEPS = 2
 FUSE_ATOL = 1e-4
+# phase 15: data parallelism at DP_WORLD gloo ranks on the one card; FCAF3D's
+# DP_TRAIN_STEPS timed steps after a held warm-up step; the ScanNet-layout
+# root of phase 13's kind with DP_TRAIN_SCENES train scenes (x 10 repeats:
+# 2 steps of the CLI's epoch at batch 8) and PLATFORM_SCENES[1] val scenes,
+# evaluated at global batch DP_EVAL_BATCH
+DP_WORLD, DP_TRAIN_STEPS, DP_TRAIN_SCENES, DP_EVAL_BATCH = 2, 3, 2, 4
 # published dense peaks of one H100 SXM: a kernel's bound is the larger of
 # its operations over the peak of their type (bf16 on the tensor cores;
 # float32 and integer work on the CUDA cores) and its bytes over the memory
@@ -463,6 +512,9 @@ PATH_KERNELS = {
     "converted_votenet_inference": ("fps", "ball_query"),
     "converted_imvotenet_inference": ("fps", "ball_query"),
     "fused_fcaf3d_inference": INFERENCE_KERNELS,
+    "fcaf3d_dp_training": TRAINING_KERNELS,
+    "votenet_dp_training": ("fps", "ball_query"),
+    "fcaf3d_dp_eval": INFERENCE_KERNELS,
 }
 
 
@@ -5428,6 +5480,565 @@ def tools_phase(torch, cfg, scans, vt_recs, iv_recs, device):
     return launches, variants, k1
 
 
+def rank_rows(batch, group):
+    """This rank's rows of every global-batch array of `batch`."""
+    b = len(next(iter(batch.values()))) // group.world
+    return {k: v[group.rank * b:(group.rank + 1) * b]
+            for k, v in batch.items()}
+
+
+@contextlib.contextmanager
+def timed_collectives(torch, spent):
+    """Every collective of a `parallel.Group` inside appends its seconds to
+    `spent`, from a synchronise before it (so that the device's pending
+    work is not counted) to one after it."""
+    from fcaf3d_tpu_torch.parallel.comm import Group
+
+    names = ("all_reduce", "all_gather", "broadcast")
+    real = {name: getattr(Group, name) for name in names}
+
+    def timed(fn):
+        def call(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            spent.append(time.perf_counter() - t0)
+            return out
+        return call
+
+    for name, fn in real.items():
+        setattr(Group, name, timed(fn))
+    try:
+        yield
+    finally:
+        for name, fn in real.items():
+            setattr(Group, name, fn)
+
+
+def state_digest(model):
+    """sha256 of every variable's bytes, in state-dict order."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for name, t in model.state_dict().items():
+        h.update(name.encode())
+        h.update(t.detach().cpu().contiguous().view(-1).view(
+            torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def dp_fcaf3d_rank(torch, group, cfg, batch, held=True):
+    """(a) on one rank: `make_train_step(group=)` at `cfg` on this rank's
+    rows, a warm-up step whose K1 calls are checked and K2-K4 calls held as
+    phase 6's (`hold_recorded`; not with `held` False), DP_TRAIN_STEPS
+    timed steps (K1-K4 launched on the path's variants), then one step
+    with its collectives timed; finite metrics, a live box loss, zero
+    overflow at every step. Returns the record, the launches and the
+    launches by variant of the timed steps."""
+    from fcaf3d_tpu_torch import _native
+    from fcaf3d_tpu_torch.train import create_train_state, make_train_step
+
+    what = (f"rank {group.rank}: one data-parallel fcaf3d step, "
+            f"{len(batch['points'])} of the global batch")
+    model, opt, _ = create_train_state(cfg, seed=0, device=group.device)
+    step = make_train_step(model, cfg, opt, group=group)
+    k1_calls = {}
+    conv_calls = {"fused_gather_gemm": [], "fused_gather_max": [],
+                  "fused_gather_dw": []}
+    if held:
+        with recorded_k1_calls(k1_calls), recorded_conv_calls(conv_calls):
+            step(batch)  # warm-up: cuBLAS and the allocator
+        # the K1 times it logs are taken with the other ranks on the card
+        hold_recorded(torch, k1_calls, conv_calls, 1, what)
+    else:
+        step(batch)
+    k1_calls.clear()
+    conv_calls.clear()
+    torch.cuda.reset_peak_memory_stats()
+    _native.reset_launches()
+    walls, metrics, spent = [], [], []
+
+    def timed_step():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = step(batch)
+        torch.cuda.synchronize()
+        metrics.append({k: float(v) for k, v in m.items()})
+        return (time.perf_counter() - t0) * 1e3
+
+    for _ in range(DP_TRAIN_STEPS):
+        walls.append(timed_step())
+    launches = dict(_native.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    variants = check_variants(what, ("gather_gemm", "gather_dw"))
+    # one more step with every collective timed between synchronises (the
+    # synchronises cost NCCL its overlap; gloo's host copies wait anyway)
+    with timed_collectives(torch, spent):
+        timed_wall = timed_step()
+    check_step_metrics(metrics, what)
+    check_path_launches(launches, "fcaf3d_dp_training")
+    for i, (wall, m) in enumerate(zip(walls + [timed_wall], metrics)):
+        timed = (f" with its {len(spent)} collectives timed, "
+                 f"{sum(spent) * 1e3:.1f} ms in them "
+                 f"({max(spent) * 1e3:.1f} the largest)")
+        log(f"   rank {group.rank} step {i}: {wall:.1f} ms wall"
+            + (timed if i == len(walls) else "") + "; "
+            + ", ".join(f"{k} {v:.5g}" for k, v in m.items()))
+    rec = {"step_wall_ms": float(np.mean(walls)),
+           "timed_step_wall_ms": timed_wall,
+           "collective_ms": sum(spent) * 1e3,
+           "grad_all_reduce_ms": max(spent) * 1e3,  # the largest
+           "collective_share": sum(spent) * 1e3 / timed_wall,
+           "collectives_a_step": len(spent), "peak_gib": peak,
+           "metrics": metrics, "digest": state_digest(model)}
+    return rec, launches, variants
+
+
+def dp_tiny_grads(torch, group, device, batch, vote):
+    """One f32 train step at `fcaf3d_tiny` (`vote`: `votenet_tiny`) on
+    this rank's rows of `batch` (the whole batch with no group): metrics,
+    the (summed) gradients and the running statistics, on the CPU."""
+    from fcaf3d_tpu_torch.configs import fcaf3d_tiny, votenet_tiny
+    from fcaf3d_tpu_torch.train import (create_train_state,
+                                        create_votenet_train_state,
+                                        make_train_step,
+                                        make_votenet_train_step)
+
+    if vote:
+        cfg = votenet_tiny()
+        model, opt, _ = create_votenet_train_state(cfg, 0, device)
+        step = make_votenet_train_step(model, cfg, opt, group=group)
+    else:
+        cfg = fcaf3d_tiny()
+        model, opt, _ = create_train_state(cfg, 0, device)
+        step = make_train_step(model, cfg, opt, group=group)
+    m = step(batch if group is None else rank_rows(batch, group))
+    return {"metrics": {k: float(v) for k, v in m.items()},
+            "grads": {n: p.grad.cpu() for n, p in model.named_parameters()},
+            "stats": {n: v.cpu() for n, v in model.named_buffers()}}
+
+
+def dp_evaluations(torch, cfg, root, params, group, world, device):
+    """(d) `evaluate_dataset` of the seeded bf16 detector (`params`: the
+    pickle of its seeded draw) over the val split, whose GT comes from its
+    own detections, at global batch DP_EVAL_BATCH (DP_EVAL_BATCH / `world`
+    scenes a forward with no group, as a rank runs them), without and with
+    TTA: {tta: (metrics, per-scene detections)}; the launches of the run.
+    Under a group, the K1-K3 calls of the rank's first forward and of the
+    flipped forwards of its first TTA batch are first held to plain
+    (`hold_recorded`), as phase 13 holds its evaluations."""
+    from fcaf3d_tpu_torch import _native
+    from fcaf3d_tpu_torch.apis import init_detector
+    from fcaf3d_tpu_torch.apis.test import (FLIP_TTA, evaluate_dataset,
+                                            make_test_pipeline)
+    from fcaf3d_tpu_torch.data import SCANNET_CLASSES, IndoorDetDataset
+
+    model = init_detector(cfg, params_file=params, device=device)
+    val = IndoorDetDataset(root, os.path.join(root, "scannet_infos_val.pkl"),
+                           SCANNET_CLASSES, make_test_pipeline(cfg),
+                           test_mode=True)
+    batch = DP_EVAL_BATCH if group is not None else DP_EVAL_BATCH // world
+    if group is not None:
+        flipped = set(range(1, len(FLIP_TTA)))  # FLIP_TTA[0] flips nothing
+        for tta, which, what in (
+                (False, {0}, "its first forward"),
+                (True, flipped, "the flipped forwards of its first TTA "
+                 "batch")):
+            calls = {}
+            conv_calls = {"fused_gather_gemm": [], "fused_gather_max": []}
+            with recorded_forwards(which, calls, conv_calls):
+                evaluate_dataset(model, val, cfg, batch_size=batch, tta=tta,
+                                 max_scenes=batch, group=group)
+            hold_recorded(torch, calls, conv_calls, len(which),
+                          f"bf16 fcaf3d_dp_eval rank {group.rank}, {what}")
+            del calls, conv_calls
+        torch.cuda.synchronize()
+    _native.reset_launches()
+    out = {}
+    for tta in (False, True):
+        store = []
+        with recorded_indoor_eval(store):
+            metrics = evaluate_dataset(model, val, cfg, batch_size=batch,
+                                       tta=tta, group=group)
+        out[tta] = (metrics, store[0][2])
+    return out, dict(_native.LAUNCHES), {
+        "/".join(k): n for k, n in sorted(_native.VARIANT_LAUNCHES.items())}
+
+
+def same_metrics(a, b):
+    """The same keys and values, a NaN equal to a NaN."""
+    return set(a) == set(b) and all(
+        a[k] == b[k] or (np.isnan(a[k]) and np.isnan(b[k])) for k in a)
+
+
+def dp_rank(group, spec, out_dir):
+    """Phase 15's work on one rank: (a), (b) and (c)'s steps, (d)'s sharded
+    evaluation and, with a `weak_batch` (`--nccl`), (a)'s step at
+    TRAIN_BATCH a rank; saves the records to `out_dir`."""
+    import torch
+
+    from fcaf3d_tpu_torch import _native
+    from fcaf3d_tpu_torch.configs import votenet_sunrgbd
+    from fcaf3d_tpu_torch.train import (create_votenet_train_state,
+                                        make_votenet_train_step)
+
+    _native.load()  # built by the parent
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = group.device
+    out = {"launches": {}, "variants": {}}
+    out["fcaf3d"], out["launches"]["fcaf3d_dp_training"], \
+        out["variants"]["fcaf3d_dp_training"] = dp_fcaf3d_rank(
+            torch, group, spec["cfg"], rank_rows(spec["batch"], group))
+    out["tiny"] = dp_tiny_grads(torch, group, device, spec["tiny_batch"],
+                                False)
+    vcfg = votenet_sunrgbd()
+    model, opt, _ = create_votenet_train_state(vcfg, seed=0, device=device)
+    step = make_votenet_train_step(model, vcfg, opt, group=group)
+    l, v, out["votenet"], _ = held_and_timed_steps(
+        torch, model, step, rank_rows(spec["vote_batch"], group),
+        VOTE_TRAIN_STEPS, f"votenet_dp_training rank {group.rank}",
+        ("vote_loss", "center_loss", "iou_loss"), 5, vcfg)
+    out["votenet"]["digest"] = state_digest(model)
+    out["launches"]["votenet_dp_training"] = l
+    out["variants"]["votenet_dp_training"] = v
+    del model, opt, step
+    out["vote_tiny"] = dp_tiny_grads(torch, group, device,
+                                     spec["vote_tiny_batch"], True)
+    out["eval"], out["launches"]["fcaf3d_dp_eval"], \
+        out["variants"]["fcaf3d_dp_eval"] = dp_evaluations(
+            torch, spec["cfg"], spec["root"], spec["params"], group,
+            group.world, device)
+    if spec["weak_batch"] is not None:
+        out["weak"] = dp_fcaf3d_rank(
+            torch, group, spec["cfg"], rank_rows(spec["weak_batch"], group),
+            held=False)[0]
+    torch.save(out, os.path.join(out_dir, f"dp_rank{group.rank}.pt"))
+
+
+def dp_tiny_gate(got, want, what, by_norm=False):
+    """W ranks against one process on the card: each loss within
+    TRAIN_LOSS_RTOL of the total, each gradient element within
+    TINY_GRAD_RTOL of its leaf's largest, or with `by_norm` each leaf
+    within TINY_GRAD_RTOL in L2 norm (VoteNet: flax's fast variance
+    E[x^2] - E[x]^2 cancels in f32, so the ranks' other summation order
+    scatters single elements, 3.6e-3 of a leaf's largest and 8.5e-4 in
+    norm at `--nccl 4`, where float64 on the CPU holds W = 2 to one process
+    within 1e-10, `tests/test_torch_parallel.py`); a
+    Dense bias ahead of a train-mode BN, whose gradient is exactly 0,
+    within 1e-4 of its kernel's largest on both sides; running statistics
+    within VOTE_STATS_ATOL."""
+    total = want["metrics"]["loss"]
+    loss_err = max(abs(got["metrics"][k] - v) for k, v in
+                   want["metrics"].items() if "loss" in k) / abs(total)
+    worst = {"element": (0.0, None), "norm": (0.0, None)}
+    for name, g in want["grads"].items():
+        if name.endswith("Dense_0.bias"):
+            scale = float(want["grads"][name[:-4] + "kernel"].abs().max())
+            if max(float(got["grads"][name].abs().max()),
+                   float(g.abs().max())) > 1e-4 * scale:
+                raise AssertionError(f"{what}: {name} gradient not ~0")
+            continue
+        d = got["grads"][name] - g
+        for kind, err in (
+                ("element", float(d.abs().max()) / max(float(g.abs().max()),
+                                                        1e-30)),
+                ("norm", float(d.norm()) / max(float(g.norm()), 1e-30))):
+            worst[kind] = max(worst[kind], (err, name))
+    stats = max(float((got["stats"][n] - v).abs().max())
+                for n, v in want["stats"].items())
+    gated = "norm" if by_norm else "element"
+    log(f"   {what}: losses {want['metrics']} (max err {loss_err:.3g} of "
+        f"the total, tol {TRAIN_LOSS_RTOL}); worst gradient leaf by element "
+        f"{worst['element'][1]} {worst['element'][0]:.3g} of its largest, "
+        f"in L2 norm {worst['norm'][1]} {worst['norm'][0]:.3g} (tol "
+        f"{TINY_GRAD_RTOL} {'in norm' if by_norm else 'by element'}); "
+        f"running statistics within {stats:.3g} (tol {VOTE_STATS_ATOL})")
+    if loss_err > TRAIN_LOSS_RTOL or worst[gated][0] > TINY_GRAD_RTOL \
+            or stats > VOTE_STATS_ATOL:
+        raise AssertionError(f"{what}: the ranks and one process disagree")
+
+
+def torchrun(tool, nproc, *args):
+    """The arguments after `python -m` of `torch.distributed.run
+    --standalone --nproc_per_node=N -m fcaf3d_tpu_torch.tools.<tool>
+    args`."""
+    return ["torch.distributed.run", "--standalone",
+            f"--nproc_per_node={nproc}", "-m",
+            f"fcaf3d_tpu_torch.tools.{tool}", *args]
+
+
+def run_together(jobs, timeout=600):
+    """Start every command of `jobs` ({name: the arguments after `python
+    -m`}) at once from the repository root, each in a session of its own;
+    raises unless each exits 0 within `timeout` s, and then kills every
+    session still running (torchrun's ranks with their launcher). Returns
+    {name: (stdout, seconds from the start to its exit)}."""
+    import signal
+    import tempfile
+
+    t0 = time.perf_counter()
+    procs, done = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
+        try:
+            for name, argv in jobs.items():
+                out, err = (open(os.path.join(tmp, f"{name}.{k}"), "w+")
+                            for k in ("out", "err"))
+                procs[name] = (subprocess.Popen(
+                    [sys.executable, "-m", *argv], cwd=REPO, stdout=out,
+                    stderr=err, text=True, start_new_session=True), out, err)
+            while len(done) < len(procs):
+                if time.perf_counter() - t0 > timeout:
+                    raise AssertionError(f"{sorted(set(procs) - set(done))}"
+                                         f" still running after {timeout} s")
+                for name, (p, out, err) in procs.items():
+                    if name in done or p.poll() is None:
+                        continue
+                    out.seek(0)
+                    err.seek(0)
+                    if p.returncode != 0:
+                        raise AssertionError(
+                            f"{name} exited {p.returncode}:\n"
+                            f"{out.read()[-3000:]}\n{err.read()[-3000:]}")
+                    done[name] = (out.read(), time.perf_counter() - t0)
+                time.sleep(0.1)
+        finally:
+            for p, out, err in procs.values():
+                if p.poll() is None:
+                    os.killpg(p.pid, signal.SIGKILL)
+                    p.wait()
+                out.close()
+                err.close()
+    return done
+
+
+def dp_clis(torch, root, params, want, tmp, device, backend, world):
+    """The CLIs under torchrun, started together (`run_together`). Over
+    gloo: (e) `tools.train` for one epoch at one NCCL rank, its checkpoint
+    bitwise equal to the launcher-less run's; (f) the same at `world` gloo
+    ranks sharing card 0, one checkpoint. Over NCCL: at `world` ranks, one
+    card a rank, one checkpoint. Both: `tools.test --sharded` at `world`
+    ranks on the seeded detector's weights (`params`), DP_EVAL_BATCH /
+    `world` scenes a rank a forward, its metrics (mAP_0.25 above 0: the
+    val GT comes from these weights' detections) equal to `want`, (d)'s
+    one process at the same scenes a forward."""
+    base = ["--dataset", "scannet", "--data-root", root, "--batch",
+            str(TRAIN_BATCH), "--epochs", "1", "--no-eval"]
+    # gloo's ranks share card 0; NCCL's rank r takes card r
+    args = ["--dist-backend", backend] + (
+        ["--device", f"{device}:0"] if backend == "gloo" else [])
+    work = os.path.join(tmp, f"cli_{backend}")
+    sharded = os.path.join(tmp, "sharded.json")
+    jobs = {"train": torchrun("train", world, *base, "--work-dir", work,
+                              "--launcher", "pytorch", *args),
+            "test": torchrun("test", world, "--dataset", "scannet",
+                             "--data-root", root, "--params", params,
+                             "--sharded", "--batch", str(DP_EVAL_BATCH),
+                             "--out", sharded, *args)}
+    plain, nccl = (os.path.join(tmp, f"cli_{k}") for k in ("plain", "nccl1"))
+    if backend == "gloo":
+        jobs["plain"] = ["fcaf3d_tpu_torch.tools.train", *base,
+                         "--work-dir", plain, "--device", device]
+        jobs["nccl1"] = torchrun("train", 1, *base, "--work-dir", nccl,
+                                 "--launcher", "pytorch", "--dist-backend",
+                                 "nccl")
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info()[0] / 2**30
+    done = run_together(jobs)
+    log(f"   the {len(jobs)} CLI runs started together ({free:.1f} GiB free "
+        "on card 0 at their start): "
+        + ", ".join(f"{k} {dt:.1f} s" for k, (_, dt) in done.items()))
+    if backend == "gloo":
+        a, b = (torch.load(os.path.join(w, "ckpts", "epoch_1.pt"),
+                           weights_only=True) for w in (plain, nccl))
+        differ = [k for k in a["variables"] if not torch.equal(
+            a["variables"][k], b["variables"][k])] + [
+            f"{m}/{k}" for m in ("mu", "nu") for k in a[m]
+            if not torch.equal(a[m][k], b[m][k])]
+        if differ or (a["count"], a["epoch"]) != (b["count"], b["epoch"]) \
+                or set(a["variables"]) != set(b["variables"]):
+            raise AssertionError("(e) the NCCL W = 1 checkpoint differs from "
+                                 f"the launcher-less run's: {differ[:8]}")
+        log(f"   (e) tools.train, 1 epoch of {a['count']} steps at batch "
+            f"{TRAIN_BATCH}, without a launcher and under torchrun at 1 "
+            f"NCCL rank: checkpoints bitwise equal ({len(a['variables'])} "
+            "variables, both moments, count)")
+    ckpts = sorted(os.listdir(os.path.join(work, "ckpts")))
+    with open(os.path.join(work, "train_log.jsonl")) as f:
+        recs = [json.loads(line) for line in f if "loss" in line]
+    if ckpts != ["epoch_1.pt", "meta.json"] or not recs or not all(
+            np.isfinite(r["loss"]) for r in recs):
+        raise AssertionError(f"torchrun at {world} {backend} ranks: {ckpts}, "
+                             f"{recs}")
+    log(f"   {'(f) ' if backend == 'gloo' else ''}tools.train under "
+        f"torchrun at {world} {backend} ranks: {ckpts}, last step record "
+        f"{recs[-1]}")
+    with open(sharded) as f:
+        got = json.load(f)
+    if not same_metrics(got, want) or not got["mAP_0.25"] > 0:
+        raise AssertionError(f"tools.test --sharded at {world} {backend} "
+                             f"ranks: {got} against {want}")
+    log(f"   tools.test --sharded under torchrun at {world} {backend} ranks, "
+        f"batch {DP_EVAL_BATCH}: its {len(got)} metrics equal to one "
+        f"process's (mAP_0.25 {got['mAP_0.25']:.4f}, mAP_0.50 "
+        f"{got['mAP_0.50']:.4f})")
+
+
+def data_parallel_phase(torch, cfg, bare_step_ms, vote_bare_ms, device,
+                        backend="gloo", world=DP_WORLD):
+    """Phase 15: data parallelism at `world` ranks, gloo ranks sharing card
+    0 or (`--nccl`) NCCL ranks one a card (module docstring). Returns
+    launches, launches by variant and records of the three DP paths."""
+    import pickle
+    import tempfile
+
+    from fcaf3d_tpu_torch.apis import init_detector
+    from fcaf3d_tpu_torch.configs import fcaf3d_tiny, votenet_sunrgbd
+    from fcaf3d_tpu_torch.configs import votenet_tiny
+    from fcaf3d_tpu_torch.parallel import spawn
+    from fcaf3d_tpu_torch.params import init_variables
+
+    vcfg = votenet_sunrgbd()
+    where = (f"{backend} ranks sharing {device}:0" if backend == "gloo"
+             else f"{backend} ranks, one a card")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as tmp:
+        root = os.path.join(tmp, "scannet")
+        write_scannet_root(root, DP_TRAIN_SCENES, PLATFORM_SCENES[1],
+                           cfg.n_classes)
+        params = os.path.join(tmp, "seeded.pkl")
+        with open(params, "wb") as f:
+            pickle.dump(init_variables(cfg, 0), f)
+        # the val GT from the seeded detector's own detections, so that
+        # (d)'s and tools.test's metric comparisons see matches
+        val_ann = os.path.join(root, "scannet_infos_val.pkl")
+        taken = gt_from_detections(
+            root, val_ann, val_ann, cfg,
+            init_detector(cfg, params_file=params, device=device))
+        log(f"   val GT from the seeded detector's detections: 2 of "
+            + ", ".join(str(n) for n, _, _ in taken) + " a scene")
+        spec = {"cfg": cfg, "root": root, "params": params,
+                "batch": train_batch(cfg, TRAIN_BATCH, seed0=0),
+                "weak_batch": (train_batch(cfg, TRAIN_BATCH * world, seed0=0)
+                               if backend == "nccl" else None),
+                "tiny_batch": head_batch(torch, fcaf3d_tiny(), TINY_EXTENT,
+                                         b=world),
+                "vote_batch": vote_train_batch(vcfg, 16, seed0=0),
+                "vote_tiny_batch": vote_head_batch(votenet_tiny(), b=world)}
+        one = {"tiny": dp_tiny_grads(torch, None, device, spec["tiny_batch"],
+                                     False),
+               "vote_tiny": dp_tiny_grads(torch, None, device,
+                                          spec["vote_tiny_batch"], True)}
+        one["eval"] = dp_evaluations(torch, cfg, root, params, None, world,
+                                     device)[0]
+        if not one["eval"][False][0]["mAP_0.25"] > 0:
+            raise AssertionError(f"(d) one process: {one['eval'][False][0]}")
+        torch.cuda.empty_cache()  # gloo's ranks share the card
+        t0 = time.perf_counter()
+        spawn(dp_rank, world, spec, tmp, backend=backend,
+              device=f"{device}:0" if backend == "gloo" else device)
+        log(f"   -- (a)-(d) at {world} {where}: "
+            f"{time.perf_counter() - t0:.1f} s with the ranks' start")
+        ranks = [torch.load(os.path.join(tmp, f"dp_rank{r}.pt"),
+                            weights_only=False) for r in range(world)]
+        a = [r["fcaf3d"] for r in ranks]
+        if len({r["digest"] for r in a}) != 1 or any(
+                r["metrics"] != a[0]["metrics"] for r in a):
+            raise AssertionError("(a) the ranks' variables or metrics differ")
+        log(f"   (a) fcaf3d_scannet bf16, global batch {TRAIN_BATCH} at "
+            f"{world} {where}: " + "; ".join(
+                f"rank {i} {r['step_wall_ms']:.1f} ms/step; with its "
+                f"{r['collectives_a_step']} collectives timed "
+                f"{r['timed_step_wall_ms']:.1f} ms, {r['collective_ms']:.1f} "
+                f"in them (share {r['collective_share']:.3f}; the gradients' "
+                f"{r['grad_all_reduce_ms']:.1f}); peak {r['peak_gib']:.2f} GiB"
+                for i, r in enumerate(a))
+            + f"; the bare batch-{TRAIN_BATCH} step {bare_step_ms:.1f} ms; "
+            "variables bitwise equal over the ranks")
+        for i, r in enumerate(ranks):
+            dp_tiny_gate(r["tiny"], one["tiny"],
+                         f"(b) f32 fcaf3d_tiny rank {i}, W = {world} vs 1")
+            dp_tiny_gate(r["vote_tiny"], one["vote_tiny"],
+                         f"(c) f32 votenet_tiny rank {i}, W = {world} vs 1",
+                         by_norm=True)
+            for tta, (metrics, dets) in r["eval"].items():
+                m1, d1 = one["eval"][tta]
+                if not same_metrics(metrics, m1) or len(dets) != len(d1) \
+                        or not all(
+                        np.array_equal(x[k], y[k]) for x, y in zip(dets, d1)
+                        for k in x):
+                    raise AssertionError(f"(d) rank {i} tta={tta}: sharded "
+                                         "evaluation differs")
+        c = [r["votenet"] for r in ranks]
+        if len({r["digest"] for r in c}) != 1:
+            raise AssertionError("(c) the ranks' VoteNet variables differ")
+        log(f"   (c) votenet_sunrgbd f32, global batch 16 at {world} ranks: "
+            + "; ".join(f"rank {i} {r['step_wall_ms']:.1f} ms/step, peak "
+                        f"{r['peak_gib']:.2f} GiB" for i, r in enumerate(c))
+            + f"; the bare batch-16 step {vote_bare_ms:.1f} ms; variables "
+            "bitwise equal over the ranks")
+        log(f"   (d) sharded evaluation of {PLATFORM_SCENES[1]} val scenes at "
+            f"global batch {DP_EVAL_BATCH}: every rank's metrics and "
+            "detections equal to one process's, with and without TTA "
+            f"(mAP_0.25 {one['eval'][False][0]['mAP_0.25']:.4f}, with "
+            f"TTA {one['eval'][True][0]['mAP_0.25']:.4f})")
+        weak = [r["weak"] for r in ranks if "weak" in r]
+        if weak:
+            if len({r["digest"] for r in weak}) != 1:
+                raise AssertionError("the weak-scaling ranks' variables "
+                                     "differ")
+            dp_ms = max(r["step_wall_ms"] for r in weak)
+            log(f"   weak scaling: fcaf3d_scannet bf16, {TRAIN_BATCH} a rank "
+                f"(global batch {TRAIN_BATCH * world}) at {world} {where}: "
+                + "; ".join(f"rank {i} {r['step_wall_ms']:.1f} ms/step, "
+                            f"peak {r['peak_gib']:.2f} GiB"
+                            for i, r in enumerate(weak))
+                + f"; the bare batch-{TRAIN_BATCH} step {bare_step_ms:.1f} "
+                f"ms; an epoch {world * bare_step_ms / dp_ms:.2f} x faster "
+                f"than on one card ({world} x {bare_step_ms:.1f} / "
+                f"{dp_ms:.1f}, the slowest rank); variables bitwise equal "
+                "over the ranks")
+        dp_clis(torch, root, params, one["eval"][False][0], tmp, device,
+                backend, world)
+    paths = ("fcaf3d_dp_training", "votenet_dp_training", "fcaf3d_dp_eval")
+    launches, variants = {}, {}
+    for p in paths:
+        launches[p], variants[p] = {}, {}
+        for r in ranks:
+            launches[p] = add_counts(launches[p], r["launches"][p])
+            variants[p] = add_counts(variants[p], r["variants"][p])
+        check_path_launches(launches[p], p)
+    return launches, variants, {"fcaf3d": a, "votenet": c, "weak": weak}
+
+
+def nccl_phase(torch, cfg, world):
+    """`--nccl N`: phase 15 over NCCL at N ranks, one a card, with (a)'s
+    step also at TRAIN_BATCH a rank (weak scaling: global batch N x
+    TRAIN_BATCH), beside the bare single-card steps of phases 6 and 11
+    (card 0)."""
+    from fcaf3d_tpu_torch import _native
+    from fcaf3d_tpu_torch.configs import votenet_sunrgbd
+
+    if torch.cuda.device_count() < world:
+        raise SystemExit(f"chip_smoke --nccl {world}: "
+                         f"{torch.cuda.device_count()} cards")
+    log(f"== bare steps on card 0: fcaf3d_scannet bf16 batch {TRAIN_BATCH}, "
+        "votenet_sunrgbd f32 batch 16")
+    *_, step_ms = train_phase(torch, cfg, train_batch(cfg, TRAIN_BATCH, 0),
+                              "cuda")
+    vcfg = votenet_sunrgbd()
+    _, _, vrec, _ = vote_train_phase(torch, vcfg, vote_train_batch(vcfg, 16,
+                                                                   0),
+                                     "cuda", VOTE_TRAIN_STEPS,
+                                     "votenet_training")
+    _native.reset_launches()
+    log(f"== 15 over NCCL: {world} ranks, one a card")
+    return data_parallel_phase(torch, cfg, step_ms, vrec["step_wall_ms"],
+                               "cuda", backend="nccl", world=world)
+
+
 KERNELS = (
     ("searchsorted", "fcaf3d_tpu_torch/csrc/search.cu",
      "fcaf3d_tpu/ops/sparse/search.py:149"),
@@ -5452,6 +6063,9 @@ def main():
     ap.add_argument("--grad-control", type=int, metavar="SEEDS",
                     help="measure the f32 ScanNet gradients' sensitivity "
                          "over SEEDS seeds instead")
+    ap.add_argument("--nccl", type=int, metavar="N",
+                    help="run phase 15 over NCCL at N ranks, one a card, "
+                         "instead")
     args = ap.parse_args()
     import torch
 
@@ -5470,6 +6084,8 @@ def main():
         return profile_train(torch, cfg, batch)
     if args.grad_control:
         return grad_control(torch, cfg, "cuda", args.grad_control)
+    if args.nccl:
+        return nccl_phase(torch, cfg, args.nccl)
     scans = [scan(seed) for seed in range(3)]
     log("== 3 kernels against their plain versions, main-path shapes")
     maps = backbone_maps(sample(scans[0], cfg)[None], cfg, "cuda")
@@ -5551,6 +6167,17 @@ def main():
     tl_launches, tl_variants, tl_k1 = tools_phase(torch, cfg, scans, vt_recs,
                                                   iv_recs, "cuda")
     rec["searchsorted"]["path_calls"].update(tl_k1)
+    log(f"== 15 data parallelism: {DP_WORLD} gloo ranks sharing the card: "
+        f"fcaf3d_scannet (bf16, global batch {TRAIN_BATCH}), votenet_sunrgbd "
+        "(f32, global batch 16), tiny gates against one process, sharded "
+        "evaluation, tools.train / tools.test under torchrun (NCCL at 1 "
+        "rank, gloo at "
+        f"{DP_WORLD})")
+    dp_launches, dp_variants, dp_recs = data_parallel_phase(
+        torch, cfg, step_ms, vt_recs["votenet_training"]["step_wall_ms"],
+        "cuda")
+    rec["gather_gemm"]["data_parallel"] = dp_recs["fcaf3d"]
+    rec["fps"]["votenet_dp_training"] = dp_recs["votenet"]
     log(f"== all phases passed in {time.perf_counter() - t_start:.1f} s")
     for what, ms, first, second in NOT_FASTER:
         log(f"   not faster than a yardstick: {what}: kernel {ms:.4f} ms, "
@@ -5559,12 +6186,12 @@ def main():
                "fcaf3d_training": train_launches,
                "votenet_inference": vote_launches, **other_launches,
                **rest_launches, **vt_launches, **iv_launches,
-               **pf_launches, **tl_launches}
+               **pf_launches, **tl_launches, **dp_launches}
     variants = {"fcaf3d_inference": infer_variants,
                 "fcaf3d_training": train_variants,
                 "votenet_inference": vote_variants, **other_variants,
                 **rest_variants, **vt_variants, **iv_variants,
-                **pf_variants, **tl_variants}
+                **pf_variants, **tl_variants, **dp_variants}
     kernels = []
     for name, src, tpu in KERNELS:
         k = {"name": name, "route": "cuda", "source": src, "replaces": tpu,

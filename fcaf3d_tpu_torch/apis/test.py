@@ -1,6 +1,7 @@
 """Evaluation API (port of `fcaf3d_tpu/apis/test.py`): run the detector over
 a dataset, with or without flip test-time augmentation, and compute indoor
-mAP (the reference's `single_gpu_test` + `dataset.evaluate`)."""
+mAP (the reference's `single_gpu_test` + `dataset.evaluate`; sharded over
+a data-parallel group, its `multi_gpu_test`)."""
 from __future__ import annotations
 
 from typing import Dict, List, Optional, Sequence, Union
@@ -17,6 +18,7 @@ from ..data.pipelines import Compose, GlobalAlignment, PointSample
 from ..models.detector import FCAF3D, infer_config
 from ..models.fcaf3d_head import Detections, fcaf3d_get_bboxes
 from ..models.votenet import VoteDetections
+from ..parallel.comm import Group, all_gather_object, rank, world
 
 
 def detections_to_numpy(dets: Union[Detections, VoteDetections],
@@ -84,7 +86,8 @@ def evaluate_dataset(model: FCAF3D, dataset, cfg: FCAF3DConfig,
                      batch_size: int = 1, seed: int = 0,
                      iou_thresholds=(0.25, 0.5),
                      max_scenes: Optional[int] = None, tta: bool = False,
-                     show_dir: Optional[str] = None) -> Dict[str, float]:
+                     show_dir: Optional[str] = None,
+                     group: Optional[Group] = None) -> Dict[str, float]:
     """Run inference over `dataset` (test-mode pipeline; scene i drawn with
     `default_rng([seed, i])`) in batches on the model's device and compute
     mAP/mAR with `indoor_eval`.
@@ -93,40 +96,59 @@ def evaluate_dataset(model: FCAF3D, dataset, cfg: FCAF3DConfig,
     restored afterwards. tta=True runs the 4 BEV flip combinations per
     scene and merges the inverted detections with class-wise NMS
     (`MultiScaleFlipAug3D` + `aug_test`). show_dir: dump each scene's
-    points and pred / GT wireframes as .obj files."""
+    points and pred / GT wireframes as .obj files.
+
+    With a data-parallel `group` (the JAX function's `mesh=`) every rank
+    calls this; `batch_size` is the global batch, a multiple of the world
+    size W. Rank r runs rows [r B / W, (r + 1) B / W) of each global batch
+    (the last one padded with copies of its last scene, whose detections
+    are dropped); the scenes' records are gathered to every rank in scene
+    order and every rank returns the single process's metrics."""
+    w, r = world(group), rank(group)
+    if batch_size % w:
+        raise ValueError(f"batch_size {batch_size} must be a multiple of "
+                         f"the {w} ranks")
+    local = batch_size // w
+    records = []  # (scene, detections, GT) of this rank's scenes
     was_training = model.training
     model.eval()
     try:
         n = len(dataset) if max_scenes is None else min(max_scenes,
                                                          len(dataset))
-        gt_annos: List[dict] = []
-        dt_annos: List[dict] = []
         for lo in range(0, n, batch_size):
             idxs = list(range(lo, min(lo + batch_size, n)))
+            if group is not None:
+                idxs += idxs[-1:] * (batch_size - len(idxs))
+                idxs = idxs[r * local:(r + 1) * local]
+            real = [lo + r * local + j < n for j in range(len(idxs))]
             samples = [dataset(i, np.random.default_rng([seed, i]))
                        for i in idxs]
             batch = collate(samples, cfg.num_points, cfg.max_gt_boxes)
             if tta:
-                dt_annos.extend(aug_test_batch(model, batch, cfg, FLIP_TTA,
-                                               rotated=cfg.with_yaw))
+                dts = aug_test_batch(model, batch, cfg, FLIP_TTA,
+                                     rotated=cfg.with_yaw)
             else:
                 dets = detect_batch(model, cfg, batch["points"], batch)
-                dt_annos.extend(detections_to_numpy(dets, j)
-                                for j in range(len(samples)))
-            for s in samples:
-                gt_annos.append({"gt_boxes_3d": s["gt_boxes"],
-                                 "gt_labels_3d": s["gt_labels"]})
-            if show_dir is not None:
-                for j, (i, s) in enumerate(zip(idxs, samples)):
-                    show_result(s["points"][:, :3],
-                                dt_annos[lo + j]["boxes_3d"],
+                dts = [detections_to_numpy(dets, j)
+                       for j in range(len(samples))]
+            for i, s, dt, keep in zip(idxs, samples, dts, real):
+                if not keep:
+                    continue
+                records.append((i, dt, {"gt_boxes_3d": s["gt_boxes"],
+                                        "gt_labels_3d": s["gt_labels"]}))
+                if show_dir is not None:
+                    show_result(s["points"][:, :3], dt["boxes_3d"],
                                 np.asarray(s["gt_boxes"]).reshape(-1, 7),
                                 show_dir, f"scene_{i:05d}")
     finally:
         model.train(was_training)
+    records = sorted((rec for part in all_gather_object(records, group)
+                      for rec in part), key=lambda rec: rec[0])
     label2cat = ({i: c for i, c in enumerate(dataset.classes)}
                  if hasattr(dataset, "classes") else {})
-    return indoor_eval(gt_annos, dt_annos, iou_thresholds, label2cat)
+    return indoor_eval([gt for _, _, gt in records],
+                       [dt for _, dt, _ in records], iou_thresholds,
+                       label2cat)
 
 
 def make_test_pipeline(cfg: FCAF3DConfig, align: bool = True) -> Compose:

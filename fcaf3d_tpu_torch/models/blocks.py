@@ -25,6 +25,12 @@ from ..ops.sparse.conv import (
 )
 from ..ops.sparse.neck_ops import gen_children
 from ..ops.sparse.tensor import SparseTensor
+from ..parallel.comm import global_sums
+
+
+def at_least_f32(x: torch.Tensor) -> torch.Tensor:
+    """`x` in f32, or in its own dtype when that is wider (float64)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
 
 
 class SparseConv(nn.Module):
@@ -99,7 +105,10 @@ class SparseBatchNorm(nn.Module):
     mean and biased variance of the valid rows of the whole batch and moves
     the running statistics by momentum 0.1 (`running = 0.9 * running +
     0.1 * batch`, biased variance: not `torch.nn.BatchNorm`'s rule);
-    evaluation uses the running statistics."""
+    evaluation uses the running statistics. Under a data-parallel group
+    (`parallel.data_parallel`) the whole batch is the global one: the
+    count and sum, then the squared deviations, are summed over the ranks
+    (two all-reduces, gradients flowing through both)."""
 
     momentum = 0.1
 
@@ -118,12 +127,16 @@ class SparseBatchNorm(nn.Module):
         return inv, self.bias - self.mean * inv
 
     def forward(self, st: SparseTensor) -> SparseTensor:
-        feats32 = st.feats.float()
+        feats32 = at_least_f32(st.feats)
         if self.training:
             mask = st.valid[..., None].float()
-            count = torch.clamp_min(mask.sum(), 1.0)
-            mean = (feats32 * mask).sum(dim=(0, 1)) / count
-            var = (((feats32 - mean) ** 2) * mask).sum(dim=(0, 1)) / count
+            count, total = global_sums(mask.sum(),
+                                       (feats32 * mask).sum(dim=(0, 1)))
+            count = torch.clamp_min(count, 1.0)
+            mean = total / count
+            (sq,) = global_sums((((feats32 - mean) ** 2) * mask).sum(
+                dim=(0, 1)))
+            var = sq / count
             with torch.no_grad():
                 m = self.momentum
                 self.mean.copy_((1 - m) * self.mean + m * mean)
@@ -146,7 +159,7 @@ class SparseInstanceNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_features, device=device))
 
     def forward(self, st: SparseTensor) -> SparseTensor:
-        feats32 = st.feats.float()
+        feats32 = at_least_f32(st.feats)
         mask = st.valid[..., None].float()
         count = torch.clamp_min(mask.sum(dim=1, keepdim=True), 1.0)
         mean = (feats32 * mask).sum(dim=1, keepdim=True) / count

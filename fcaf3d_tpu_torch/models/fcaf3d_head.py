@@ -15,7 +15,8 @@
   (centerness 1, reg n_reg_outs, cls n_classes), exp(scale * reg[:6]).
 - `fcaf3d_loss`: focal cls over all valid locations, BCE centerness and
   centerness-weighted 3D IoU (rotated with `with_yaw`, else axis-aligned)
-  over the assigned positives; normalisers are batch means.
+  over the assigned positives; normalisers are batch means (of the global
+  batch under a data-parallel group).
 - `fcaf3d_get_bboxes`: per-level top `nms_pre`, box decode (the yaw by
   the config's parametrization), per-class top `nms_cap`, BEV NMS (rotated
   with `with_yaw`).
@@ -46,12 +47,14 @@ from ..ops.sparse.neck_ops import (
     threshold_select,
 )
 from ..ops.sparse.tensor import SENTINEL, SparseTensor, lookup
+from ..parallel.comm import global_batch
 from .assigner import fcaf3d_assign
 from .blocks import (
     SparseBatchNorm,
     SparseConv,
     SparseGenConv3,
     SparseGenerativeTranspose,
+    at_least_f32,
     sparse_elu,
 )
 from .losses import bce_loss_sum, focal_loss_sum, iou3d_loss_sum
@@ -206,9 +209,9 @@ class Fcaf3DNeckWithHead(nn.Module):
                                     f"out_block_{i}_bn", x, plan)
 
             # head outputs leave the (possibly bf16) conv path in f32
-            ctr_feats = self.centerness_conv(out).feats.float()
-            cls_feats = self.cls_conv(out).feats.float()
-            reg_feats = self.reg_conv(out).feats.float()
+            ctr_feats = at_least_f32(self.centerness_conv(out).feats)
+            cls_feats = at_least_f32(self.cls_conv(out).feats)
+            reg_feats = at_least_f32(self.reg_conv(out).feats)
             scale = getattr(self, f"scale_{i}")
             reg_dist = torch.exp(reg_feats[..., :6] * scale)
             bbox_pred = torch.cat([reg_dist, reg_feats[..., 6:]], dim=-1)
@@ -304,7 +307,13 @@ def fcaf3d_loss(outs: Tuple[HeadLevelOutput, ...], gt_boxes: torch.Tensor,
     Returns:
         {loss_centerness, loss_bbox, loss_cls} scalar tensors. Per-sample
         sums are divided by batch-mean normalisers (positive count, and the
-        sum of positive centerness targets for the box term).
+        sum of positive centerness targets for the box term). Under a
+        data-parallel group (`parallel.data_parallel`) the batch is the
+        global one: the per-sample sums and normaliser terms of every rank
+        are gathered (`parallel.global_batch`), so each rank's losses are
+        the global ones and its gradient flows to its own samples (gathered,
+        not summed: the means below stay one process's, bitwise at one
+        rank).
     """
     centerness, bbox_pred, cls_scores, points, valid, scales = \
         _concat_levels(outs)
@@ -331,8 +340,10 @@ def fcaf3d_loss(outs: Tuple[HeadLevelOutput, ...], gt_boxes: torch.Tensor,
     w = torch.where(pos_k, ctr_t_k, 0.0)
     bbox_sum = iou3d_loss_sum(pred_boxes, _take(assign.bbox_targets, pos_idx),
                               w, with_yaw=cfg.with_yaw)
+    n_pos, cls_sum, ctr_sum, bbox_sum, w_sum = global_batch(
+        n_pos, cls_sum, ctr_sum, bbox_sum, w.sum(dim=1))
     n_pos_avg = torch.clamp_min(n_pos.mean(), 1.0)
-    denorm = torch.clamp_min(w.sum(dim=1).mean(), 1e-6)
+    denorm = torch.clamp_min(w_sum.mean(), 1e-6)
     return {
         "loss_cls": (cls_sum / n_pos_avg).mean(),
         "loss_centerness": (ctr_sum / n_pos_avg).mean(),

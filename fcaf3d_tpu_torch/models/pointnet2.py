@@ -23,6 +23,7 @@ from ..ops.pointnet import (
     three_interpolate,
     three_nn,
 )
+from ..parallel.comm import current_group, global_sums
 
 
 class Dense(nn.Module):
@@ -47,7 +48,10 @@ class BatchNorm(nn.Module):
     whole), the variance in the fast form
     `max(0, mean(x^2) - mean(x)^2)`; gradients flow through both, and the
     running statistics become `0.9 * running + 0.1 * batch` (the biased
-    variance) outside the graph."""
+    variance) outside the graph. Under a data-parallel group
+    (`parallel.data_parallel`) the statistics are the global batch's: the
+    element count, sum x and sum x^2 summed over the ranks in one
+    all-reduce, gradients flowing through it."""
 
     eps = 1e-5
     momentum = 0.9
@@ -63,9 +67,17 @@ class BatchNorm(nn.Module):
         if self.training:
             axes = tuple(range(x.dim() - 1))
             x32 = x.to(torch.promote_types(x.dtype, torch.float32))
-            mean = x32.mean(axes)
-            var = torch.maximum((x32 * x32).mean(axes) - mean * mean,
-                                x32.new_zeros(()))
+            # Two forms on purpose: a CUDA `mean` scales the sum by 1/n,
+            # not sum / n, so sum / count would move single-card results
+            # off those of the model without data parallelism by rounding.
+            if current_group() is None:  # flax's means, as they were
+                mean, mean_sq = x32.mean(axes), (x32 * x32).mean(axes)
+            else:
+                count = x32.new_full((1,), x32.numel() // x32.shape[-1])
+                count, total, total_sq = global_sums(
+                    count, x32.sum(axes), (x32 * x32).sum(axes))
+                mean, mean_sq = total / count, total_sq / count
+            var = torch.maximum(mean_sq - mean * mean, x32.new_zeros(()))
             with torch.no_grad():
                 m = self.momentum
                 self.mean.copy_(m * self.mean + (1 - m) * mean)

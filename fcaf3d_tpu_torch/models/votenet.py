@@ -17,6 +17,7 @@ from ..configs.votenet import VoteNetConfig
 from ..core.geometry import box7_corners, gravity_center, points_in_boxes
 from ..core.nms import aligned_3d_nms
 from ..ops.pointnet import furthest_point_sample
+from ..parallel.comm import global_sums
 from .losses import iou3d_loss_sum
 from .pointnet2 import Dense, DenseBNReLU, PointNet2SASSG, PointSAModule
 
@@ -219,7 +220,10 @@ def votenet_common_losses(preds: dict, points: torch.Tensor,
     centre Chamfer-L2 of `pred_center` [B, P, 3] (x10). Returns (targets,
     {vote_loss, objectness_loss, center_loss}, the positives' weights
     [B, P]). Mins are `amin`: a tie's gradient is split among the tied
-    entries, as `jnp.min` splits it."""
+    entries, as `jnp.min` splits it. Under a data-parallel group
+    (`parallel.data_parallel`) the four normalising sums are the global
+    batch's (one all-reduce), so every loss here and in the callers is this
+    rank's share of the global one."""
     t = votenet_targets(points[..., :3], gt_boxes, gt_labels, gt_valid,
                         preds["aggregated_points"], gt_per_seed)
 
@@ -230,18 +234,20 @@ def votenet_common_losses(preds: dict, points: torch.Tensor,
         b, s, gt_per_seed, 3) + preds["seed_points"][:, :, None, :]
     diff = (preds["vote_points"][:, :, None, :] - gt_votes).abs().sum(-1)
     w = seed_mask.float()
-    w = w / (w.sum() + 1e-6)
+    obj_t = t.objectness
+    w_sum, mask_sum, obj_sum, gt_sum = global_sums(
+        w.sum(), t.objectness_mask.sum(), obj_t.sum(), gt_valid.sum())
+    w = w / (w_sum + 1e-6)
     vote_loss = 10.0 * (diff.amin(-1) * w).sum()
 
     logp = torch.log_softmax(preds["obj_scores"], dim=-1)  # [B, P, 2]
-    obj_t = t.objectness
     cls_w = 0.8 * obj_t + 0.2 * (1.0 - obj_t)
     ce = -(obj_t * logp[..., 1] + (1.0 - obj_t) * logp[..., 0]) * cls_w
-    ow = t.objectness_mask / (t.objectness_mask.sum() + 1e-6)
+    ow = t.objectness_mask / (mask_sum + 1e-6)
     objectness_loss = 5.0 * (ce * ow).sum()
 
-    box_w = obj_t / (obj_t.sum() + 1e-6)  # [B, P]
-    gt_w = gt_valid.float() / (gt_valid.sum() + 1e-6)
+    box_w = obj_t / (obj_sum + 1e-6)  # [B, P]
+    gt_w = gt_valid.float() / (gt_sum + 1e-6)
     c = pred_center[:, :, None, :] - gravity_center(gt_boxes)[:, None]
     d2 = (c ** 2).sum(-1)  # [B, P, G]
     d2 = torch.where(gt_valid[:, None, :], d2,

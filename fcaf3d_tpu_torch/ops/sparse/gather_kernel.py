@@ -404,9 +404,11 @@ def fused_gather_max(feats: torch.Tensor, idx: torch.Tensor, *,
 def fused_gather_dw_plain(feats: torch.Tensor, idx: torch.Tensor,
                           dout: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of K4, same arguments and result: the gathered
-    rows [B, M, K, C], then one f32 contraction over (b, m)."""
+    rows [B, M, K, C], then one f32 contraction over (b, m) (float64 in
+    float64)."""
     g = gather_rows(feats, idx)
-    return torch.einsum("bmkc,bme->kce", g.float(), dout.float())
+    dtype = torch.promote_types(feats.dtype, torch.float32)
+    return torch.einsum("bmkc,bme->kce", g.to(dtype), dout.to(dtype))
 
 
 DW_TARGET_BLOCKS = 1024  # K4 cuts the rows into slices until about this many

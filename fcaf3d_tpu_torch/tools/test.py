@@ -6,7 +6,11 @@ mAP / mAR of a trained run on a dataset's val split.
         [--tta] [--out metrics.json] [--show-dir vis] [--device cpu]
 
 The config and class names come from the run's `ckpts/meta.json` when it
-has them; `--set` overrides apply on top.
+has them; `--set` overrides apply on top. `--sharded`, under `torchrun
+--nproc_per_node=N`, shards the val scenes over the N ranks (`--batch` a
+multiple of N; the reference's `multi_gpu_test`): one card a rank over
+NCCL, or ranks sharing a card over gloo (`--dist-backend gloo --device
+cuda:0`); rank 0 prints and writes `--out`.
 """
 import argparse
 import json
@@ -18,6 +22,7 @@ from ..configs import (add_set_argument, apply_overrides, config_from_dict,
                        fcaf3d_s3dis, fcaf3d_scannet, fcaf3d_sunrgbd)
 from ..data import (S3DIS_CLASSES, SCANNET_CLASSES, SUNRGBD_CLASSES,
                     IndoorDetDataset)
+from ..parallel import destroy, init_from_env, rank
 from ..train.checkpoint import load_meta
 
 
@@ -40,7 +45,14 @@ def parse_args(argv=None):
                     help="4-way BEV flip test-time augmentation "
                          "(MultiScaleFlipAug3D + aug_test analog)")
     ap.add_argument("--device", default="cuda",
-                    help="torch device to evaluate on (default the card)")
+                    help="torch device to evaluate on (default the card; "
+                         "with --sharded, card LOCAL_RANK)")
+    ap.add_argument("--sharded", action="store_true",
+                    help="shard the val scenes over the ranks torchrun "
+                         "started (multi_gpu_test analog; --batch a "
+                         "multiple of the ranks)")
+    ap.add_argument("--dist-backend", choices=["nccl", "gloo"],
+                    default="nccl")
     add_set_argument(ap)
     args = ap.parse_args(argv)
     if not args.work_dir and not args.params:
@@ -75,16 +87,25 @@ def main(argv=None):
                            os.path.join(args.data_root, ann), classes,
                            make_test_pipeline(cfg, align=align),
                            test_mode=True)
-    model = init_detector(cfg, params_file=args.params,
-                          work_dir=args.work_dir, device=args.device)
-    metrics = evaluate_dataset(model, val, cfg, batch_size=args.batch,
-                               seed=args.seed, max_scenes=args.max_scenes,
-                               tta=args.tta, show_dir=args.show_dir)
-    for k in sorted(metrics):
-        print(f"{k}: {metrics[k]:.4f}")
-    if args.out:
-        with open(args.out, "w") as f:
-            json.dump(metrics, f, indent=2)
+    group, device = None, args.device
+    if args.sharded:
+        group = init_from_env(args.dist_backend, args.device)
+        device = group.device
+    try:
+        model = init_detector(cfg, params_file=args.params,
+                              work_dir=args.work_dir, device=device)
+        metrics = evaluate_dataset(model, val, cfg, batch_size=args.batch,
+                                   seed=args.seed,
+                                   max_scenes=args.max_scenes, tta=args.tta,
+                                   show_dir=args.show_dir, group=group)
+    finally:
+        destroy(group)
+    if rank(group) == 0:
+        for k in sorted(metrics):
+            print(f"{k}: {metrics[k]:.4f}")
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump(metrics, f, indent=2)
 
 
 if __name__ == "__main__":

@@ -7,6 +7,16 @@
 Trains on `--device` (default the card), evaluates mAP on the val split
 after each epoch unless `--no-eval`, and writes `config.json`,
 `train_log.jsonl` and `ckpts/` under the work dir.
+
+Data parallel, one process a rank (`--batch` stays the global batch; each
+rank loads its rows of every global batch):
+
+    torchrun --nproc_per_node=N -m fcaf3d_tpu_torch.tools.train \
+        --launcher pytorch [--dist-backend nccl] ...
+
+NCCL needs one card a rank (rank r on `cuda:LOCAL_RANK`). Several ranks
+can share one card over gloo (`--dist-backend gloo --device cuda:0`), for
+checks only: gloo stages every collective through the host.
 """
 import argparse
 import dataclasses
@@ -22,6 +32,7 @@ from ..data import (S3DIS_CLASSES, SCANNET_CLASSES, SUNRGBD_CLASSES, Compose,
                     GlobalAlignment, GlobalRotScaleTrans, IndoorDetDataset,
                     Loader, PointSample, RandomFlip, RepeatDataset,
                     build_s3dis)
+from ..parallel import destroy, init_from_env, rank, world
 
 
 def parse_args(argv=None):
@@ -46,7 +57,13 @@ def parse_args(argv=None):
                     help="linearly scale lr by batch/16 (the reference's "
                          "world-size rule)")
     ap.add_argument("--device", default="cuda",
-                    help="torch device to train on (default the card)")
+                    help="torch device to train on (default the card; "
+                         "under --launcher pytorch, card LOCAL_RANK)")
+    ap.add_argument("--launcher", choices=["none", "pytorch"],
+                    default="none",
+                    help="pytorch: a data-parallel rank started by torchrun")
+    ap.add_argument("--dist-backend", choices=["nccl", "gloo"],
+                    default="nccl")
     add_set_argument(ap)
     args = ap.parse_args(argv)
     if args.scales != 4 and args.dataset != "scannet":
@@ -122,27 +139,40 @@ def main(argv=None):
     args = parse_args(argv)
     cfg = build_config(args)
     classes, ds, val = build_datasets(args.dataset, args.data_root, cfg)
-    # one process: shard 0 of 1 (data parallelism is not ported yet)
-    loader = Loader(ds, cfg.batch_size, cfg.num_points, cfg.max_gt_boxes,
-                    seed=args.seed)
+    group, device = None, args.device
+    if args.launcher == "pytorch":
+        group = init_from_env(args.dist_backend, args.device)
+        device = group.device
+    try:
+        # this rank's rows of every global batch (JAX `tools/train.py`)
+        loader = Loader(ds, cfg.batch_size, cfg.num_points,
+                        cfg.max_gt_boxes, seed=args.seed,
+                        shard_index=rank(group), num_shards=world(group))
 
-    eval_hook = None
-    if not args.no_eval:
-        def eval_hook(model, epoch):
-            metrics = evaluate_dataset(model, val, cfg,
-                                       max_scenes=args.max_eval_scenes)
-            keys = [k for k in metrics if k.startswith(("mAP", "mAR"))]
-            print(f"[eval epoch {epoch}] "
-                  + " ".join(f"{k}={metrics[k]:.4f}" for k in keys))
-            return {k: metrics[k] for k in keys}
+        eval_hook = None
+        if not args.no_eval:
+            def eval_hook(model, epoch):
+                # one val scene a rank a batch
+                metrics = evaluate_dataset(model, val, cfg,
+                                           batch_size=world(group),
+                                           max_scenes=args.max_eval_scenes,
+                                           group=group)
+                keys = [k for k in metrics if k.startswith(("mAP", "mAR"))]
+                if rank(group) == 0:
+                    print(f"[eval epoch {epoch}] "
+                          + " ".join(f"{k}={metrics[k]:.4f}" for k in keys))
+                return {k: metrics[k] for k in keys}
 
-    os.makedirs(args.work_dir, exist_ok=True)
-    with open(os.path.join(args.work_dir, "config.json"), "w") as f:
-        json.dump(dataclasses.asdict(cfg), f, indent=2)
-    train_model(cfg, loader, args.work_dir, seed=args.seed,
-                eval_hook=eval_hook, resume=args.resume,
-                load_from=args.load_from, classes=classes,
-                device=args.device)
+        os.makedirs(args.work_dir, exist_ok=True)
+        if rank(group) == 0:
+            with open(os.path.join(args.work_dir, "config.json"), "w") as f:
+                json.dump(dataclasses.asdict(cfg), f, indent=2)
+        train_model(cfg, loader, args.work_dir, seed=args.seed,
+                    eval_hook=eval_hook, resume=args.resume,
+                    load_from=args.load_from, classes=classes,
+                    device=device, group=group)
+    finally:
+        destroy(group)
 
 
 if __name__ == "__main__":

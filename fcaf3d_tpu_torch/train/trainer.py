@@ -1,9 +1,8 @@
 """Training state and the train steps of FCAF3D, VoteNet-v2, the
-bin-based VoteNet-v1 (port of the single-device path of
-`fcaf3d_tpu/train/trainer.py`; data parallelism is not ported yet), and of
-ImVoteNet's 2D detector and stage 2 (the step bodies of
-`tools/train_detector2d.py` and `tools/train_imvotenet.py`, at a constant
-learning rate).
+bin-based VoteNet-v1 (port of `fcaf3d_tpu/train/trainer.py`, its `mesh=`
+data parallelism as `group=`: `parallel/comm.py`), and of ImVoteNet's 2D
+detector and stage 2 (the step bodies of `tools/train_detector2d.py` and
+`tools/train_imvotenet.py`, at a constant learning rate, on one device).
 
 PyTorch runs eagerly and updates in place: the model holds the parameters
 and batch statistics, the optimizer its moments and step count, and a step
@@ -11,7 +10,7 @@ mutates both.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Mapping, Tuple
+from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -24,6 +23,8 @@ from ..models.fcaf3d_head import fcaf3d_loss
 from ..models.imvotenet import ImVoteNet, imvotenet_loss
 from ..models.votenet import VoteNet, votenet_loss
 from ..models.votenet_v1 import VoteNetV1, build_votenet, votenet_v1_loss
+from ..parallel.comm import (Group, all_reduce_grads, broadcast_module,
+                             data_parallel)
 from ..params import (
     init_detector2d_variables,
     init_imvotenet_variables,
@@ -112,7 +113,8 @@ def create_imvotenet_train_state(cfg: VoteNetConfig, seed: int = 0,
     return model.train(), opt, opt.count
 
 
-def make_train_step(model: FCAF3D, cfg: FCAF3DConfig, optimizer: ClipAdamW
+def make_train_step(model: FCAF3D, cfg: FCAF3DConfig, optimizer: ClipAdamW,
+                    group: Optional[Group] = None
                     ) -> Callable[[Mapping[str, np.ndarray]],
                                   Dict[str, torch.Tensor]]:
     """The train step `step(batch) -> metrics`.
@@ -123,47 +125,69 @@ def make_train_step(model: FCAF3D, cfg: FCAF3DConfig, optimizer: ClipAdamW
     backward, the global-norm clip and AdamW. The metrics are 0-dim tensors
     on the model's device: loss_cls, loss_centerness, loss_bbox, loss,
     grad_norm (before the clip) and overflow_max (voxels any budget
-    dropped)."""
+    dropped).
+
+    With a data-parallel `group` (`parallel.init_group`; the JAX step's
+    `mesh=`), `batch` is this rank's rows of the global batch and the step
+    computes what one process computes at the global batch: the model's
+    variables are broadcast from rank 0 when the step is made; BN
+    statistics and loss normalisers are the global batch's, the losses
+    (global on every rank) flow back to this rank's samples, the gradients
+    are summed over the ranks before the clip; overflow_max is the max over
+    the ranks."""
     lcfg = loss_config(cfg)
     device = next(model.parameters()).device
+    broadcast_module(model, group)
 
     def step(batch: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         t = {k: torch.as_tensor(batch[k], device=device) for k in BATCH_KEYS}
         model.train()
         optimizer.zero_grad(set_to_none=True)
-        outs, overflow = model(t["points"], t["colors"], t["valid"])
-        losses = fcaf3d_loss(outs, t["gt_boxes"], t["gt_labels"],
-                             t["gt_valid"], lcfg)
+        with data_parallel(group):
+            outs, overflow = model(t["points"], t["colors"], t["valid"])
+            losses = fcaf3d_loss(outs, t["gt_boxes"], t["gt_labels"],
+                                 t["gt_valid"], lcfg)
         total = (losses["loss_cls"] + losses["loss_centerness"]
                  + losses["loss_bbox"])
         total.backward()
+        all_reduce_grads(model, group)
         grad_norm = optimizer.step()
         metrics = {k: v.detach() for k, v in losses.items()}
         metrics["loss"] = total.detach()
         metrics["grad_norm"] = grad_norm
-        metrics["overflow_max"] = torch.stack(
-            [v.max() for v in overflow.values()]).max()
+        overflow_max = torch.stack([v.max() for v in overflow.values()]).max()
+        metrics["overflow_max"] = (overflow_max if group is None else
+                                   group.all_reduce(overflow_max, "max"))
         return metrics
 
     return step
 
 
 def _loss_step(model: torch.nn.Module, optimizer: ClipAdamW, keys,
-               loss_fn):
+               loss_fn, group: Optional[Group] = None):
     """A step whose loss is the sum of `loss_fn(tensors of batch[keys])`'s
-    values in their order; metrics: the losses, loss and grad_norm."""
+    values in their order; metrics: the losses, loss and grad_norm. With a
+    data-parallel `group`, `loss_fn` gives this rank's shares of the global
+    losses: the variables are broadcast from rank 0 when the step is made,
+    the gradients and the metrics' losses summed over the ranks."""
     device = next(model.parameters()).device
+    broadcast_module(model, group)
 
     def step(batch: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         t = {k: torch.as_tensor(batch[k], device=device) for k in keys}
         model.train()
         optimizer.zero_grad(set_to_none=True)
-        losses = loss_fn(t)
+        with data_parallel(group):
+            losses = loss_fn(t)
         total = sum(losses.values())
         total.backward()
+        all_reduce_grads(model, group)
         grad_norm = optimizer.step()
         metrics = {k: v.detach() for k, v in losses.items()}
         metrics["loss"] = total.detach()
+        if group is not None:
+            summed = group.all_reduce(torch.stack(list(metrics.values())))
+            metrics = dict(zip(metrics, summed))
         metrics["grad_norm"] = grad_norm
         return metrics
 
@@ -171,7 +195,8 @@ def _loss_step(model: torch.nn.Module, optimizer: ClipAdamW, keys,
 
 
 def make_votenet_train_step(model: VoteNet, cfg: VoteNetConfig,
-                            optimizer: ClipAdamW
+                            optimizer: ClipAdamW,
+                            group: Optional[Group] = None
                             ) -> Callable[[Mapping[str, np.ndarray]],
                                           Dict[str, torch.Tensor]]:
     """The VoteNet-v2 train step `step(batch) -> metrics`.
@@ -181,15 +206,19 @@ def make_votenet_train_step(model: VoteNet, cfg: VoteNetConfig,
     in train mode (proposals sampled over the votes), `votenet_loss`, the
     backward, the global-norm clip and AdamW. The metrics are 0-dim tensors
     on the model's device: the five losses, loss (their sum) and grad_norm
-    (before the clip)."""
+    (before the clip). With a data-parallel `group`, `batch` is this rank's
+    rows of the global batch and the step computes what one process
+    computes at the global batch (`make_train_step`)."""
     return _loss_step(model, optimizer, VOTENET_BATCH_KEYS, lambda t: (
         votenet_loss(model(t["points"]), t["points"], t["gt_boxes"],
                      t["gt_labels"], t["gt_valid"], n_classes=cfg.n_classes,
-                     with_yaw=cfg.with_yaw, gt_per_seed=cfg.gt_per_seed)))
+                     with_yaw=cfg.with_yaw, gt_per_seed=cfg.gt_per_seed)),
+        group)
 
 
 def make_votenet_v1_train_step(model: VoteNetV1, cfg: VoteNetConfig,
-                               optimizer: ClipAdamW
+                               optimizer: ClipAdamW,
+                               group: Optional[Group] = None
                                ) -> Callable[[Mapping[str, np.ndarray]],
                                              Dict[str, torch.Tensor]]:
     """`make_votenet_train_step` for the bin-based VoteNet-v1, whose coder
@@ -199,7 +228,7 @@ def make_votenet_v1_train_step(model: VoteNetV1, cfg: VoteNetConfig,
         votenet_v1_loss(model(t["points"]), t["points"], t["gt_boxes"],
                         t["gt_labels"], t["gt_valid"], coder=model.coder,
                         n_classes=cfg.n_classes,
-                        gt_per_seed=cfg.gt_per_seed)))
+                        gt_per_seed=cfg.gt_per_seed)), group)
 
 
 def make_detector2d_train_step(model: Detector2D, optimizer: ClipAdamW
