@@ -46,8 +46,10 @@ Phases (any failure raises and the script exits non-zero):
    equal, detections equal within tolerance), and that scan's K2 calls
    replayed on the card, as the path runs them and on the earlier kernel.
 6. Training: `create_train_state` / `make_train_step` at `fcaf3d_scannet`
-   in bf16, batch 8 of crowded synthetic scenes (50 000 raw points each,
-   sampled to 100 000): one warm-up step (its K1 calls checked and timed
+   (from the `params.init_variables` draw, as every phase that holds
+   kernels or gradients: `seeded_train_state`) in bf16, batch 8 of
+   crowded synthetic scenes (50 000 raw points each, sampled to
+   100 000): one warm-up step (its K1 calls checked and timed
    as in phase 5, its K2 and K3 calls held to plain and its K4 calls to
    float64, `hold_calls_to_plain`), five timed steps with finite losses, a live box loss,
    zero overflow, finite non-zero gradients on every conv kernel, K1-K4
@@ -282,6 +284,41 @@ Phases (any failure raises and the script exits non-zero):
    finishing with one checkpoint; `tools.test --sharded` at DP_WORLD gloo
    ranks on the seeded weights (`--params`), its metrics equal to (d)'s
    one process's.
+16. The last slice: data preparation, the native evaluation IoU, the
+   model-FLOP counter and the two training proofs. (a) A raw ScanNet tree
+   (`write_scannet_raw`: `meta_data/scannetv2_{train,val,test}.txt` and
+   `scannet_instance_data/{scan}_{vert,ins_label,sem_label,aligned_bbox,
+   unaligned_bbox,axis_align_matrix}.npy` for PLATFORM_SCENES scenes of
+   phase 6's kind) through `python -m fcaf3d_tpu_torch.tools.create_data
+   scannet` (a subprocess); its info pickles and `.bin` clouds read by the
+   port's `IndoorDetDataset` (every scene's points and boxes as written);
+   `train_model` at `fcaf3d_scannet` in bf16, 1 epoch of
+   SLICE_TRAIN_STEPS steps at batch 8 (the first step's K1-K4 calls held
+   as phase 6's); `evaluate_dataset` on the val scenes with the native IoU
+   (the first batch's K1-K3 calls held as phase 5's) and again with
+   `FCAF3D_NATIVE=0`: equal metric dicts, `indoor_eval`'s share of the
+   wall under each; `tools.analyze_logs cal_train_time` on the run's log
+   (a subprocess); the model GFLOPs (`utils.flops`) of one bf16 scan and
+   of one batch-8 train step and the model TFLOP/s each reaches. (b) The
+   crowded-rotated overfit proof of the JAX package
+   (`tests/test_overfit_fixture.py`'s held-out-points test, its config:
+   SUN RGB-D classes, yaw, depth 14, f32, 2 cm voxels, its budgets), one
+   run from `create_train_state`'s init (the reference's init
+   distributions) at each of OVERFIT_SEEDS: up to OVERFIT_STEPS steps at
+   lr 2e-3 on one `data.synth.crowded_rotated_sample` scene, mAP@0.25
+   every OVERFIT_EVAL_EVERY steps (stops at OVERFIT_STOP), train-points
+   mAP at least OVERFIT_TRAIN_BAR in every run and the held-out points'
+   mean mAP within OVERFIT_SIGMAS standard errors of the JAX package's
+   own mean over as many inits (OVERFIT_JAX_HELDOUT; one run's moves by
+   ~0.08 with its init, around a mean near the JAX test's single-run bar
+   OVERFIT_HELDOUT_BAR, which is logged), each run's equal under the
+   native and the numpy IoU; the f32 K2 and K4 on the path's variants,
+   the first run's step 1 held to plain. (c) The 12-epoch proof
+   of `tests/test_epoch_stability.py` at `fcaf3d_tiny` (LR steps 8 and 11,
+   batch 2, `EpochProofDataset`): finite logged losses that fall, bounded
+   BN statistics, the step count, then 6 epochs and `resume=True` to 12
+   bitwise equal to the straight run (every variable and buffer, Adam's
+   moments and count).
 
 Output: progress lines, then a JSON line of per-kernel results (launches
 of each main path: FCAF3D inference, FCAF3D training, VoteNet inference,
@@ -292,8 +329,9 @@ and training of both configs, phase 12's ImVoteNet inference and
 training, phase 13's platform training (with its eval hook) and
 evaluation, and phase 14's tool loops (VoteNet v2 / v1, ImVoteNet with
 extracted and GT 2D boxes) and converted, fused and published inference,
-and phase 15's data-parallel FCAF3D and VoteNet training and sharded
-evaluation, summed over the ranks;
+phase 15's data-parallel FCAF3D and VoteNet training and sharded
+evaluation, summed over the ranks, and phase 16's training and evaluation
+on the created data, the overfit proof and the 12-epoch proof;
 K1-K6 also by variant; the recorded shape's times, bound and share; K1 at
 every distinct call of the two FCAF3D paths, K2 at every f32 path shape and
 over the f32 scan, K3 at both stem pool maps, K6 at every VoteNet shape,
@@ -435,6 +473,26 @@ FUSE_ATOL = 1e-4
 # 2 steps of the CLI's epoch at batch 8) and PLATFORM_SCENES[1] val scenes,
 # evaluated at global batch DP_EVAL_BATCH
 DP_WORLD, DP_TRAIN_STEPS, DP_TRAIN_SCENES, DP_EVAL_BATCH = 2, 3, 2, 4
+# phase 16: (a) train_model on the created data for one epoch of
+# SLICE_TRAIN_STEPS steps at batch 8 (its PLATFORM_SCENES[0] train scenes
+# without repeats); (b) the overfit proof of the JAX package: at most
+# OVERFIT_STEPS steps, mAP@0.25 every OVERFIT_EVAL_EVERY, stop at
+# OVERFIT_STOP, its bars on the train points and on held-out points
+SLICE_TRAIN_STEPS = 2
+OVERFIT_STEPS, OVERFIT_EVAL_EVERY, OVERFIT_LR = 240, 60, 2e-3
+OVERFIT_STOP, OVERFIT_TRAIN_BAR, OVERFIT_HELDOUT_BAR = 0.995, 0.85, 0.6
+# the inits of the runs: `create_train_state(cfg, seed)`, the reference's
+# init distributions. One run's held-out mAP moves by ~0.08 (sd) with its
+# init and about as much with a rounding change, in both packages, around
+# a mean near the JAX test's bar: so the runs' held-out mean is held to
+# the JAX package's own mean over as many inits (its test from its flax
+# init at PRNGKey(seed), OVERFIT_JAX_HELDOUT, measured on the CPU by
+# `tests/test_torch_proofs.py::test_overfit_proof`), within OVERFIT_SIGMAS
+# standard errors of the difference of the two means
+OVERFIT_SEEDS = tuple(range(16))
+OVERFIT_JAX_HELDOUT = (0.719, 0.581, 0.598, 0.5, 0.695, 0.691, 0.698, 0.674,
+                       0.746, 0.478, 0.705, 0.677, 0.729, 0.771, 0.535, 0.602)
+OVERFIT_SIGMAS = 3
 # published dense peaks of one H100 SXM: a kernel's bound is the larger of
 # its operations over the peak of their type (bf16 on the tensor cores;
 # float32 and integer work on the CUDA cores) and its bytes over the memory
@@ -515,6 +573,10 @@ PATH_KERNELS = {
     "fcaf3d_dp_training": TRAINING_KERNELS,
     "votenet_dp_training": ("fps", "ball_query"),
     "fcaf3d_dp_eval": INFERENCE_KERNELS,
+    "fcaf3d_created_data_training": TRAINING_KERNELS,
+    "fcaf3d_created_data_eval": INFERENCE_KERNELS,
+    "fcaf3d_overfit_proof": TRAINING_KERNELS,
+    "fcaf3d_epoch_proof": TRAINING_KERNELS,
 }
 
 
@@ -1948,6 +2010,19 @@ def reference_state_dict(variables, model):
     return sd
 
 
+def seeded_train_state(cfg, seed=0, device="cuda"):
+    """`create_train_state` with the seeded `params.init_variables` draw
+    (the forwards that detect) loaded over the reference's init: the phases
+    that hold kernels and gradients and time steps keep the weights their
+    bounds and earlier times were taken at."""
+    from fcaf3d_tpu_torch.params import init_variables, load_variables
+    from fcaf3d_tpu_torch.train import create_train_state
+
+    model, opt, count = create_train_state(cfg, seed, device)
+    load_variables(model, init_variables(cfg, seed))
+    return model, opt, count
+
+
 def train_phase(torch, cfg, batch, device, steps=TRAIN_STEPS,
                 path="fcaf3d_training", on_calls=None):
     """bf16 training at batch 8: a warm-up step whose K1 calls are checked
@@ -1958,9 +2033,9 @@ def train_phase(torch, cfg, batch, device, steps=TRAIN_STEPS,
     variant (`check_variants`), the K1 record and the mean step wall in
     ms."""
     from fcaf3d_tpu_torch import _native
-    from fcaf3d_tpu_torch.train import create_train_state, make_train_step
+    from fcaf3d_tpu_torch.train import make_train_step
 
-    model, opt, _ = create_train_state(cfg, seed=0, device=device)
+    model, opt, _ = seeded_train_state(cfg, 0, device)
     step = make_train_step(model, cfg, opt)
     calls = {}
     conv_calls = {"fused_gather_gemm": [], "fused_gather_max": [],
@@ -2020,7 +2095,6 @@ def head_batch(torch, cfg, extent, b=2, boxes_per_scene=3, seed=0):
     that the assigner finds positives and the box loss is live; with
     `cfg.with_yaw` the boxes get random yaws."""
     from fcaf3d_tpu_torch.data.synth import synth_scene
-    from fcaf3d_tpu_torch.train import create_train_state
 
     pts, cols = zip(*(synth_scene(np.random.RandomState(seed + s),
                                   cfg.num_points, extent=extent)
@@ -2028,7 +2102,7 @@ def head_batch(torch, cfg, extent, b=2, boxes_per_scene=3, seed=0):
     batch = {"points": np.stack(pts).astype(np.float32),
              "colors": np.stack(cols).astype(np.float32),
              "valid": np.ones((b, cfg.num_points), bool)}
-    model, _, _ = create_train_state(cfg, 0, device="cpu")
+    model, _, _ = seeded_train_state(cfg, 0, "cpu")
     with torch.no_grad():
         outs, _ = model(*(torch.as_tensor(batch[k])
                           for k in ("points", "colors", "valid")))
@@ -2056,9 +2130,8 @@ def step_grads(torch, cfg, batch, dev, seed=0):
     gradient, on the CPU."""
     from fcaf3d_tpu_torch.models.detector import loss_config
     from fcaf3d_tpu_torch.models.fcaf3d_head import fcaf3d_loss
-    from fcaf3d_tpu_torch.train import create_train_state
 
-    model, _, _ = create_train_state(cfg, seed=seed, device=dev)
+    model, _, _ = seeded_train_state(cfg, seed, dev)
     t = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
     outs, overflow = model(t["points"], t["colors"], t["valid"])
     losses = fcaf3d_loss(outs, t["gt_boxes"], t["gt_labels"], t["gt_valid"],
@@ -2200,10 +2273,10 @@ def profile_train(torch, cfg, batch):
 
     from fcaf3d_tpu_torch.models.detector import loss_config
     from fcaf3d_tpu_torch.models.fcaf3d_head import fcaf3d_loss
-    from fcaf3d_tpu_torch.train import create_train_state, make_train_step
+    from fcaf3d_tpu_torch.train import make_train_step
     from fcaf3d_tpu_torch.train.trainer import BATCH_KEYS
 
-    model, opt, _ = create_train_state(cfg, seed=0, device="cuda")
+    model, opt, _ = seeded_train_state(cfg, 0, "cuda")
     step = make_train_step(model, cfg, opt)
     step(batch)
     step(batch)
@@ -5539,11 +5612,11 @@ def dp_fcaf3d_rank(torch, group, cfg, batch, held=True):
     overflow at every step. Returns the record, the launches and the
     launches by variant of the timed steps."""
     from fcaf3d_tpu_torch import _native
-    from fcaf3d_tpu_torch.train import create_train_state, make_train_step
+    from fcaf3d_tpu_torch.train import make_train_step
 
     what = (f"rank {group.rank}: one data-parallel fcaf3d step, "
             f"{len(batch['points'])} of the global batch")
-    model, opt, _ = create_train_state(cfg, seed=0, device=group.device)
+    model, opt, _ = seeded_train_state(cfg, 0, group.device)
     step = make_train_step(model, cfg, opt, group=group)
     k1_calls = {}
     conv_calls = {"fused_gather_gemm": [], "fused_gather_max": [],
@@ -5602,8 +5675,7 @@ def dp_tiny_grads(torch, group, device, batch, vote):
     this rank's rows of `batch` (the whole batch with no group): metrics,
     the (summed) gradients and the running statistics, on the CPU."""
     from fcaf3d_tpu_torch.configs import fcaf3d_tiny, votenet_tiny
-    from fcaf3d_tpu_torch.train import (create_train_state,
-                                        create_votenet_train_state,
+    from fcaf3d_tpu_torch.train import (create_votenet_train_state,
                                         make_train_step,
                                         make_votenet_train_step)
 
@@ -5613,7 +5685,7 @@ def dp_tiny_grads(torch, group, device, batch, vote):
         step = make_votenet_train_step(model, cfg, opt, group=group)
     else:
         cfg = fcaf3d_tiny()
-        model, opt, _ = create_train_state(cfg, 0, device)
+        model, opt, _ = seeded_train_state(cfg, 0, device)
         step = make_train_step(model, cfg, opt, group=group)
     m = step(batch if group is None else rank_rows(batch, group))
     return {"metrics": {k: float(v) for k, v in m.items()},
@@ -6039,6 +6111,595 @@ def nccl_phase(torch, cfg, world):
                                "cuda", backend="nccl", world=world)
 
 
+def write_scannet_raw(root, n_train, n_val, n_classes):
+    """A raw ScanNet tree under `root`, as the reference's
+    `batch_load_scannet_data.py` extracts one (`tools/data_prep/`):
+    `meta_data/scannetv2_{train,val,test}.txt` and
+    `scannet_instance_data/{scan}_*.npy`, each scene of phase 6's kind
+    (`crowded_scene` + `densify`; train scene i from seed i, val scene i
+    from seed n_train + i; the test split lists the first two val scenes,
+    of which it reads only the clouds): `vert` float32 [N, 6] xyz + rgb,
+    `ins_label` (the box a point lies on, from 1; 0 the floor) and
+    `sem_label` (its NYU40 id) [N], `aligned_bbox` / `unaligned_bbox`
+    [k, 7] gravity-centred (x, y, z, dx, dy, dz, NYU40 id),
+    `axis_align_matrix` the identity.
+    Returns {scan: (points, bottom-centred boxes, labels)} as drawn."""
+    from fcaf3d_tpu_torch.data.converters import SCANNET_CAT_IDS
+    from fcaf3d_tpu_torch.data.synth import crowded_scene, densify
+
+    src = os.path.join(root, "scannet_instance_data")
+    os.makedirs(src)
+    os.makedirs(os.path.join(root, "meta_data"))
+    scenes = {}
+    for split, n, first in (("train", n_train, 0), ("val", n_val, n_train)):
+        names = [f"scene{first + i:04d}_00" for i in range(n)]
+        with open(os.path.join(root, "meta_data",
+                               f"scannetv2_{split}.txt"), "w") as f:
+            f.write("\n".join(names) + "\n")
+        for i, name in enumerate(names):
+            rng = np.random.default_rng(first + i)
+            scene = densify(crowded_scene(TRAIN_BOXES, n_classes, rng,
+                                          extent=5.0),
+                            TRAIN_BOX_POINTS, TRAIN_FLOOR_POINTS, rng)
+            labels = scene["gt_labels"]
+            nyu = SCANNET_CAT_IDS[labels]
+            boxes = scene["gt_boxes"][:, :6].astype(np.float64)
+            boxes[:, 2] += boxes[:, 5] / 2  # bottom -> gravity centre
+            bbox = np.concatenate([boxes, nyu[:, None]], axis=1)
+            k = len(boxes)
+            arrays = {
+                "vert": scene["points"].astype(np.float32),
+                # densify: each box's points in box order, then the floor
+                "ins_label": np.concatenate([
+                    np.repeat(np.arange(1, k + 1), TRAIN_BOX_POINTS),
+                    np.zeros(TRAIN_FLOOR_POINTS, np.int64)]),
+                "sem_label": np.concatenate([
+                    np.repeat(nyu, TRAIN_BOX_POINTS),
+                    np.full(TRAIN_FLOOR_POINTS, 2)]),  # NYU40 2: floor
+                "aligned_bbox": bbox, "unaligned_bbox": bbox,
+                "axis_align_matrix": np.eye(4)}
+            for kind, arr in arrays.items():
+                np.save(os.path.join(src, f"{name}_{kind}.npy"), arr)
+            scenes[name] = (scene["points"], scene["gt_boxes"], labels)
+    with open(os.path.join(root, "meta_data", "scannetv2_test.txt"),
+              "w") as f:
+        f.write("\n".join(list(scenes)[n_train:n_train + 2]) + "\n")
+    return scenes
+
+
+def check_created(root, scenes, n_train):
+    """The port's `IndoorDetDataset` reads `create_data`'s pickles and
+    clouds: every scene's points bitwise as written, its boxes and labels
+    as drawn; the test split's infos name its scenes."""
+    import pickle
+
+    from fcaf3d_tpu_torch.data import SCANNET_CLASSES, IndoorDetDataset
+
+    names = list(scenes)
+    with open(os.path.join(root, "scannet_infos_test.pkl"), "rb") as f:
+        test = [i["point_cloud"]["lidar_idx"] for i in pickle.load(f)]
+    if test != names[n_train:n_train + 2]:
+        raise AssertionError(f"created test split {test}")
+    for split, part in (("train", names[:n_train]), ("val", names[n_train:])):
+        ds = IndoorDetDataset(root, os.path.join(
+            root, f"scannet_infos_{split}.pkl"), SCANNET_CLASSES)
+        if len(ds) != len(part):
+            raise AssertionError(f"{split}: {len(ds)} scenes, wrote "
+                                 f"{len(part)}")
+        for i, name in enumerate(part):
+            got = ds(i, np.random.default_rng(0))
+            pts, boxes, labels = scenes[name]
+            if not (np.array_equal(got["points"], pts)
+                    and np.array_equal(got["gt_boxes"], boxes)
+                    and np.array_equal(got["gt_labels"], labels)):
+                raise AssertionError(f"created {split} scene {name} differs "
+                                     "from the raw arrays")
+
+
+@contextlib.contextmanager
+def measured_steps(torch, store, k1_calls, conv_calls):
+    """Every train step that `apis.train.train_model` builds inside appends
+    (metrics, wall ms between synchronises, model GFLOPs from
+    `utils.flops`) to `store`; the first runs under `recorded_k1_calls` /
+    `recorded_conv_calls`."""
+    from fcaf3d_tpu_torch.apis import train as api_train
+    from fcaf3d_tpu_torch.utils import flop_counter
+
+    real = api_train.make_train_step
+
+    def make(*args, **kw):
+        step = real(*args, **kw)
+
+        def measured(batch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with flop_counter() as fc:
+                if not store:
+                    with recorded_k1_calls(k1_calls), \
+                            recorded_conv_calls(conv_calls):
+                        metrics = step(batch)
+                else:
+                    metrics = step(batch)
+            torch.cuda.synchronize()
+            store.append((metrics, (time.perf_counter() - t0) * 1e3,
+                          fc.model / 1e9))
+            return metrics
+        return measured
+
+    api_train.make_train_step = make
+    try:
+        yield
+    finally:
+        api_train.make_train_step = real
+
+
+def created_data_training(torch, cfg, root, work, device):
+    """(a) `train_model` on the created train split (no repeats), the first
+    step held; returns (launches, variants, K1 record, step records)."""
+    from fcaf3d_tpu_torch import _native
+    from fcaf3d_tpu_torch.apis import train_model
+    from fcaf3d_tpu_torch.data import SCANNET_CLASSES, Loader
+    from fcaf3d_tpu_torch.tools.train import build_datasets
+
+    train_set = build_datasets("scannet", root, cfg)[1].dataset
+    loader = Loader(train_set, cfg.batch_size, cfg.num_points,
+                    cfg.max_gt_boxes)
+    if loader.steps_per_epoch() != SLICE_TRAIN_STEPS:
+        raise AssertionError(f"{loader.steps_per_epoch()} steps an epoch")
+    path = "fcaf3d_created_data_training"
+    store, calls = [], {}
+    conv_calls = {"fused_gather_gemm": [], "fused_gather_max": [],
+                  "fused_gather_dw": []}
+    torch.cuda.synchronize()
+    _native.reset_launches()
+    t0 = time.perf_counter()
+    with measured_steps(torch, store, calls, conv_calls):
+        train_model(cfg, loader, work, log_interval=1,
+                    classes=SCANNET_CLASSES, device=device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_native.LAUNCHES)
+    check_path_launches(launches, path)
+    variants = check_variants(f"bf16 {path}", ("gather_gemm", "gather_dw"))
+    k1 = hold_recorded(torch, calls, conv_calls, 1,
+                       f"the first batch-{cfg.batch_size} step of {path}")
+    check_step_metrics([m for m, _, _ in store], path)
+    log(f"   train_model: 1 epoch of {len(store)} steps at batch "
+        f"{cfg.batch_size} in {wall:.2f} s; steps "
+        + ", ".join(f"{ms:.1f} ms" for _, ms, _ in store)
+        + f"; launches {launches}")
+    return launches, variants, k1, store
+
+
+def created_data_eval(torch, cfg, root, work, device):
+    """(a) `evaluate_dataset` of the trained model on the created val split
+    with the native IoU (the first batch held), then with FCAF3D_NATIVE=0:
+    equal metric dicts; returns (launches, variants, K1 record, walls)."""
+    from fcaf3d_tpu_torch import _native
+    from fcaf3d_tpu_torch.apis import init_detector
+    from fcaf3d_tpu_torch.apis.test import evaluate_dataset
+    from fcaf3d_tpu_torch.tools.train import build_datasets
+
+    val = build_datasets("scannet", root, cfg)[2]
+    model = init_detector(cfg, work_dir=work, device=device)
+    path = "fcaf3d_created_data_eval"
+    calls = {}
+    conv_calls = {"fused_gather_gemm": [], "fused_gather_max": []}
+    with recorded_forwards({0}, calls, conv_calls):
+        evaluate_dataset(model, val, cfg, max_scenes=1)
+    k1 = hold_recorded(torch, calls, conv_calls, 1, f"bf16 {path}, batch 1")
+    del calls, conv_calls
+    torch.cuda.synchronize()
+    _native.reset_launches()
+    metrics, walls = {}, {}
+    for iou in ("native", "numpy"):
+        store = []
+        t0 = time.perf_counter()
+        with native_iou(iou == "native"), recorded_indoor_eval(store):
+            metrics[iou] = evaluate_dataset(model, val, cfg)
+        wall = time.perf_counter() - t0
+        dets = [len(d["scores_3d"]) for d in store[0][2]]
+        walls[iou] = {"wall_ms": wall * 1e3,
+                      "indoor_eval_ms": store[0][0] * 1e3,
+                      "indoor_eval_share": store[0][0] / wall}
+        log(f"   evaluate_dataset, {iou} IoU: {len(val)} scenes in "
+            f"{wall * 1e3:.1f} ms; indoor_eval {store[0][0] * 1e3:.1f} ms, "
+            f"share {store[0][0] / wall:.4f}; detections {dets}; mAP_0.25 "
+            f"{metrics[iou]['mAP_0.25']:.4f}, mAP_0.50 "
+            f"{metrics[iou]['mAP_0.50']:.4f}")
+    if metrics["native"] != metrics["numpy"]:
+        diff = {k: (v, metrics["numpy"].get(k))
+                for k, v in metrics["native"].items()
+                if metrics["numpy"].get(k) != v}
+        raise AssertionError(f"native and numpy IoU metrics differ: {diff}")
+    launches = dict(_native.LAUNCHES)
+    check_path_launches(launches, path)
+    return (launches, check_variants(f"bf16 {path}", ("gather_gemm",)), k1,
+            walls)
+
+
+def scan_gflops(torch, cfg, work, points, device):
+    """Model GFLOPs (`utils.flops`) and wall ms of one bf16
+    `inference_detector` scan of the trained model (after a warm-up
+    scan)."""
+    from fcaf3d_tpu_torch.apis import inference_detector, init_detector
+    from fcaf3d_tpu_torch.utils import flop_counter
+
+    model = init_detector(cfg, work_dir=work, device=device)
+    inference_detector(model, points)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with flop_counter() as fc:
+        inference_detector(model, points)
+    torch.cuda.synchronize()
+    return fc.model / 1e9, (time.perf_counter() - t0) * 1e3
+
+
+def created_data_phase(torch, cfg, device):
+    """16 (a): raw ScanNet arrays -> `tools.create_data` -> the port's
+    dataset -> `train_model` -> `evaluate_dataset` under both IoUs, the
+    log through `tools.analyze_logs`, the model FLOPs. Returns (launches,
+    variants, K1 records, record)."""
+    import tempfile
+
+    tcfg = dataclasses.replace(cfg, max_epochs=1, batch_size=TRAIN_BATCH)
+    rec = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_slice_") as tmp:
+        root = os.path.join(tmp, "scannet")
+        t0 = time.perf_counter()
+        scenes = write_scannet_raw(root, *PLATFORM_SCENES, cfg.n_classes)
+        t1 = time.perf_counter()
+        out, dt = run_tool("create_data", "scannet", "--root-path", root)
+        check_created(root, scenes, PLATFORM_SCENES[0])
+        rec["walls_s"] = {"raw_arrays": t1 - t0, "create_data": dt,
+                          "read_back": time.perf_counter() - t1 - dt}
+        log(f"   -- (a) {PLATFORM_SCENES[0]} train and {PLATFORM_SCENES[1]}"
+            f" val raw scenes written in {t1 - t0:.2f} s; tools.create_data "
+            f"in {dt:.2f} s ({' / '.join(out.split(chr(10))[:2])}); every "
+            "scene read back by IndoorDetDataset as written")
+        work = os.path.join(tmp, "work")
+        t0 = time.perf_counter()
+        l_tr, v_tr, k1_tr, steps = created_data_training(torch, tcfg, root,
+                                                         work, device)
+        rec["walls_s"]["train_model"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        l_ev, v_ev, k1_ev, evals = created_data_eval(torch, tcfg, root,
+                                                     work, device)
+        rec["walls_s"]["evaluate"] = time.perf_counter() - t0
+        rec["eval"] = evals
+        out, dt = run_tool("analyze_logs", "cal_train_time",
+                           os.path.join(work, "train_log.jsonl"))
+        if "average iter time" not in out or "epoch 1:" not in out:
+            raise AssertionError(f"tools.analyze_logs printed {out!r}")
+        log(f"   tools.analyze_logs cal_train_time: {dt:.2f} s: "
+            + "; ".join(out.strip().splitlines()))
+        gf_scan, ms_scan = scan_gflops(torch, tcfg, work, scan(0), device)
+    _, ms_step, gf_step = steps[-1]
+    if not (gf_scan > 0 and gf_step > 2 * gf_scan):
+        raise AssertionError(f"model GFLOPs: scan {gf_scan}, step {gf_step}")
+    rec["model_flops"] = {
+        "scan_gflops": gf_scan, "scan_ms": ms_scan,
+        "scan_tflops_per_s": gf_scan / ms_scan,
+        "step_gflops": gf_step, "step_ms": ms_step,
+        "step_tflops_per_s": gf_step / ms_step}
+    log(f"   model FLOPs (utils.flops): one bf16 scan {gf_scan:.2f} GFLOP in "
+        f"{ms_scan:.1f} ms, {gf_scan / ms_scan:.3f} TFLOP/s; one batch-"
+        f"{TRAIN_BATCH} train step {gf_step:.2f} GFLOP in {ms_step:.1f} ms "
+        f"(the last step), {gf_step / ms_step:.3f} TFLOP/s")
+    return ({"fcaf3d_created_data_training": l_tr,
+             "fcaf3d_created_data_eval": l_ev},
+            {"fcaf3d_created_data_training": v_tr,
+             "fcaf3d_created_data_eval": v_ev},
+            {"fcaf3d_created_data_training": k1_tr,
+             "fcaf3d_created_data_eval": k1_ev}, rec)
+
+
+def overfit_config(n_points, n_boxes):
+    """The config of the JAX package's crowded-rotated overfit test."""
+    from fcaf3d_tpu_torch.configs import FCAF3DConfig
+    from fcaf3d_tpu_torch.data import SUNRGBD_CLASSES
+
+    return FCAF3DConfig(
+        n_classes=len(SUNRGBD_CLASSES), n_reg_outs=8, with_yaw=True,
+        yaw_parametrization="fcaf3d", compute_dtype="float32",
+        voxel_size=0.02, depth=14, num_points=n_points,
+        input_budget=6144, backbone_budgets=(6144, 5120, 3584, 1536, 512, 128),
+        neck_budgets=(3584, 1536, 512, 128),
+        max_gt_boxes=n_boxes, assign_limit=9, assign_topk=6,
+        nms_pre=256, nms_cap=256, batch_size=1, lr=OVERFIT_LR,
+        lr_steps=(1000,))
+
+
+@contextlib.contextmanager
+def native_iou(on):
+    """`FCAF3D_NATIVE` inside: the native IoU (`on`) or the numpy one."""
+    was = os.environ.get("FCAF3D_NATIVE")
+    os.environ["FCAF3D_NATIVE"] = "1" if on else "0"
+    try:
+        yield
+    finally:
+        if was is None:
+            del os.environ["FCAF3D_NATIVE"]
+        else:
+            os.environ["FCAF3D_NATIVE"] = was
+
+
+def overfit_map(torch, model, cfg, sample, detections=None):
+    """mAP@0.25 of the model's detections (evaluation mode) on `sample`;
+    with a list `detections`, the detections are appended to it."""
+    from fcaf3d_tpu_torch.apis.test import detect_batch, detections_to_numpy
+    from fcaf3d_tpu_torch.core.eval import indoor_eval
+    from fcaf3d_tpu_torch.data import SUNRGBD_CLASSES, collate
+
+    batch = collate([sample], cfg.num_points, cfg.max_gt_boxes)
+    model.eval()
+    try:
+        with torch.inference_mode():
+            dets = detect_batch(model, cfg, batch["points"], batch)
+    finally:
+        model.train()
+    gt = [{"gt_boxes_3d": sample["gt_boxes"],
+           "gt_labels_3d": sample["gt_labels"]}]
+    dt = [detections_to_numpy(dets, 0)]
+    if detections is not None:
+        detections.extend(dt)
+    return indoor_eval(gt, dt, (0.25,),
+                       dict(enumerate(SUNRGBD_CLASSES)))["mAP_0.25"]
+
+
+def overfit_run(torch, device, seed, k1_calls=None, conv_calls=None):
+    """One run of the JAX package's crowded-rotated overfit with held-out
+    points (`tests/test_overfit_fixture.py`) from `create_train_state`'s
+    init at `seed`: up to OVERFIT_STEPS steps, mAP@0.25 on the train
+    points every OVERFIT_EVAL_EVERY (stops at OVERFIT_STOP), then on the
+    held-out points under the native and the numpy IoU (must be equal).
+    With `k1_calls` / `conv_calls`, step 1 runs under `recorded_k1_calls`
+    / `recorded_conv_calls`. Returns its record."""
+    from fcaf3d_tpu_torch.core.eval import pairwise_iou_3d_np
+    from fcaf3d_tpu_torch.data import SUNRGBD_CLASSES, collate
+    from fcaf3d_tpu_torch.data.synth import crowded_rotated_sample
+    from fcaf3d_tpu_torch.train import create_train_state, make_train_step
+
+    sample = crowded_rotated_sample(np.random.default_rng(7),
+                                    len(SUNRGBD_CLASSES))
+    cfg = overfit_config(len(sample["points"]), len(sample["gt_boxes"]))
+    model, opt, _ = create_train_state(cfg, seed, device, OVERFIT_STEPS)
+    step = make_train_step(model, cfg, opt)
+    batch = collate([sample], cfg.num_points, cfg.max_gt_boxes)
+    curve, best, evals_s = [], 0.0, 0.0
+    t0 = time.perf_counter()
+    for i in range(OVERFIT_STEPS):
+        if i == 0 and k1_calls is not None:
+            with recorded_k1_calls(k1_calls), recorded_conv_calls(conv_calls):
+                metrics = step(batch)
+        else:
+            metrics = step(batch)
+        if (i + 1) % OVERFIT_EVAL_EVERY == 0:
+            te = time.perf_counter()
+            m = overfit_map(torch, model, cfg, sample)
+            evals_s += time.perf_counter() - te
+            loss = float(metrics["loss"])
+            curve.append((i + 1, loss, m))
+            best = max(best, m)
+            if not np.isfinite(loss):
+                raise AssertionError(f"overfit seed {seed}, step {i + 1}: "
+                                     f"loss {loss}")
+            if best >= OVERFIT_STOP:
+                break
+    wall = time.perf_counter() - t0
+    heldout = crowded_rotated_sample(
+        np.random.default_rng(1234), len(SUNRGBD_CLASSES),
+        gt={"gt_boxes": sample["gt_boxes"], "gt_labels": sample["gt_labels"]})
+    dets = []
+    with native_iou(True):
+        held = overfit_map(torch, model, cfg, heldout, dets)
+        iou = pairwise_iou_3d_np(dets[0]["boxes_3d"], heldout["gt_boxes"])
+    with native_iou(False):
+        held_numpy = overfit_map(torch, model, cfg, heldout)
+        iou_err = float(np.abs(iou - pairwise_iou_3d_np(
+            dets[0]["boxes_3d"], heldout["gt_boxes"])).max(initial=0))
+    if held_numpy != held:
+        raise AssertionError(f"overfit seed {seed} held-out mAP: native IoU "
+                             f"{held}, numpy IoU {held_numpy}")
+    steps = curve[-1][0]
+    rec = {"seed": seed, "steps": steps, "curve": curve, "train_map": best,
+           "heldout_map": held, "iou_native_vs_numpy": iou_err,
+           "detections": len(dets[0]["scores_3d"]), "wall_s": wall,
+           "eval_s": evals_s, "step_ms": (wall - evals_s) / steps * 1e3}
+    log(f"   overfit seed {seed}: {steps} steps in {wall:.1f} s "
+        f"({rec['step_ms']:.1f} ms a step), loss {curve[-1][1]:.4f}; "
+        f"train-points mAP@0.25 {best:.4f}; held-out points {held:.4f} "
+        f"under both IoUs ({rec['detections']} detections, largest IoU "
+        f"difference {iou_err:.3g} of IoUs up to {iou.max(initial=0):.3f})")
+    return rec
+
+
+def mean_difference(got, want):
+    """(mean of `got` less mean of `want`, the standard error of that
+    difference from the two samples' spreads)."""
+    got, want = np.asarray(got, float), np.asarray(want, float)
+    return (float(got.mean() - want.mean()),
+            float(np.sqrt(got.var(ddof=1) / len(got)
+                          + want.var(ddof=1) / len(want))))
+
+
+def overfit_proof(torch, device, k1_calls=None, conv_calls=None):
+    """16 (b) on `device`: `overfit_run` from `create_train_state`'s init at
+    each of OVERFIT_SEEDS (the first seed's step 1 recorded into
+    `k1_calls` / `conv_calls`). Every run must reach the JAX test's
+    train-points bar, and the runs' held-out mean the JAX package's own
+    (OVERFIT_JAX_HELDOUT) within OVERFIT_SIGMAS standard errors; the JAX
+    test's single-run bar is logged beside the mean. Returns the
+    records."""
+    runs = [overfit_run(torch, device, seed,
+                        *((k1_calls, conv_calls) if i == 0 else ()))
+            for i, seed in enumerate(OVERFIT_SEEDS)]
+    held = [r["heldout_map"] for r in runs]
+    diff, err = mean_difference(held, OVERFIT_JAX_HELDOUT)
+    worst = min(r["train_map"] for r in runs)
+    log(f"   overfit over {len(runs)} inits: train-points mAP at least "
+        f"{worst:.4f} (bar {OVERFIT_TRAIN_BAR} each); held-out "
+        + ", ".join(f"{h:.4f}" for h in held)
+        + f", mean {np.mean(held):.4f} (sd {np.std(held, ddof=1):.4f}; the "
+        f"JAX test's single-run bar {OVERFIT_HELDOUT_BAR}); the JAX "
+        f"package's mean {np.mean(OVERFIT_JAX_HELDOUT):.4f}, difference "
+        f"{diff:.4f}, standard error {err:.4f} (bound {OVERFIT_SIGMAS} x)")
+    if worst < OVERFIT_TRAIN_BAR or abs(diff) > OVERFIT_SIGMAS * err:
+        raise AssertionError(f"overfit proof: train-points at least {worst}, "
+                             f"held-out mean {diff} from the JAX package's, "
+                             f"standard error {err}")
+    return {"runs": runs, "train_map_min": worst,
+            "heldout_map_mean": float(np.mean(held)),
+            "heldout_vs_jax": (diff, err)}
+
+
+class EpochProofDataset:
+    """The fixed synthetic scenes of the JAX package's 12-epoch test
+    (`tests/test_epoch_stability.py`'s SynthDataset over
+    `tests/test_fcaf3d_model.py`'s `synth_batch` at b = 1): 512 points in
+    a 2 m cube, 6 boxes of 4 classes, deterministic per index."""
+
+    classes = ("a", "b", "c", "d")
+
+    def __init__(self, n=2):  # 1 step an epoch at batch 2
+        self.n = n
+
+    def __len__(self):
+        return self.n
+
+    def __call__(self, i, rng):
+        r = np.random.RandomState(1000 + i)
+        pts = r.uniform(0, 2.0, (1, 512, 3)).astype(np.float32)
+        colors = r.uniform(0, 255, (1, 512, 3)).astype(np.float32)
+        boxes = np.zeros((1, 8, 7), np.float32)
+        boxes[..., :3] = r.uniform(0.4, 1.6, (1, 8, 3))
+        boxes[..., 2] = 0.0
+        boxes[..., 3:6] = r.uniform(0.3, 0.8, (1, 8, 3))
+        labels = r.randint(0, 4, (1, 8)).astype(np.int32)
+        keep = np.arange(8) < 6
+        return {"points": np.concatenate([pts[0], colors[0] * 255], axis=1),
+                "gt_boxes": boxes[0][keep], "gt_labels": labels[0][keep]}
+
+
+def train_state(model, opt):
+    """Every variable and buffer of `model` and Adam's moments, by name,
+    and the step count."""
+    state = dict(model.state_dict())
+    for name, p in model.named_parameters():
+        for k in ("mu", "nu"):
+            state[f"{k}/{name}"] = opt.state[p][k]
+    return state, opt.count
+
+
+def state_differences(torch, a, b):
+    """(largest |a - b| of each differing tensor, by name), largest first."""
+    out = []
+    for name, x in a.items():
+        if not torch.equal(x, b[name]):
+            out.append((float((x.double() - b[name].double()).abs().max()),
+                        name))
+    return sorted(out, reverse=True)
+
+
+def epoch_proof(torch, device, tmp):
+    """16 (c) on `device`: the JAX package's 12-epoch run with a mid-run
+    resume (`tests/test_epoch_stability.py`) at `fcaf3d_tiny`: finite
+    logged losses, the last four's least below the first, bounded BN
+    statistics, 12 steps; 6 epochs then `resume=True` to 12 bitwise equal
+    to the straight run. When they differ, a second straight run says
+    whether the path itself is not repeatable. Returns its record."""
+    from fcaf3d_tpu_torch.apis import train_model
+    from fcaf3d_tpu_torch.configs import fcaf3d_tiny
+    from fcaf3d_tpu_torch.data import Loader
+
+    cfg = dataclasses.replace(fcaf3d_tiny(), max_epochs=12, lr_steps=(8, 11),
+                              batch_size=2, lr=1e-3)
+    ds = EpochProofDataset()
+
+    def run(work, c, resume=False):
+        return train_model(c, Loader(ds, cfg.batch_size, cfg.num_points,
+                                     cfg.max_gt_boxes, seed=0),
+                           os.path.join(tmp, work), seed=0, log_interval=1,
+                           resume=resume, classes=ds.classes, device=device)
+
+    t0 = time.perf_counter()
+    model_a, opt_a = run("a", cfg)
+    wall = time.perf_counter() - t0
+    with open(os.path.join(tmp, "a", "train_log.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    losses = [r["loss"] for r in recs if "loss" in r]
+    if len(losses) < 12 or not np.isfinite(losses).all() \
+            or not min(losses[-4:]) < losses[0]:
+        raise AssertionError(f"12-epoch run: losses {losses}")
+    for name, buf in model_a.named_buffers():
+        if buf.is_floating_point() and not (
+                torch.isfinite(buf).all() and buf.abs().max() < 1e4):
+            raise AssertionError(f"12-epoch run: BN statistic {name}")
+    if opt_a.count != 12:
+        raise AssertionError(f"12-epoch run: {opt_a.count} steps")
+    t0 = time.perf_counter()
+    run("b", dataclasses.replace(cfg, max_epochs=6))
+    model_b, opt_b = run("b", cfg, resume=True)
+    resumed_wall = time.perf_counter() - t0
+    (sa, ca), (sb, cb) = train_state(model_a, opt_a), train_state(model_b,
+                                                                   opt_b)
+    diff = state_differences(torch, sa, sb)
+    log(f"   12-epoch run at fcaf3d_tiny: {wall:.2f} s, losses {losses[0]:.4f}"
+        f" -> {losses[-1]:.4f} (least of the last four "
+        f"{min(losses[-4:]):.4f}); 6 + 6 resumed {resumed_wall:.2f} s; "
+        f"{len(sa)} tensors and the count ({ca} / {cb}) "
+        + ("bitwise equal" if not diff and ca == cb else
+           f"DIFFER: {len(diff)} tensors, largest {diff[:4]}"))
+    if diff or ca != cb:
+        again = state_differences(torch, sa, train_state(*run("a2", cfg))[0])
+        raise AssertionError(
+            f"the resumed run differs from the straight run in {len(diff)} "
+            f"tensors (largest {diff[:4]}); a second straight run differs "
+            f"from the first in {len(again)} (largest {again[:4]})")
+    return {"wall_s": wall, "resumed_wall_s": resumed_wall,
+            "losses": [losses[0], losses[-1]], "tensors": len(sa)}
+
+
+def last_slice_phase(torch, cfg, device):
+    """Phase 16: (a) `created_data_phase`, (b) `overfit_proof` with its
+    first step held and its f32 K2 / K4 on the path's variants, (c)
+    `epoch_proof`. Returns launches, launches by variant, K1 records and
+    the records of each part."""
+    import tempfile
+
+    from fcaf3d_tpu_torch import _native
+
+    launches, variants, k1, rec = created_data_phase(torch, cfg, device)
+    log(f"   -- (b) the overfit proof: crowded rotated scene, depth 14, f32, "
+        f"2 cm voxels, up to {OVERFIT_STEPS} steps a run, from "
+        f"create_train_state's init at {len(OVERFIT_SEEDS)} seeds")
+    calls = {}
+    conv_calls = {"fused_gather_gemm": [], "fused_gather_max": [],
+                  "fused_gather_dw": []}
+    torch.cuda.synchronize()
+    _native.reset_launches()
+    rec["overfit"] = overfit_proof(torch, device, calls, conv_calls)
+    path = "fcaf3d_overfit_proof"
+    launches[path] = dict(_native.LAUNCHES)
+    check_path_launches(launches[path], path)
+    variants[path] = check_variants(f"f32 {path}", f32=True)
+    if "gather_dw/simt/float32" not in variants[path]:
+        raise AssertionError(f"{path}: no f32 K4 launch")
+    k1[path] = hold_recorded(torch, calls, conv_calls, 1,
+                             f"the first step of {path}")
+    del calls, conv_calls
+    log("   -- (c) the 12-epoch proof at fcaf3d_tiny with a mid-run resume")
+    torch.cuda.synchronize()
+    _native.reset_launches()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_epochs_") as tmp:
+        rec["epochs"] = epoch_proof(torch, device, tmp)
+    path = "fcaf3d_epoch_proof"
+    launches[path] = dict(_native.LAUNCHES)
+    check_path_launches(launches[path], path)
+    variants[path] = check_variants(f"f32 {path}", f32=True)
+    return launches, variants, k1, rec
+
+
 KERNELS = (
     ("searchsorted", "fcaf3d_tpu_torch/csrc/search.cu",
      "fcaf3d_tpu/ops/sparse/search.py:149"),
@@ -6178,6 +6839,14 @@ def main():
         "cuda")
     rec["gather_gemm"]["data_parallel"] = dp_recs["fcaf3d"]
     rec["fps"]["votenet_dp_training"] = dp_recs["votenet"]
+    log("== 16 the last slice: raw ScanNet arrays -> tools.create_data -> "
+        f"train_model (fcaf3d_scannet, bf16, batch {TRAIN_BATCH}) -> "
+        "evaluate_dataset under the native and the numpy IoU, model FLOPs; "
+        "the overfit proof; the 12-epoch proof with a mid-run resume")
+    ls_launches, ls_variants, ls_k1, ls_rec = last_slice_phase(torch, cfg,
+                                                               "cuda")
+    rec["searchsorted"]["path_calls"].update(ls_k1)
+    rec["gather_gemm"]["last_slice"] = ls_rec
     log(f"== all phases passed in {time.perf_counter() - t_start:.1f} s")
     for what, ms, first, second in NOT_FASTER:
         log(f"   not faster than a yardstick: {what}: kernel {ms:.4f} ms, "
@@ -6186,12 +6855,13 @@ def main():
                "fcaf3d_training": train_launches,
                "votenet_inference": vote_launches, **other_launches,
                **rest_launches, **vt_launches, **iv_launches,
-               **pf_launches, **tl_launches, **dp_launches}
+               **pf_launches, **tl_launches, **dp_launches, **ls_launches}
     variants = {"fcaf3d_inference": infer_variants,
                 "fcaf3d_training": train_variants,
                 "votenet_inference": vote_variants, **other_variants,
                 **rest_variants, **vt_variants, **iv_variants,
-                **pf_variants, **tl_variants, **dp_variants}
+                **pf_variants, **tl_variants, **dp_variants,
+                **ls_variants}
     kernels = []
     for name, src, tpu in KERNELS:
         k = {"name": name, "route": "cuda", "source": src, "replaces": tpu,

@@ -5,9 +5,9 @@ The reference's `indoor_eval` (mmdet3d `core/evaluation/indoor_eval.py`):
 per-class, per-scene greedy matching at multiple IoU thresholds with
 area-mode AP. IoU between detections and GT is full 3D IoU of (possibly
 rotated) boxes, vectorized numpy polygon clipping (the candidate-vertex
-construction of `core.rotated_iou`, the tensor twin). The JAX package
-dispatches the IoU to a host C++ op when one builds; the port computes it
-in numpy only (the JAX package's numpy path, `_pairwise_iou_3d_numpy`).
+construction of `core.rotated_iou`, the tensor twin). As in the JAX
+package, the IoU runs in host C++ (`native/`) by default and in numpy with
+`FCAF3D_NATIVE=0`; unlike it, a failed native build raises.
 
 Box convention: bottom-centered box7 (cx, cy, cz_bottom, dx, dy, dz, yaw),
 the framework canonical layout.
@@ -18,6 +18,7 @@ from collections import defaultdict
 
 import numpy as np
 
+from .. import native
 
 # ---------------------------------------------------------------------------
 # numpy rotated 3D IoU (eval only; the tensor twin is core.rotated_iou)
@@ -85,11 +86,23 @@ def _quad_inter_area_np(c1, c2):
 
 
 def pairwise_iou_3d_np(boxes1, boxes2):
-    """[N, M] 3D IoU of bottom-centered box7 arrays (float64)."""
+    """[N, M] 3D IoU of bottom-centered box7 arrays (float64).
+
+    Dispatches to the native C++ IoU (`native/`, built with g++ at first
+    use; a failed build raises) as the JAX function does; `FCAF3D_NATIVE=0`
+    selects the numpy path below, the plain version."""
     n, m = len(boxes1), len(boxes2)
     if n == 0 or m == 0:
         return np.zeros((n, m))
-    boxes1, boxes2 = np.asarray(boxes1), np.asarray(boxes2)
+    if native.enabled():
+        return native.pairwise_iou_3d(np.asarray(boxes1),
+                                      np.asarray(boxes2)).astype(np.float64)
+    return _pairwise_iou_3d_numpy(np.asarray(boxes1), np.asarray(boxes2))
+
+
+def _pairwise_iou_3d_numpy(boxes1, boxes2):
+    """The numpy IoU (`FCAF3D_NATIVE=0`), bitwise the JAX package's."""
+    n, m = len(boxes1), len(boxes2)
     b1 = np.broadcast_to(boxes1[:, None, :], (n, m, 7)).copy()
     b2 = np.broadcast_to(boxes2[None, :, :], (n, m, 7)).copy()
     inter2d = _quad_inter_area_np(

@@ -1,5 +1,7 @@
-"""Box and rotation helpers of the assigner and the rotated IoU (port of
-part of `fcaf3d_tpu/core/geometry.py`).
+"""Box and rotation helpers (port of `fcaf3d_tpu/core/geometry.py`), on
+tensors: the assigner and the rotated IoU call them on the device, and the
+host box API (`core.boxes.Boxes3D`) on CPU tensors made from its numpy
+arrays, as the JAX `Boxes3D` calls the jnp versions.
 
 Canonical box layout, as in the JAX package: box7 = (cx, cy, cz_bottom, dx,
 dy, dz, yaw); `gravity_center` lifts z by dz / 2.
@@ -88,3 +90,31 @@ def flip_box7(boxes7: torch.Tensor, axis: str) -> torch.Tensor:
     else:
         raise ValueError(axis)
     return torch.cat([x, y, z, dx, dy, dz, yaw], dim=-1)
+
+
+def limit_period(val, offset: float = 0.5, period: float = math.pi):
+    """Limit a periodic value into [-offset * period, (1 - offset) *
+    period)."""
+    return val - torch.floor(val / period + offset) * period
+
+
+def box_volume(boxes7: torch.Tensor) -> torch.Tensor:
+    return boxes7[..., 3] * boxes7[..., 4] * boxes7[..., 5]
+
+
+def rotate_box7(boxes7: torch.Tensor, angle) -> torch.Tensor:
+    """Rotate boxes [..., 7] about the z axis through the world origin by
+    the scalar `angle`: the centre as `rotate_points_z` rotates points, the
+    yaw plus `angle`."""
+    a = torch.as_tensor(angle, dtype=boxes7.dtype, device=boxes7.device)
+    center = rotate_points_z(boxes7[..., None, :3], a)[..., 0, :]
+    return torch.cat([center, boxes7[..., 3:6], boxes7[..., 6:7] + a], dim=-1)
+
+
+def scale_box7(boxes7: torch.Tensor, factor) -> torch.Tensor:
+    return torch.cat([boxes7[..., :6] * factor, boxes7[..., 6:7]], dim=-1)
+
+
+def translate_box7(boxes7: torch.Tensor, trans) -> torch.Tensor:
+    trans = torch.as_tensor(trans, dtype=boxes7.dtype, device=boxes7.device)
+    return torch.cat([boxes7[..., :3] + trans, boxes7[..., 3:7]], dim=-1)

@@ -5,6 +5,10 @@
   test; the JAX package's `data` imports jax through its package init).
   Points are sampled on the boxes' surfaces plus a floor sheet, so the box
   geometry and labels are exact.
+- `crowded_rotated_sample`: the scene of the JAX package's crowded-rotated
+  overfit proof (a copy of `tests/test_overfit_fixture.py`'s
+  `_crowded_rotated_sample`, held equal to it by a test): 20 yawed boxes,
+  their surface points, a floor and clutter that belongs to no box.
 - `synth_scene`: a room-like cloud without annotations (a copy of the JAX
   benchmark's `bench.synth_scene`, held equal to it by a test).
 - `synth_room`, `synth_sunrgbd`, `synth_s3dis`: the acquisition models that
@@ -84,6 +88,31 @@ def crowded_scene(n_boxes, n_classes, rng, extent=8.0, with_yaw=False):
     boxes = np.asarray(boxes, np.float32)
     labels = rng.integers(0, n_classes, n_boxes).astype(np.int64)
     return {"gt_boxes": boxes, "gt_labels": labels}
+
+
+def crowded_rotated_sample(rng, n_classes, n_boxes=20, n_clutter=640,
+                           pts_per_box=96, gt=None):
+    """Crowded rotated scene with distractor clutter: `n_boxes` random-yaw
+    boxes on a jittered grid (`crowded_scene`, 6 m), their surface samples
+    and a floor sheet (`densify`), and `n_clutter` points that belong to no
+    box, so that detection has to separate objects from distractor
+    geometry. Pass `gt` ({"gt_boxes", "gt_labels"}) to draw fresh points
+    for the same annotations (the held-out evaluation)."""
+    if gt is None:
+        gt = crowded_scene(n_boxes, n_classes, rng, extent=6.0,
+                           with_yaw=True)
+    sample = densify(gt, pts_per_box, n_floor=256, rng=rng)
+    lo = gt["gt_boxes"][:, :3].min(axis=0) - 0.5
+    hi = (gt["gt_boxes"][:, :3] + gt["gt_boxes"][:, 3:6]).max(axis=0) + 0.5
+    clutter = np.stack([
+        rng.uniform(lo[0], hi[0], n_clutter),
+        rng.uniform(lo[1], hi[1], n_clutter),
+        rng.uniform(0.0, 2.2, n_clutter),
+    ], axis=1).astype(np.float32)
+    ccol = rng.uniform(0, 255, (n_clutter, 3)).astype(np.float32)
+    sample["points"] = np.concatenate(
+        [sample["points"], np.concatenate([clutter, ccol], axis=1)])
+    return sample
 
 
 def synth_scene(rng, n_points, extent=(6.0, 6.0, 2.8)):

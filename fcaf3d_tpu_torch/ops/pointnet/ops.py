@@ -3,8 +3,8 @@
 Padded [B, N, ...] tensors with optional validity masks, as in the JAX
 package. `furthest_point_sample` (K5) and `ball_query` (K6) dispatch on the
 device: the kernel on a CUDA tensor, the plain version on a CPU one. The
-other ops are plain PyTorch on both. `knn` and `assign_score_withk` are not
-ported yet.
+other ops are plain PyTorch on both, as `knn` here and `assign_score_withk`
+(`paconv.py`), which are no Pallas kernels in the JAX package either.
 """
 from __future__ import annotations
 
@@ -36,6 +36,19 @@ def group_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """[B, N, C] grouped by [B, M, K] -> [B, M, K, C]."""
     b, m, k = idx.shape
     return gather_points(points, idx.reshape(b, m * k)).reshape(b, m, k, -1)
+
+
+def knn(query: torch.Tensor, points: torch.Tensor, k: int,
+        valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The k nearest points of each query: [B, M, 3] in [B, N, 3] -> idx
+    [B, M, k] int32, nearest first. An exact k-smallest over the same
+    expansion as the JAX package's `approx_min_k` at recall 1.0; invalid
+    points sit at distance `_BIG`. Ties may pick another of the equally
+    distant points than the JAX function (their distances are equal)."""
+    d2 = _sqdist(query, points)
+    if valid is not None:
+        d2 = torch.where(valid[:, None, :], d2, _BIG)
+    return torch.topk(d2, k, dim=-1, largest=False, sorted=True)[1].int()
 
 
 def three_nn(query: torch.Tensor, points: torch.Tensor,

@@ -28,6 +28,9 @@ equal to it; only `_variant=` reaches that one. K4 off the tensor cores
 is "simt" (`csrc/gather_dw.cu`). Tiles and slices are functions of the shapes only
 (`k2_tiles`, `k4_tiles`, `dw_slices`).
 
+The K2 and K4 wrappers record their dense-equivalent FLOPs,
+2 * B * M * K * C * E, with `utils.flops.record_flops` on both paths.
+
 Each wrapper runs its kernel on a CUDA tensor and its plain PyTorch version
 (`*_plain`, the same function) on a CPU tensor; there is no fallback from
 one to the other. The kernels are not differentiable: on a CUDA tensor the
@@ -44,6 +47,7 @@ import torch
 
 from ... import _native
 from ..._native import SMS
+from ...utils.flops import record_flops
 
 _ACTS = {None: 0, "relu": 1, "elu": 2}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -309,6 +313,9 @@ def fused_gather_gemm(feats, idx, weight, scale=None, shift=None, act=None,
     kernel; the path never passes it).
     """
     has_epi = _check_epilogue(scale, shift, act, vmask, add)
+    b, _, c = feats.shape
+    m, k = idx.shape[1:]
+    record_flops(2.0 * b * m * k * c * weight.shape[-1])
     if feats.device.type == "cpu":
         return fused_gather_gemm_plain(feats, idx, weight, scale, shift, act,
                                        vmask, add)
@@ -491,6 +498,9 @@ def fused_gather_dw(feats: torch.Tensor, idx: torch.Tensor,
     `_variant` forces a kernel variant on a CUDA tensor (a yardstick of the
     measurements; the path never passes it).
     """
+    b, _, c = feats.shape
+    m, k = idx.shape[1:]
+    record_flops(2.0 * b * m * k * c * dout.shape[-1])
     if feats.device.type == "cpu":
         return fused_gather_dw_plain(feats, idx, dout)
     return _fused_gather_dw_cuda(feats, idx, dout, _variant)

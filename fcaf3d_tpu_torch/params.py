@@ -8,7 +8,9 @@ numpy arrays with the flax paths and shapes of `fcaf3d_tpu.models.FCAF3D`
 `init_imvotenet_variables` of `fcaf3d_tpu.models.imvotenet.ImVoteNet`), so
 the same tree can drive both packages; `load_variables` copies such a tree (or
 a converted checkpoint's) into the torch modules, whose names are the flax
-names (flax `a/b/c` is state_dict `a.b.c`).
+names (flax `a/b/c` is state_dict `a.b.c`). `init_reference_variables`
+draws the FCAF3D tree from the reference's own init distributions instead:
+training from scratch (`train.create_train_state`) starts there.
 
 The draw is made so that a forward pass does real work at full size: normal
 kernels at the kaiming scale (fan_out for sparse convs, fan_in for dense
@@ -24,6 +26,7 @@ every score near 0.005, below the threshold.)
 from __future__ import annotations
 
 from collections.abc import Mapping
+from functools import partial
 from typing import Dict
 
 import numpy as np
@@ -145,13 +148,12 @@ def flatten(tree: Mapping, prefix: str = "") -> Dict[str, object]:
     return out
 
 
-def _draw_tree(shapes, seed, gains, zero_bias) -> dict:
+def _draw_tree(shapes, seed, draw_param, draw_stat=_draw_stat) -> dict:
     rng = np.random.default_rng(seed)
     pshapes, sshapes = shapes
-    params = {n: _draw_param(rng, n, pshapes[n], gains,
-                             zero_bias).astype(np.float32)
+    params = {n: draw_param(rng, n, pshapes[n]).astype(np.float32)
               for n in sorted(pshapes)}
-    stats = {n: _draw_stat(rng, n, sshapes[n]).astype(np.float32)
+    stats = {n: draw_stat(rng, n, sshapes[n]).astype(np.float32)
              for n in sorted(sshapes)}
     tree = {"params": _nest(params)}
     if stats:
@@ -162,7 +164,50 @@ def _draw_tree(shapes, seed, gains, zero_bias) -> dict:
 def init_variables(cfg: FCAF3DConfig, seed: int = 0) -> dict:
     """Seeded numpy `{"params", "batch_stats"}` tree (float32 leaves) with
     the flax paths and shapes of `FCAF3D(cfg)`."""
-    return _draw_tree(variable_shapes(cfg), seed, _HEAD_GAIN, {"cls_conv"})
+    return _draw_tree(variable_shapes(cfg), seed,
+                      partial(_draw_param, gains=_HEAD_GAIN,
+                              zero_bias={"cls_conv"}))
+
+
+# The reference's init, which training from scratch starts at (flax's
+# initializers of the JAX package's `fcaf3d_tpu/models/blocks.py` and
+# `fcaf3d_head.py`, drawn here in numpy): sparse conv kernels He-normal over
+# their fan-out (`ME.utils.kaiming_normal_`), the head's 1x1 convs normal
+# with std 0.01, the class bias at the focal-loss prior log(0.01 / 0.99),
+# the heads' exp scales, norm gains and running variances one, other biases
+# and running means zero.
+_REFERENCE_HEAD_STD = {"centerness_conv": 0.01, "reg_conv": 0.01,
+                       "cls_conv": 0.01}
+_REFERENCE_CLS_PRIOR = 0.01
+
+
+def _reference_param(rng, name, shape):
+    module, _, leaf = name.rpartition(".")
+    owner = module.rsplit(".", 1)[-1]
+    if leaf == "kernel" and len(shape) == 3:  # sparse conv [K, Cin, Cout]
+        std = _REFERENCE_HEAD_STD.get(owner,
+                                      np.sqrt(2.0 / (shape[0] * shape[2])))
+        return rng.standard_normal(shape) * std
+    if leaf == "scale" or leaf.startswith("scale_"):
+        return np.ones(shape)
+    if leaf == "bias" and owner == "cls_conv":
+        p = _REFERENCE_CLS_PRIOR
+        return np.full(shape, -np.log((1 - p) / p))
+    if leaf == "bias":
+        return np.zeros(shape)
+    raise ValueError(f"no reference init for parameter {name}")
+
+
+def _reference_stat(rng, name, shape):
+    return (np.ones if name.endswith(".var") else np.zeros)(shape)
+
+
+def init_reference_variables(cfg: FCAF3DConfig, seed: int = 0) -> dict:
+    """Seeded numpy tree of `FCAF3D(cfg)` (as `init_variables`) drawn from
+    the reference's init distributions, where `create_train_state` starts
+    training. `init_variables` draws for forwards that detect instead."""
+    return _draw_tree(variable_shapes(cfg), seed, _reference_param,
+                      _reference_stat)
 
 
 def init_votenet_variables(cfg: VoteNetConfig, seed: int = 0,
@@ -171,7 +216,8 @@ def init_votenet_variables(cfg: VoteNetConfig, seed: int = 0,
     n_classes, num_proposal and backbone_num_points), or for a v1 config
     `VoteNetV1(cfg, coder)`."""
     return _draw_tree(votenet_variable_shapes(cfg, coder), seed,
-                      _VOTE_HEAD_GAIN, {"conv_cls"})
+                      partial(_draw_param, gains=_VOTE_HEAD_GAIN,
+                              zero_bias={"conv_cls"}))
 
 
 def init_detector2d_variables(n_classes: int = 10, width: int = 64,
@@ -180,7 +226,8 @@ def init_detector2d_variables(n_classes: int = 10, width: int = 64,
     (GroupNorm keeps no batch statistics)."""
     return _draw_tree(_model_shapes(Detector2D(n_classes, width, fpn_ch,
                                                device="meta")),
-                      seed, _DET2D_HEAD_GAIN, {"cls_pred"})
+                      seed, partial(_draw_param, gains=_DET2D_HEAD_GAIN,
+                                    zero_bias={"cls_pred"}))
 
 
 def init_imvotenet_variables(cfg: VoteNetConfig, seed: int = 0,
@@ -191,7 +238,8 @@ def init_imvotenet_variables(cfg: VoteNetConfig, seed: int = 0,
     `num_sampled_seed` and `max_imvote`)."""
     return _draw_tree(_model_shapes(ImVoteNet(cfg, num_sampled_seed,
                                               max_imvote, device="meta")),
-                      seed, _VOTE_HEAD_GAIN, {"conv_cls"})
+                      seed, partial(_draw_param, gains=_VOTE_HEAD_GAIN,
+                                    zero_bias={"conv_cls"}))
 
 
 def load_variables(model: torch.nn.Module, variables: Mapping) -> None:

@@ -28,7 +28,7 @@ from ..parallel.comm import (Group, all_reduce_grads, broadcast_module,
 from ..params import (
     init_detector2d_variables,
     init_imvotenet_variables,
-    init_variables,
+    init_reference_variables,
     init_votenet_variables,
     load_variables,
 )
@@ -60,11 +60,12 @@ def _train_state(model, variables, cfg, steps_per_epoch):
 def create_train_state(cfg: FCAF3DConfig, seed: int = 0, device="cuda",
                        steps_per_epoch: int = 1
                        ) -> Tuple[FCAF3D, ClipAdamW, int]:
-    """(model in train mode with the seeded `params.init_variables` draw,
-    its optimizer from the config's recipe, step counter 0). The step
-    counter lives on as `optimizer.count`."""
+    """(model in train mode with the seeded `params.init_reference_variables`
+    draw, the reference's init, its optimizer from the config's recipe,
+    step counter 0). The step counter lives on as `optimizer.count`."""
     return _train_state(FCAF3D(cfg, device=device),
-                        init_variables(cfg, seed), cfg, steps_per_epoch)
+                        init_reference_variables(cfg, seed), cfg,
+                        steps_per_epoch)
 
 
 def create_votenet_train_state(cfg: VoteNetConfig, seed: int = 0,

@@ -1,1 +1,2 @@
-"""Parameter-tree utilities of the port."""
+"""Parameter-tree utilities and the model-FLOP counter of the port."""
+from .flops import flop_counter, record_flops  # noqa: F401

@@ -216,7 +216,7 @@ def train_steps(batch, group, model, opt, make_step, cfg, steps):
 def fcaf3d_steps(batch, group, dtype, steps):
     cfg = dataclasses.replace(tconfigs.fcaf3d_nano(),
                               compute_dtype=str(dtype).split(".")[1])
-    model, opt, _ = create_train_state(cfg, seed=0, device="cpu")
+    model, opt, _ = chip_smoke.seeded_train_state(cfg, 0, "cpu")
     model.to(dtype)  # in place: the optimizer keeps the parameters
     return train_steps(batch, group, model, opt, make_train_step, cfg, steps)
 
@@ -323,7 +323,7 @@ def head_outputs(batch):
     numpy level tuples (centerness, bbox_pred, cls_scores, points,
     valid)."""
     cfg = dataclasses.replace(tconfigs.fcaf3d_nano(), compute_dtype="float64")
-    model, _, _ = create_train_state(cfg, seed=0, device="cpu")
+    model, _, _ = chip_smoke.seeded_train_state(cfg, 0, "cpu")
     model.to(torch.float64)
     with torch.no_grad():
         outs, _ = model(*(torch.as_tensor(batch[k])

@@ -32,7 +32,8 @@ from fcaf3d_tpu_torch.data import datasets as tdatasets
 from fcaf3d_tpu_torch.data import pipelines as tpipes
 from fcaf3d_tpu_torch.data import points as tpoints
 from fcaf3d_tpu_torch.params import (export_variables, flatten,
-                                     init_variables, load_variables)
+                                     init_reference_variables,
+                                     load_variables)
 from fcaf3d_tpu_torch.train import (create_train_state, latest_epoch,
                                     make_train_step, restore_checkpoint,
                                     save_checkpoint)
@@ -238,8 +239,10 @@ def _rand_boxes(rng, n, rotated):
 
 
 @pytest.mark.parametrize("rotated", [False, True])
-def test_pairwise_iou_equals_jax_numpy(rotated):
-    """The port's IoU is bitwise the JAX package's numpy path."""
+def test_pairwise_iou_equals_jax_numpy(rotated, monkeypatch):
+    """The port's numpy IoU (`FCAF3D_NATIVE=0`) is bitwise the JAX
+    package's numpy path."""
+    monkeypatch.setenv("FCAF3D_NATIVE", "0")
     rng = np.random.default_rng(int(rotated))
     a, b = _rand_boxes(rng, 40, rotated), _rand_boxes(rng, 30, rotated)
     b[:5] = a[:5]  # identical pairs: IoU 1
@@ -251,11 +254,13 @@ def test_pairwise_iou_equals_jax_numpy(rotated):
 @pytest.mark.parametrize("rotated", [False, True])
 def test_indoor_eval_equals_jax(rotated, monkeypatch):
     """Random detections around jittered GT boxes over 6 scenes: the same
-    metric dict as the JAX package's `indoor_eval` on its numpy IoU."""
+    metric dict as the JAX package's `indoor_eval`, both on their numpy
+    IoU."""
     import fcaf3d_tpu.native
 
     monkeypatch.setattr(fcaf3d_tpu.native, "pairwise_iou_3d",
                         lambda a, b: None)
+    monkeypatch.setenv("FCAF3D_NATIVE", "0")
     rng = np.random.default_rng(10 + int(rotated))
     gts, dts = [], []
     for _ in range(6):
@@ -360,7 +365,7 @@ def test_export_variables_inverts_load_variables():
     layout), and loading it back changes no value."""
     cfg = tconfigs.fcaf3d_nano()
     model, _, _ = create_train_state(cfg, seed=0, device="cpu")
-    want = flatten(init_variables(cfg, seed=0))
+    want = flatten(init_reference_variables(cfg, seed=0))
     got = flatten(export_variables(model))
     assert set(got) == set(want)
     for k in want:

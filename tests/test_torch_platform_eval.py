@@ -4,7 +4,7 @@ TTA, at batch 1 and batch 3 over 4 val scenes (a ragged last batch).
 
 Tolerances: per-scene detections as `tests/test_torch_model.py` holds them
 (labels exact, boxes and scores within atol 1e-4); metric dicts equal,
-with the JAX side's IoU on its numpy path, as the port's.
+with both sides' IoU on its numpy path (`FCAF3D_NATIVE=0` for the port).
 """
 import os
 import sys
@@ -49,11 +49,12 @@ def eval_pair(tmp_path_factory):
 def test_evaluate_dataset_matches_jax(eval_pair, tta, batch_size,
                                       monkeypatch, tmp_path):
     """Per-scene detections within atol 1e-4 (labels exact) and equal
-    metric dicts; the JAX side's IoU on its numpy path, as the port's."""
+    metric dicts; both sides' IoU on its numpy path."""
     import fcaf3d_tpu.native
 
     monkeypatch.setattr(fcaf3d_tpu.native, "pairwise_iou_3d",
                         lambda a, b: None)
+    monkeypatch.setenv("FCAF3D_NATIVE", "0")
     root, cfg, jcfg, model, jvars = eval_pair
     got_dets, want_dets = [], []
 

@@ -233,9 +233,12 @@ def test_test_cli(cli_run):
 def test_pcd_demo_cli(cli_run):
     tmp, root, work, _ = cli_run
     out_dir = tmp / "demo"
+    # two steps from the reference's init leave every score under the
+    # config's score_thr (its class prior is 0.01): keep them all
     out = run_cli("pcd_demo", os.path.join(root, "points", "val_00000.bin"),
                   "--work-dir", work, "--out-dir", str(out_dir),
-                  "--score-thr", "0", "--device", "cpu", "--set", *TINY_SET)
+                  "--score-thr", "0", "--device", "cpu", "--set", *TINY_SET,
+                  "score_thr=0")
     assert "detections above 0.0" in out
     assert sorted(os.listdir(out_dir)) == ["val_00000_points.obj",
                                            "val_00000_pred.obj"]
