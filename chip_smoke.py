@@ -47,7 +47,7 @@ Phases (any failure raises and the script exits non-zero):
    replayed on the card, as the path runs them and on the earlier kernel.
 6. Training: `create_train_state` / `make_train_step` at `fcaf3d_scannet`
    (from the `params.init_variables` draw, as every phase that holds
-   kernels or gradients: `seeded_train_state`) in bf16, batch 8 of
+   kernels or gradients: `seeded`) in bf16, batch 8 of
    crowded synthetic scenes (50 000 raw points each, sampled to
    100 000): one warm-up step (its K1 calls checked and timed
    as in phase 5, its K2 and K3 calls held to plain and its K4 calls to
@@ -122,7 +122,11 @@ Phases (any failure raises and the script exits non-zero):
    `voxelize_reduce` mean and max on a scan at the ScanNet input budget:
    keys equal to the CPU's, features within VOXEL_REDUCE_ATOL, two card
    runs bitwise equal.
-11. VoteNet training and VoteNet-v1, f32. (a) `create_votenet_train_state`
+11. VoteNet training and VoteNet-v1, f32; the train states of phases
+   11, 12 and 15 load the forward draws (`init_votenet_variables`,
+   `init_detector2d_variables`, `init_imvotenet_variables`) over flax's
+   default init, as phase 6's (`seeded`). (a)
+   `create_votenet_train_state`
    / `make_votenet_train_step` at `votenet_sunrgbd`, batch 16 of phase
    9's crowded scenes with yawed boxes (20 000 points with the height
    column, GT padded to 64): a warm-up step whose K5 and K6 calls are
@@ -229,11 +233,16 @@ Phases (any failure raises and the script exits non-zero):
    `tools.train_detector2d` for 1 epoch of TOOL_STEPS steps at batch 8:
    finite losses, `detector2d.pkl` equal to the trained model and loaded
    by `init_detector2d(params_file=)`, whose `extract_bboxes_2d` gives the
-   in-memory model's boxes. (c) `tools.train_imvotenet` with (b)'s pickle,
-   then with `--gt-boxes-2d`, each 1 epoch of TOOL_STEPS steps at batch
+   in-memory model's boxes, compared before the score threshold (the
+   tools train from flax's default init, whose `cls_pred` bias of -4
+   leaves few boxes above it after two steps). (c) `tools.train_imvotenet`
+   with a pickle of the seeded `init_detector2d_variables` draw (its
+   `--detector2d`: every step fed extracted 2D boxes), then with
+   `--gt-boxes-2d`, each 1 epoch of TOOL_STEPS steps at batch
    8: 7 K5 and 7 K6 a step on their variants, the first step's calls held
    to plain, `imvotenet.pkl` through `init_imvotenet(params_file=)` giving
-   the trained model's predictions bitwise, `inference_imvotenet` on it.
+   the trained model's predictions bitwise, `inference_imvotenet` on it
+   with non-empty detections.
    (d) The converter: the seeded variables of `fcaf3d_scannet`,
    `votenet_sunrgbd` and ImVoteNet written under the reference's names and
    layouts (`reference_state_dict`: ME-order kernels, 1x1 conv weights),
@@ -319,6 +328,25 @@ Phases (any failure raises and the script exits non-zero):
    BN statistics, the step count, then 6 epochs and `resume=True` to 12
    bitwise equal to the straight run (every variable and buffer, Adam's
    moments and count).
+17. The paper's evaluation protocol and the parity-on-arrival dump, over
+   phase 16 (a)'s created ScanNet data and run. (a) One more epoch of that
+   run (its checkpoint restored, SLICE_TRAIN_STEPS bf16 steps) saved
+   beside the first with `save_checkpoint(..., max_keep=2)`; `python -m
+   fcaf3d_tpu_torch.tools.test5x5 --dataset scannet --n-ckpts 5 --n-seeds
+   FIVE_SEEDS` on the card (a subprocess whose launches are counted,
+   `counted_tool`) over val GT made of both epochs' own detections
+   (`gt_from_epochs`): its run lines and JSON equal to
+   `evaluate_dataset`'s min / mean / max in this process over both epochs
+   and seeds, every run's mAP@0.25 above 0, the runs not all equal, K1-K3
+   on the path's variants in both processes.
+   (b) `python -m fcaf3d_tpu_torch.tools.parity_check` at
+   `fcaf3d_scannet` (the reference neck, f32) with `--device cuda` and
+   with `--device cpu` on phase 5's first scan as a `.bin` and the pickled
+   `init_variables(cfg, 0)` tree as `--params`: `run_diff` (`--diff`) of
+   the two dumps PARITY OK at PARITY_RTOL, the same keys, every `.n_valid`
+   and the detection counts equal, K1, K2 on its narrow and tiled f32
+   kernels and K3 on the card, no launch on the CPU. The three tool runs
+   start together (`run_together`).
 
 Output: progress lines, then a JSON line of per-kernel results (launches
 of each main path: FCAF3D inference, FCAF3D training, VoteNet inference,
@@ -330,8 +358,10 @@ training, phase 13's platform training (with its eval hook) and
 evaluation, and phase 14's tool loops (VoteNet v2 / v1, ImVoteNet with
 extracted and GT 2D boxes) and converted, fused and published inference,
 phase 15's data-parallel FCAF3D and VoteNet training and sharded
-evaluation, summed over the ranks, and phase 16's training and evaluation
-on the created data, the overfit proof and the 12-epoch proof;
+evaluation, summed over the ranks, phase 16's training and evaluation
+on the created data, the overfit proof and the 12-epoch proof, and phase
+17's second epoch, its 5 x 5 evaluations in process and in `tools.test5x5`
+and the card's parity dump;
 K1-K6 also by variant; the recorded shape's times, bound and share; K1 at
 every distinct call of the two FCAF3D paths, K2 at every f32 path shape and
 over the f32 scan, K3 at both stem pool maps, K6 at every VoteNet shape,
@@ -444,6 +474,7 @@ AGG_D2_TOL = 1e-4
 IMVOTE_FRAMES, IMVOTE_TRAIN_BATCH, IMVOTE_MAX_DET = 3, 8, 32
 IMVOTE_HW, IMVOTE_FOCAL = (480, 640), 570.0
 DET2D_WIDTH, DET2D_FPN = 64, 128
+DET2D_SCORE_THR = 0.1  # `detector2d_get_bboxes`'s default score threshold
 IMVOTE_TRAIN_STEPS, DET2D_TRAIN_STEPS = 2, 2
 DET2D_BOX_ATOL, FEW_SEEDS = 1e-3, 256
 DET2D_TINY = {"n_classes": 4, "width": 16, "fpn_ch": 32}  # the CPU tests'
@@ -493,6 +524,9 @@ OVERFIT_SEEDS = tuple(range(16))
 OVERFIT_JAX_HELDOUT = (0.719, 0.581, 0.598, 0.5, 0.695, 0.691, 0.698, 0.674,
                        0.746, 0.478, 0.705, 0.677, 0.729, 0.771, 0.535, 0.602)
 OVERFIT_SIGMAS = 3
+# phase 17: the 5 x 5 protocol's seeds a checkpoint over phase 16's two
+# epochs, and the rtol of the parity dumps' `--diff` card vs CPU
+FIVE_SEEDS, PARITY_RTOL = 2, 1e-3
 # published dense peaks of one H100 SXM: a kernel's bound is the larger of
 # its operations over the peak of their type (bf16 on the tensor cores;
 # float32 and integer work on the CUDA cores) and its bytes over the memory
@@ -577,6 +611,10 @@ PATH_KERNELS = {
     "fcaf3d_created_data_eval": INFERENCE_KERNELS,
     "fcaf3d_overfit_proof": TRAINING_KERNELS,
     "fcaf3d_epoch_proof": TRAINING_KERNELS,
+    "fcaf3d_5x5_second_epoch": TRAINING_KERNELS,
+    "fcaf3d_5x5_eval": INFERENCE_KERNELS,
+    "fcaf3d_test5x5_tool": INFERENCE_KERNELS,
+    "fcaf3d_parity_dump": INFERENCE_KERNELS,
 }
 
 
@@ -1558,8 +1596,9 @@ def slice_phase(torch, cfg, scans, device, path="fcaf3d_inference",
             k1)
 
 
-def check_variants(what, tc_kernels=(), f32=False):
-    """The launches since the last reset of the counts went through the
+def check_variants(what, tc_kernels=(), f32=False, counts=None):
+    """The launches since the last reset of the counts (or `counts`, another
+    process's by "kernel/variant/dtype") went through the
     path's kernels: every bf16 K2 and K4 launch through a tensor-core
     variant (and each of `tc_kernels` had one), every f32 K2 launch through
     "simt_narrow" / "simt_tiled" (never the first "simt"), every K1 launch
@@ -1568,8 +1607,9 @@ def check_variants(what, tc_kernels=(), f32=False):
     launch. Logs and returns the launches by "kernel/variant/dtype"."""
     from fcaf3d_tpu_torch import _native
 
-    counts = {"/".join(key): n
-              for key, n in sorted(_native.VARIANT_LAUNCHES.items())}
+    if counts is None:
+        counts = {"/".join(key): n
+                  for key, n in sorted(_native.VARIANT_LAUNCHES.items())}
     log(f"   {what}: K1-K4 launches by variant: {counts}")
     off = {key: n for key, n in counts.items()
            if key.endswith("/simt/bfloat16")
@@ -1635,13 +1675,16 @@ def k1_path_phase(torch, calls, runs, what):
         k1_case(torch, name, kk, qq, miss, shapes, time_plain=False)
         shapes[name]["launches"] = n / runs
     total = {k: sum(r[k] * r["launches"] for r in shapes.values())
-             for k in ("ms", "earlier_ms")}
+             for k in ("ms", "earlier_ms", "bound_ms")}
     log(f"   K1 over the {len(shapes)} distinct calls of {what}: "
         f"{sum(r['launches'] for r in shapes.values()):g} launches a run, "
         f"{total['ms']:.4f} ms of device time a run (the earlier kernel "
-        f"{total['earlier_ms']:.4f})")
+        f"{total['earlier_ms']:.4f}), bound {total['bound_ms']:.4f} ms "
+        f"(the calls' bounds summed), share "
+        f"{total['bound_ms'] / total['ms']:.3f}")
     return {"calls": shapes, "ms_per_run": total["ms"],
-            "earlier_ms_per_run": total["earlier_ms"]}
+            "earlier_ms_per_run": total["earlier_ms"],
+            "bound_ms_per_run": total["bound_ms"]}
 
 
 def check_path_launches(launches, path):
@@ -2010,17 +2053,17 @@ def reference_state_dict(variables, model):
     return sd
 
 
-def seeded_train_state(cfg, seed=0, device="cuda"):
-    """`create_train_state` with the seeded `params.init_variables` draw
-    (the forwards that detect) loaded over the reference's init: the phases
-    that hold kernels and gradients and time steps keep the weights their
-    bounds and earlier times were taken at."""
-    from fcaf3d_tpu_torch.params import init_variables, load_variables
-    from fcaf3d_tpu_torch.train import create_train_state
+def seeded(state, variables):
+    """A `create_*_train_state` result (model, optimizer, count) with the
+    seeded forward draw `variables` (`params.init_variables`,
+    `init_votenet_variables`, ...: the forwards that detect) loaded over
+    the reference's init: the phases that hold kernels and gradients and
+    time steps keep the weights their bounds and earlier times were taken
+    at."""
+    from fcaf3d_tpu_torch.params import load_variables
 
-    model, opt, count = create_train_state(cfg, seed, device)
-    load_variables(model, init_variables(cfg, seed))
-    return model, opt, count
+    load_variables(state[0], variables)
+    return state
 
 
 def train_phase(torch, cfg, batch, device, steps=TRAIN_STEPS,
@@ -2033,9 +2076,11 @@ def train_phase(torch, cfg, batch, device, steps=TRAIN_STEPS,
     variant (`check_variants`), the K1 record and the mean step wall in
     ms."""
     from fcaf3d_tpu_torch import _native
-    from fcaf3d_tpu_torch.train import make_train_step
+    from fcaf3d_tpu_torch.params import init_variables
+    from fcaf3d_tpu_torch.train import create_train_state, make_train_step
 
-    model, opt, _ = seeded_train_state(cfg, 0, device)
+    model, opt, _ = seeded(create_train_state(cfg, 0, device),
+                            init_variables(cfg, 0))
     step = make_train_step(model, cfg, opt)
     calls = {}
     conv_calls = {"fused_gather_gemm": [], "fused_gather_max": [],
@@ -2095,6 +2140,8 @@ def head_batch(torch, cfg, extent, b=2, boxes_per_scene=3, seed=0):
     that the assigner finds positives and the box loss is live; with
     `cfg.with_yaw` the boxes get random yaws."""
     from fcaf3d_tpu_torch.data.synth import synth_scene
+    from fcaf3d_tpu_torch.params import init_variables
+    from fcaf3d_tpu_torch.train import create_train_state
 
     pts, cols = zip(*(synth_scene(np.random.RandomState(seed + s),
                                   cfg.num_points, extent=extent)
@@ -2102,7 +2149,8 @@ def head_batch(torch, cfg, extent, b=2, boxes_per_scene=3, seed=0):
     batch = {"points": np.stack(pts).astype(np.float32),
              "colors": np.stack(cols).astype(np.float32),
              "valid": np.ones((b, cfg.num_points), bool)}
-    model, _, _ = seeded_train_state(cfg, 0, "cpu")
+    model, _, _ = seeded(create_train_state(cfg, 0, "cpu"),
+                          init_variables(cfg, 0))
     with torch.no_grad():
         outs, _ = model(*(torch.as_tensor(batch[k])
                           for k in ("points", "colors", "valid")))
@@ -2130,8 +2178,11 @@ def step_grads(torch, cfg, batch, dev, seed=0):
     gradient, on the CPU."""
     from fcaf3d_tpu_torch.models.detector import loss_config
     from fcaf3d_tpu_torch.models.fcaf3d_head import fcaf3d_loss
+    from fcaf3d_tpu_torch.params import init_variables
+    from fcaf3d_tpu_torch.train import create_train_state
 
-    model, _, _ = seeded_train_state(cfg, seed, dev)
+    model, _, _ = seeded(create_train_state(cfg, seed, dev),
+                          init_variables(cfg, seed))
     t = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
     outs, overflow = model(t["points"], t["colors"], t["valid"])
     losses = fcaf3d_loss(outs, t["gt_boxes"], t["gt_labels"], t["gt_valid"],
@@ -2273,10 +2324,12 @@ def profile_train(torch, cfg, batch):
 
     from fcaf3d_tpu_torch.models.detector import loss_config
     from fcaf3d_tpu_torch.models.fcaf3d_head import fcaf3d_loss
-    from fcaf3d_tpu_torch.train import make_train_step
+    from fcaf3d_tpu_torch.params import init_variables
+    from fcaf3d_tpu_torch.train import create_train_state, make_train_step
     from fcaf3d_tpu_torch.train.trainer import BATCH_KEYS
 
-    model, opt, _ = seeded_train_state(cfg, 0, "cuda")
+    model, opt, _ = seeded(create_train_state(cfg, 0, "cuda"),
+                            init_variables(cfg, 0))
     step = make_train_step(model, cfg, opt)
     step(batch)
     step(batch)
@@ -3496,16 +3549,18 @@ def check_vote_launches(launches, variants, calls_per_run, runs, what):
 
 def vote_train_phase(torch, cfg, batch, device, steps, path, coder=None):
     """VoteNet training at `cfg` (v2, or v1 with `coder`) in f32 on the
-    card, from `create_votenet_train_state`: `held_and_timed_steps` with
-    live vote, centre and IoU (v1: size-class) losses, 5 K5 and 5 K6
+    card, from the seeded forward draw (`seeded`): `held_and_timed_steps`
+    with live vote, centre and IoU (v1: size-class) losses, 5 K5 and 5 K6
     launches a step. Returns its (launches, launches by variant, record,
     the warm-up's recorded calls)."""
-    from fcaf3d_tpu_torch.train import (
-        create_votenet_train_state, make_votenet_train_step,
-        make_votenet_v1_train_step)
+    from fcaf3d_tpu_torch.params import init_votenet_variables
+    from fcaf3d_tpu_torch.train import (create_votenet_train_state,
+                                        make_votenet_train_step,
+                                        make_votenet_v1_train_step)
 
-    model, opt, _ = create_votenet_train_state(cfg, seed=0, device=device,
-                                               coder=coder)
+    model, opt, _ = seeded(
+        create_votenet_train_state(cfg, 0, device, coder=coder),
+        init_votenet_variables(cfg, 0, coder))
     make = (make_votenet_v1_train_step if cfg.head_version == "v1"
             else make_votenet_train_step)
     live = (("vote_loss", "center_loss", "iou_loss")
@@ -3701,17 +3756,19 @@ def compare_vote_train_tiny(torch, device, head_version, coder=None):
     `coder`), batch 2 (`vote_head_batch`): `train_gate` of
     `make_votenet_train_step` (v1: `make_votenet_v1_train_step`)."""
     from fcaf3d_tpu_torch.configs import votenet_tiny
-    from fcaf3d_tpu_torch.train import (
-        create_votenet_train_state, make_votenet_train_step,
-        make_votenet_v1_train_step)
+    from fcaf3d_tpu_torch.params import init_votenet_variables
+    from fcaf3d_tpu_torch.train import (create_votenet_train_state,
+                                        make_votenet_train_step,
+                                        make_votenet_v1_train_step)
 
     cfg = dataclasses.replace(votenet_tiny(), head_version=head_version)
     make = (make_votenet_v1_train_step if cfg.head_version == "v1"
             else make_votenet_train_step)
 
     def build(dev):
-        model, opt, _ = create_votenet_train_state(cfg, seed=0, device=dev,
-                                                   coder=coder)
+        model, opt, _ = seeded(
+            create_votenet_train_state(cfg, 0, dev, coder=coder),
+            init_votenet_variables(cfg, 0, coder))
         return model, make(model, cfg, opt)
 
     return train_gate(torch, build, vote_head_batch(cfg), device,
@@ -4205,14 +4262,18 @@ def imvotenet_training(torch, cfg, det, frames, device):
     and peak memory. Returns (launches, by variant, record, the warm-up's
     calls with GT boxes)."""
     from fcaf3d_tpu_torch.models.detector2d import extract_bboxes_2d
-    from fcaf3d_tpu_torch.train import (
-        create_detector2d_train_state, create_imvotenet_train_state,
-        make_detector2d_train_step, make_imvotenet_train_step)
+    from fcaf3d_tpu_torch.params import (init_detector2d_variables,
+                                         init_imvotenet_variables)
+    from fcaf3d_tpu_torch.train import (create_detector2d_train_state,
+                                        create_imvotenet_train_state,
+                                        make_detector2d_train_step,
+                                        make_imvotenet_train_step)
 
     batch = imvote_batch(cfg, frames, IMVOTE_MAX_DET)
     live = [f"{t}_{k}" for t in ("joint", "pts", "img")
             for k in ("vote_loss", "center_loss", "iou_loss")]
-    model, opt, _ = create_imvotenet_train_state(cfg, seed=0, device=device)
+    model, opt, _ = seeded(create_imvotenet_train_state(cfg, 0, device),
+                           init_imvotenet_variables(cfg, 0))
     step = make_imvotenet_train_step(model, cfg, opt)
     log(f"   ImVoteNet, GT 2D boxes (up to {IMVOTE_MAX_DET} a frame, conf 1)")
     launches, variants, rec_gt, calls = held_and_timed_steps(
@@ -4230,8 +4291,10 @@ def imvotenet_training(torch, cfg, det, frames, device):
     l2, v2, rec_x, _ = held_and_timed_steps(
         torch, model, extracted_step, batch, IMVOTE_TRAIN_STEPS,
         "imvotenet_training", live, 7, cfg)
-    dmodel, dopt, _ = create_detector2d_train_state(
-        cfg.n_classes, det.width, det.fpn_ch, seed=0, device=device)
+    dmodel, dopt, _ = seeded(
+        create_detector2d_train_state(cfg.n_classes, det.width, det.fpn_ch,
+                                      0, device),
+        init_detector2d_variables(cfg.n_classes, det.width, det.fpn_ch, 0))
     dstep = make_detector2d_train_step(dmodel, dopt)
     dbatch = {"images": batch["images"],
               "gt_boxes": batch["boxes2d"][..., :4],
@@ -4303,15 +4366,17 @@ def compare_det2d_train_tiny(torch, device):
     with the ReLU sides read from every `ConvBNRelu` and `ResBlock2D`
     output."""
     from fcaf3d_tpu_torch.models.detector2d import ConvBNRelu, ResBlock2D
-    from fcaf3d_tpu_torch.train import (
-        create_detector2d_train_state, make_detector2d_train_step)
+    from fcaf3d_tpu_torch.params import init_detector2d_variables
+    from fcaf3d_tpu_torch.train import (create_detector2d_train_state,
+                                        make_detector2d_train_step)
 
     if torch.backends.cudnn.allow_tf32:
         raise AssertionError("TF32 is on for the f32 convs")
 
     def build(dev):
-        model, opt, _ = create_detector2d_train_state(**DET2D_TINY, seed=0,
-                                                      device=dev)
+        model, opt, _ = seeded(
+            create_detector2d_train_state(**DET2D_TINY, device=dev),
+            init_detector2d_variables(**DET2D_TINY))
         return model, make_detector2d_train_step(model, opt)
 
     return train_gate(torch, build, det2d_tiny_batch(), device,
@@ -4326,8 +4391,9 @@ def imvotenet_phase(torch, device):
     from fcaf3d_tpu_torch import _native
     from fcaf3d_tpu_torch.apis import init_detector2d, init_imvotenet
     from fcaf3d_tpu_torch.configs import votenet_sunrgbd
-    from fcaf3d_tpu_torch.train import create_imvotenet_train_state
-    from fcaf3d_tpu_torch.train import make_imvotenet_train_step
+    from fcaf3d_tpu_torch.params import init_imvotenet_variables
+    from fcaf3d_tpu_torch.train import (create_imvotenet_train_state,
+                                        make_imvotenet_train_step)
 
     cfg = votenet_sunrgbd()
     tf32 = torch.backends.cudnn.allow_tf32
@@ -4359,8 +4425,10 @@ def imvotenet_phase(torch, device):
         tiny = imvote_tiny_cfg()
 
         def build(dev):
-            m, opt, _ = create_imvotenet_train_state(
-                tiny, seed=0, device=dev, num_sampled_seed=32)
+            m, opt, _ = seeded(
+                create_imvotenet_train_state(tiny, 0, dev,
+                                             num_sampled_seed=32),
+                init_imvotenet_variables(tiny, 0, num_sampled_seed=32))
             return m, make_imvotenet_train_step(m, tiny, opt)
 
         rec_d = {"imvotenet": train_gate(
@@ -4861,6 +4929,32 @@ def platform_f32(torch, cfg, root, work, tmp, device):
                     if k.startswith(("mAP", "mAR"))))
 
 
+# `python -m fcaf3d_tpu_torch.tools.<argv[1]> argv[3:]` (`runpy`, as `-m`
+# runs it), then the process's kernel launches written as JSON to argv[2]
+COUNTED_TOOL = """
+import json, runpy, sys
+from fcaf3d_tpu_torch import _native
+tool, counts = sys.argv[1:3]
+sys.argv = [tool] + sys.argv[3:]
+try:
+    runpy.run_module("fcaf3d_tpu_torch.tools." + tool, run_name="__main__",
+                     alter_sys=True)
+finally:
+    with open(counts, "w") as f:
+        json.dump({"launches": _native.LAUNCHES,
+                   "variants": {"/".join(k): n for k, n in
+                                sorted(_native.VARIANT_LAUNCHES.items())}}, f)
+"""
+
+
+def counted_tool(tool, counts, *args):
+    """The arguments after `python` that run `tools.<tool> args` as `-m`
+    does and write its process's launches ({"launches", "variants"}, as
+    `_native.LAUNCHES` and `check_variants` key them) to `counts` at its
+    exit."""
+    return ["-c", COUNTED_TOOL, tool, counts, *args]
+
+
 def run_tool(tool, *args):
     """`python -m fcaf3d_tpu_torch.tools.<tool> args` from the repository
     root; raises unless it exits 0. Returns (stdout, seconds)."""
@@ -5092,10 +5186,13 @@ def votenet_tool_loop(torch, root, tmp, bare_ms, device):
 def detector2d_tool_loop(torch, root, tmp, frames, bare_ms, device):
     """(b) `tools.train_detector2d.train` for 1 epoch of TOOL_STEPS steps
     at batch IMVOTE_TRAIN_BATCH on the frames (`read_image` pointed at
-    their `.npy` files): finite losses, the log record, `detector2d.pkl`
-    equal to the trained model and loaded through
-    `init_detector2d(params_file=)`, whose `extract_bboxes_2d` on a frame
-    gives the in-memory model's boxes exactly. Returns the pickle's path."""
+    their `.npy` files), from flax's default init (`cls_pred` bias -4):
+    finite losses, the log record, `detector2d.pkl` equal to the trained
+    model and loaded through `init_detector2d(params_file=)`, whose
+    `extract_bboxes_2d` on a frame gives the in-memory model's boxes
+    exactly, compared before the score threshold (`score_thr=0`: every
+    decoded slot; after two steps from that init few boxes, if any, score
+    above `score_thr`, which is logged)."""
     import pickle
 
     from fcaf3d_tpu_torch.apis import init_detector2d
@@ -5125,27 +5222,30 @@ def detector2d_tool_loop(torch, root, tmp, frames, bare_ms, device):
         raise AssertionError("detector2d.pkl differs from the trained model")
     img = torch.as_tensor(frames[0]["image"][None], device=device)
     model.eval()
-    got, want_b = extract_bboxes_2d(loaded, img), extract_bboxes_2d(model,
-                                                                    img)
+    got = extract_bboxes_2d(loaded, img, score_thr=0.0)
+    want_b = extract_bboxes_2d(model, img, score_thr=0.0)
     if not all(torch.equal(a, b) for a, b in zip(got, want_b)) \
             or not got[1].any():
         raise AssertionError("extract_bboxes_2d of the loaded detector "
                              "differs from the trained model's, or is empty")
+    above = int((got[0][..., 4] > DET2D_SCORE_THR)[got[1]].sum())
     log(f"   detector2d tool: batch {IMVOTE_TRAIN_BATCH}, the run "
         f"{wall:.1f} ms, steps " + ", ".join(f"{w:.1f}" for w in walls)
         + f" ms beside phase 12's bare step {bare_ms:.1f} ms, host share "
         f"(reading and collating the frames) {1 - sum(walls) / wall:.3f}; "
         f"detector2d.pkl ({os.path.getsize(path)} bytes) loads, "
-        f"{int(got[1].sum())} extracted boxes on frame 0 equal the trained "
-        "model's")
-    return path
+        f"{int(got[1].sum())} decoded boxes on frame 0 before the score "
+        f"threshold equal the trained model's ({above} above "
+        f"{DET2D_SCORE_THR})")
 
 
 def imvotenet_tool_loop(torch, root, tmp, frames, det2d, bare_ms, device):
     """(c) `tools.train_imvotenet.train` for 1 epoch of TOOL_STEPS steps at
-    batch IMVOTE_TRAIN_BATCH, with the 2D pickle of (b) and then with the
-    GT 2D boxes: finite losses, the log record, 7 K5 and 7 K6 launches a
-    step on the path's variants, the first step's calls held to plain;
+    batch IMVOTE_TRAIN_BATCH, from flax's default init, with the 2D pickle
+    `det2d` (the tool's `--detector2d`) and then with the GT 2D boxes:
+    finite losses, the log record, every step of the first run fed at
+    least one extracted 2D box, 7 K5 and 7 K6 launches a step on the
+    path's variants, the first step's calls held to plain;
     `imvotenet.pkl` loads through `init_imvotenet(params_file=)`, and on
     frame 0 with its GT boxes the loaded model's joint-tower predictions
     are finite and bitwise the trained model's (in eval mode), and
@@ -5164,17 +5264,31 @@ def imvotenet_tool_loop(torch, root, tmp, frames, det2d, bare_ms, device):
              "imvotenet_tool_training_detector2d"),
             (None, bare_ms["gt_boxes"], "imvotenet_tool_training_gt")):
         work = os.path.join(tmp, path)
-        store, calls = [], []
+        store, calls, fed = [], [], []
+        real_extract = train_imvotenet.extract_bboxes_2d
+
+        def extract(*args, **kw):
+            out = real_extract(*args, **kw)
+            fed.append(int(out[1].sum()))
+            return out
         torch.cuda.synchronize()
         _native.reset_launches()
         t0 = time.perf_counter()
-        with recorded_tool_steps(torch, train_imvotenet,
-                                 "make_imvotenet_train_step", store, calls):
-            trained, _ = train_imvotenet.train(
-                root, work, detector2d=boxes, batch=IMVOTE_TRAIN_BATCH,
-                epochs=1, num_points=cfg.num_points,
-                max_det2d=IMVOTE_MAX_DET, device=device)
+        train_imvotenet.extract_bboxes_2d = extract
+        try:
+            with recorded_tool_steps(torch, train_imvotenet,
+                                     "make_imvotenet_train_step", store,
+                                     calls):
+                trained, _ = train_imvotenet.train(
+                    root, work, detector2d=boxes, batch=IMVOTE_TRAIN_BATCH,
+                    epochs=1, num_points=cfg.num_points,
+                    max_det2d=IMVOTE_MAX_DET, device=device)
+        finally:
+            train_imvotenet.extract_bboxes_2d = real_extract
         wall = (time.perf_counter() - t0) * 1e3
+        if len(fed) != (TOOL_STEPS if boxes else 0) or not all(fed):
+            raise AssertionError(f"{path}: extracted 2D boxes fed a step: "
+                                 f"{fed}")
         launches[path], variants[path] = tool_launches(path, 7, TOOL_STEPS)
         walls = check_tool_run(torch, store, work, path, TOOL_STEPS)
         held_tool_calls(torch, calls, f"the first step of {path}")
@@ -5206,9 +5320,10 @@ def imvotenet_tool_loop(torch, root, tmp, frames, det2d, bare_ms, device):
         log(f"   {path}: batch {IMVOTE_TRAIN_BATCH}, the run {wall:.1f} ms, "
             "steps " + ", ".join(f"{w:.1f}" for w in walls)
             + f" ms beside phase 12's bare step {bare:.1f} ms, host share "
-            f"{1 - sum(walls) / wall:.3f}; imvotenet.pkl loads, its "
-            f"predictions on frame 0 equal the trained model's; {n} "
-            f"detections with the GT boxes; launches {launches[path]}")
+            f"{1 - sum(walls) / wall:.3f}; extracted 2D boxes a step {fed};"
+            f" imvotenet.pkl loads, its predictions on frame 0 equal the "
+            f"trained model's; {n} detections with the GT boxes; launches "
+            f"{launches[path]}")
     return launches, variants
 
 
@@ -5495,9 +5610,11 @@ def tools_phase(torch, cfg, scans, vt_recs, iv_recs, device):
     """Phase 14: the rest of the platform's tools at full widths (module
     docstring). Returns launches, launches by variant and K1 records of the
     paths that run K1-K6."""
+    import pickle
     import tempfile
 
     from fcaf3d_tpu_torch.configs import votenet_sunrgbd
+    from fcaf3d_tpu_torch.params import init_detector2d_variables
     from fcaf3d_tpu_torch.tools import train_detector2d
 
     launches, variants = {}, {}
@@ -5528,10 +5645,19 @@ def tools_phase(torch, cfg, scans, vt_recs, iv_recs, device):
         train_detector2d.read_image = read_npy_image
         try:
             log("   -- (b) the Detector2D loop")
-            det2d = detector2d_tool_loop(
+            detector2d_tool_loop(
                 torch, frame_root, tmp, frames,
                 iv_recs["training"]["detector2d"]["step_wall_ms"], device)
-            log("   -- (c) the ImVoteNet loop, with (b)'s 2D boxes, then GT")
+            # (b)'s two steps from flax's init leave 0-3 boxes a frame above
+            # score_thr: (c) takes the forward draw's, through the tool's
+            # own --detector2d pickle
+            det2d = os.path.join(tmp, "detector2d_seeded.pkl")
+            with open(det2d, "wb") as f:
+                pickle.dump(init_detector2d_variables(vcfg.n_classes,
+                                                      DET2D_WIDTH, DET2D_FPN,
+                                                      seed=0), f)
+            log("   -- (c) the ImVoteNet loop, with the seeded Detector2D's "
+                "2D boxes, then GT")
             l, v = imvotenet_tool_loop(
                 torch, frame_root, tmp, frames, det2d,
                 {k: iv_recs["training"][k]["step_wall_ms"]
@@ -5612,11 +5738,13 @@ def dp_fcaf3d_rank(torch, group, cfg, batch, held=True):
     overflow at every step. Returns the record, the launches and the
     launches by variant of the timed steps."""
     from fcaf3d_tpu_torch import _native
-    from fcaf3d_tpu_torch.train import make_train_step
+    from fcaf3d_tpu_torch.params import init_variables
+    from fcaf3d_tpu_torch.train import create_train_state, make_train_step
 
     what = (f"rank {group.rank}: one data-parallel fcaf3d step, "
             f"{len(batch['points'])} of the global batch")
-    model, opt, _ = seeded_train_state(cfg, 0, group.device)
+    model, opt, _ = seeded(create_train_state(cfg, 0, group.device),
+                            init_variables(cfg, 0))
     step = make_train_step(model, cfg, opt, group=group)
     k1_calls = {}
     conv_calls = {"fused_gather_gemm": [], "fused_gather_max": [],
@@ -5675,17 +5803,21 @@ def dp_tiny_grads(torch, group, device, batch, vote):
     this rank's rows of `batch` (the whole batch with no group): metrics,
     the (summed) gradients and the running statistics, on the CPU."""
     from fcaf3d_tpu_torch.configs import fcaf3d_tiny, votenet_tiny
-    from fcaf3d_tpu_torch.train import (create_votenet_train_state,
+    from fcaf3d_tpu_torch.params import init_variables, init_votenet_variables
+    from fcaf3d_tpu_torch.train import (create_train_state,
+                                        create_votenet_train_state,
                                         make_train_step,
                                         make_votenet_train_step)
 
     if vote:
         cfg = votenet_tiny()
-        model, opt, _ = create_votenet_train_state(cfg, 0, device)
+        model, opt, _ = seeded(create_votenet_train_state(cfg, 0, device),
+                                init_votenet_variables(cfg, 0))
         step = make_votenet_train_step(model, cfg, opt, group=group)
     else:
         cfg = fcaf3d_tiny()
-        model, opt, _ = seeded_train_state(cfg, 0, device)
+        model, opt, _ = seeded(create_train_state(cfg, 0, device),
+                                init_variables(cfg, 0))
         step = make_train_step(model, cfg, opt, group=group)
     m = step(batch if group is None else rank_rows(batch, group))
     return {"metrics": {k: float(v) for k, v in m.items()},
@@ -5754,6 +5886,7 @@ def dp_rank(group, spec, out_dir):
 
     from fcaf3d_tpu_torch import _native
     from fcaf3d_tpu_torch.configs import votenet_sunrgbd
+    from fcaf3d_tpu_torch.params import init_votenet_variables
     from fcaf3d_tpu_torch.train import (create_votenet_train_state,
                                         make_votenet_train_step)
 
@@ -5768,7 +5901,8 @@ def dp_rank(group, spec, out_dir):
     out["tiny"] = dp_tiny_grads(torch, group, device, spec["tiny_batch"],
                                 False)
     vcfg = votenet_sunrgbd()
-    model, opt, _ = create_votenet_train_state(vcfg, seed=0, device=device)
+    model, opt, _ = seeded(create_votenet_train_state(vcfg, 0, device),
+                           init_votenet_variables(vcfg, 0))
     step = make_votenet_train_step(model, vcfg, opt, group=group)
     l, v, out["votenet"], _ = held_and_timed_steps(
         torch, model, step, rank_rows(spec["vote_batch"], group),
@@ -5845,7 +5979,8 @@ def torchrun(tool, nproc, *args):
 
 def run_together(jobs, timeout=600):
     """Start every command of `jobs` ({name: the arguments after `python
-    -m`}) at once from the repository root, each in a session of its own;
+    -m`, or after `python` for a `-c` command}) at once from the
+    repository root, each in a session of its own;
     raises unless each exits 0 within `timeout` s, and then kills every
     session still running (torchrun's ranks with their launcher). Returns
     {name: (stdout, seconds from the start to its exit)}."""
@@ -5859,8 +5994,9 @@ def run_together(jobs, timeout=600):
             for name, argv in jobs.items():
                 out, err = (open(os.path.join(tmp, f"{name}.{k}"), "w+")
                             for k in ("out", "err"))
+                head = [] if argv[0] == "-c" else ["-m"]
                 procs[name] = (subprocess.Popen(
-                    [sys.executable, "-m", *argv], cwd=REPO, stdout=out,
+                    [sys.executable, *head, *argv], cwd=REPO, stdout=out,
                     stderr=err, text=True, start_new_session=True), out, err)
             while len(done) < len(procs):
                 if time.perf_counter() - t0 > timeout:
@@ -6335,45 +6471,43 @@ def scan_gflops(torch, cfg, work, points, device):
     return fc.model / 1e9, (time.perf_counter() - t0) * 1e3
 
 
-def created_data_phase(torch, cfg, device):
+def created_data_phase(torch, cfg, device, tmp):
     """16 (a): raw ScanNet arrays -> `tools.create_data` -> the port's
     dataset -> `train_model` -> `evaluate_dataset` under both IoUs, the
-    log through `tools.analyze_logs`, the model FLOPs. Returns (launches,
-    variants, K1 records, record)."""
-    import tempfile
-
+    log through `tools.analyze_logs`, the model FLOPs; the data under
+    `tmp/scannet`, the run under `tmp/work` (phase 17 reads both). Returns
+    (launches, variants, K1 records, record)."""
     tcfg = dataclasses.replace(cfg, max_epochs=1, batch_size=TRAIN_BATCH)
     rec = {}
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_slice_") as tmp:
-        root = os.path.join(tmp, "scannet")
-        t0 = time.perf_counter()
-        scenes = write_scannet_raw(root, *PLATFORM_SCENES, cfg.n_classes)
-        t1 = time.perf_counter()
-        out, dt = run_tool("create_data", "scannet", "--root-path", root)
-        check_created(root, scenes, PLATFORM_SCENES[0])
-        rec["walls_s"] = {"raw_arrays": t1 - t0, "create_data": dt,
-                          "read_back": time.perf_counter() - t1 - dt}
-        log(f"   -- (a) {PLATFORM_SCENES[0]} train and {PLATFORM_SCENES[1]}"
-            f" val raw scenes written in {t1 - t0:.2f} s; tools.create_data "
-            f"in {dt:.2f} s ({' / '.join(out.split(chr(10))[:2])}); every "
-            "scene read back by IndoorDetDataset as written")
-        work = os.path.join(tmp, "work")
-        t0 = time.perf_counter()
-        l_tr, v_tr, k1_tr, steps = created_data_training(torch, tcfg, root,
-                                                         work, device)
-        rec["walls_s"]["train_model"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        l_ev, v_ev, k1_ev, evals = created_data_eval(torch, tcfg, root,
+    root = os.path.join(tmp, "scannet")
+    t0 = time.perf_counter()
+    scenes = write_scannet_raw(root, *PLATFORM_SCENES, cfg.n_classes)
+    t1 = time.perf_counter()
+    out, dt = run_tool("create_data", "scannet", "--root-path", root)
+    check_created(root, scenes, PLATFORM_SCENES[0])
+    rec["walls_s"] = {"raw_arrays": t1 - t0, "create_data": dt,
+                      "read_back": time.perf_counter() - t1 - dt}
+    log(f"   -- (a) {PLATFORM_SCENES[0]} train and {PLATFORM_SCENES[1]}"
+        f" val raw scenes written in {t1 - t0:.2f} s; tools.create_data "
+        f"in {dt:.2f} s ({' / '.join(out.split(chr(10))[:2])}); every "
+        "scene read back by IndoorDetDataset as written")
+    work = os.path.join(tmp, "work")
+    t0 = time.perf_counter()
+    l_tr, v_tr, k1_tr, steps = created_data_training(torch, tcfg, root,
                                                      work, device)
-        rec["walls_s"]["evaluate"] = time.perf_counter() - t0
-        rec["eval"] = evals
-        out, dt = run_tool("analyze_logs", "cal_train_time",
-                           os.path.join(work, "train_log.jsonl"))
-        if "average iter time" not in out or "epoch 1:" not in out:
-            raise AssertionError(f"tools.analyze_logs printed {out!r}")
-        log(f"   tools.analyze_logs cal_train_time: {dt:.2f} s: "
-            + "; ".join(out.strip().splitlines()))
-        gf_scan, ms_scan = scan_gflops(torch, tcfg, work, scan(0), device)
+    rec["walls_s"]["train_model"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    l_ev, v_ev, k1_ev, evals = created_data_eval(torch, tcfg, root,
+                                                 work, device)
+    rec["walls_s"]["evaluate"] = time.perf_counter() - t0
+    rec["eval"] = evals
+    out, dt = run_tool("analyze_logs", "cal_train_time",
+                       os.path.join(work, "train_log.jsonl"))
+    if "average iter time" not in out or "epoch 1:" not in out:
+        raise AssertionError(f"tools.analyze_logs printed {out!r}")
+    log(f"   tools.analyze_logs cal_train_time: {dt:.2f} s: "
+        + "; ".join(out.strip().splitlines()))
+    gf_scan, ms_scan = scan_gflops(torch, tcfg, work, scan(0), device)
     _, ms_step, gf_step = steps[-1]
     if not (gf_scan > 0 and gf_step > 2 * gf_scan):
         raise AssertionError(f"model GFLOPs: scan {gf_scan}, step {gf_step}")
@@ -6660,16 +6794,17 @@ def epoch_proof(torch, device, tmp):
             "losses": [losses[0], losses[-1]], "tensors": len(sa)}
 
 
-def last_slice_phase(torch, cfg, device):
-    """Phase 16: (a) `created_data_phase`, (b) `overfit_proof` with its
-    first step held and its f32 K2 / K4 on the path's variants, (c)
-    `epoch_proof`. Returns launches, launches by variant, K1 records and
-    the records of each part."""
+def last_slice_phase(torch, cfg, device, tmp):
+    """Phase 16: (a) `created_data_phase` under `tmp`, (b) `overfit_proof`
+    with its first step held and its f32 K2 / K4 on the path's variants,
+    (c) `epoch_proof`. Returns launches, launches by variant, K1 records
+    and the records of each part."""
     import tempfile
 
     from fcaf3d_tpu_torch import _native
 
-    launches, variants, k1, rec = created_data_phase(torch, cfg, device)
+    launches, variants, k1, rec = created_data_phase(torch, cfg, device,
+                                                     tmp)
     log(f"   -- (b) the overfit proof: crowded rotated scene, depth 14, f32, "
         f"2 cm voxels, up to {OVERFIT_STEPS} steps a run, from "
         f"create_train_state's init at {len(OVERFIT_SEEDS)} seeds")
@@ -6700,6 +6835,255 @@ def last_slice_phase(torch, cfg, device):
     return launches, variants, k1, rec
 
 
+def second_epoch(torch, cfg, root, work, device):
+    """17 (a): one more epoch of phase 16 (a)'s run (its checkpoint
+    restored, the created train split's epoch 1) saved beside the first
+    with `save_checkpoint(..., max_keep=2)`. Returns (launches,
+    variants)."""
+    from fcaf3d_tpu_torch import _native
+    from fcaf3d_tpu_torch.data import Loader
+    from fcaf3d_tpu_torch.tools.train import build_datasets
+    from fcaf3d_tpu_torch.train import (create_train_state, make_train_step,
+                                        restore_checkpoint, save_checkpoint,
+                                        saved_epochs)
+
+    tcfg = dataclasses.replace(cfg, max_epochs=2, batch_size=TRAIN_BATCH)
+    loader = Loader(build_datasets("scannet", root, tcfg)[1].dataset,
+                    tcfg.batch_size, tcfg.num_points, tcfg.max_gt_boxes)
+    model, opt, _ = create_train_state(tcfg, 0, device,
+                                       loader.steps_per_epoch())
+    if restore_checkpoint(work, model, opt) != 1:
+        raise AssertionError("phase 16 (a)'s run has no epoch 1")
+    step = make_train_step(model, tcfg, opt)
+    torch.cuda.synchronize()
+    _native.reset_launches()
+    t0 = time.perf_counter()
+    metrics = [step(batch) for batch in loader.epoch(1)]
+    if len(metrics) != SLICE_TRAIN_STEPS:
+        raise AssertionError(f"the second epoch: {len(metrics)} steps")
+    check_step_metrics(metrics, "the second epoch")
+    save_checkpoint(work, 2, model, opt, max_keep=2)
+    path = "fcaf3d_5x5_second_epoch"
+    launches = dict(_native.LAUNCHES)
+    check_path_launches(launches, path)
+    variants = check_variants(f"bf16 {path}", ("gather_gemm", "gather_dw"))
+    if saved_epochs(work) != [1, 2]:
+        raise AssertionError(f"checkpoints of epochs {saved_epochs(work)}")
+    log(f"   second epoch: {len(metrics)} steps and the checkpoint in "
+        f"{time.perf_counter() - t0:.2f} s; epochs 1 and 2 kept")
+    return launches, variants
+
+
+def gt_from_epochs(root, work, tmp, device):
+    """17 (a): the val GT of `root` replaced by both epochs' own detections
+    (`gt_from_detections` of the epoch-1 and the epoch-2 model, each
+    scene's two boxes of each kept and the far box once), so that every
+    run of the protocol has matches and a wrong epoch scores apart.
+    Returns the detections taken, by epoch."""
+    import pickle
+
+    from fcaf3d_tpu_torch.apis import init_detector
+    from fcaf3d_tpu_torch.tools.test import DATASETS
+    from fcaf3d_tpu_torch.train import restore_checkpoint
+
+    make_cfg, _, ann, _ = DATASETS["scannet"]
+    cfg, ann = make_cfg(), os.path.join(root, ann)
+    model = init_detector(cfg, device=device)
+    taken, annos = {}, {}
+    for epoch in (1, 2):
+        restore_checkpoint(work, model, epoch=epoch)
+        out = os.path.join(tmp, f"gt_epoch_{epoch}.pkl")
+        taken[epoch] = gt_from_detections(root, ann, out, cfg, model)
+        with open(out, "rb") as f:
+            annos[epoch] = [info["annos"] for info in pickle.load(f)]
+    with open(ann, "rb") as f:
+        infos = pickle.load(f)
+    for info, a, b in zip(infos, annos[1], annos[2]):
+        boxes = np.concatenate([a["gt_boxes_upright_depth"][:2],
+                                b["gt_boxes_upright_depth"]])
+        info["annos"].update({
+            "gt_num": len(boxes), "gt_boxes_upright_depth": boxes,
+            "class": np.concatenate([a["class"][:2], b["class"]])})
+    with open(ann, "wb") as f:
+        pickle.dump(infos, f)
+    return taken
+
+
+def tool_counts(path, what, launch_path, tc_kernels=(), f32=False):
+    """The launches a `counted_tool` process wrote to `path`, checked as
+    `check_path_launches` / `check_variants` check a path's. Returns
+    (launches, variants)."""
+    with open(path) as f:
+        counts = json.load(f)
+    check_path_launches(counts["launches"], launch_path)
+    return counts["launches"], check_variants(what, tc_kernels, f32,
+                                              counts=counts["variants"])
+
+
+def five_by_five(torch, root, work, out, counts, device):
+    """17 (a): the output of `tools.test5x5 --n-ckpts 5 --n-seeds
+    FIVE_SEEDS` over the two epochs (`out`, its launches in `counts`)
+    against the min / mean / max of `evaluate_dataset` in this process
+    over the same epochs and seeds (the table's config, batch 4) on
+    `gt_from_epochs`' GT: the same run lines and the same JSON, both
+    epochs evaluated, every run's mAP@0.25 above 0 and the runs not all
+    equal, K1-K3 on the path's variants in both processes.
+    Returns (launches, variants, record) by path."""
+    from fcaf3d_tpu_torch import _native
+    from fcaf3d_tpu_torch.apis import init_detector
+    from fcaf3d_tpu_torch.apis.test import evaluate_dataset
+    from fcaf3d_tpu_torch.tools.test import DATASETS, val_dataset
+    from fcaf3d_tpu_torch.train import restore_checkpoint
+
+    make_cfg, classes, ann, align = DATASETS["scannet"]
+    cfg = make_cfg()
+    val = val_dataset(root, ann, classes, cfg, align)
+    model = init_detector(cfg, device=device)
+    torch.cuda.synchronize()
+    _native.reset_launches()
+    t0 = time.perf_counter()
+    runs, lines = [], []
+    for epoch in (1, 2):
+        restore_checkpoint(work, model, epoch=epoch)
+        for seed in range(FIVE_SEEDS):
+            m = evaluate_dataset(model, val, cfg, batch_size=4, seed=seed)
+            runs.append(m)
+            lines.append(f"epoch {epoch} seed {seed}: mAP25="
+                         f"{m['mAP_0.25']:.4f} mAP50={m['mAP_0.50']:.4f}")
+    wall = time.perf_counter() - t0
+    want = {key: dict(min=float(np.min([m[key] for m in runs])),
+                      mean=float(np.mean([m[key] for m in runs])),
+                      max=float(np.max([m[key] for m in runs])))
+            for key in ("mAP_0.25", "mAP_0.50")}
+    printed = out.splitlines()
+    first = next(i for i, ln in enumerate(printed) if ln.startswith("{"))
+    got = json.loads("\n".join(printed[first:]))
+    got_lines = [ln for ln in printed[:first] if ln.startswith("epoch ")]
+    if got_lines != lines or got != want:
+        raise AssertionError(f"tools.test5x5 printed {got_lines} and {got}; "
+                             f"evaluate_dataset gives {lines} and {want}")
+    if min(m["mAP_0.25"] for m in runs) <= 0 \
+            or len({m["mAP_0.25"] for m in runs}) < 2:
+        raise AssertionError(f"a run's mAP@0.25 is 0, or all are equal: "
+                             f"{lines}")
+    launches = {"fcaf3d_5x5_eval": dict(_native.LAUNCHES)}
+    check_path_launches(launches["fcaf3d_5x5_eval"], "fcaf3d_5x5_eval")
+    variants = {"fcaf3d_5x5_eval": check_variants(
+        "bf16 fcaf3d_5x5_eval", ("gather_gemm",))}
+    launches["fcaf3d_test5x5_tool"], variants["fcaf3d_test5x5_tool"] = \
+        tool_counts(counts, "bf16 tools.test5x5", "fcaf3d_test5x5_tool",
+                    ("gather_gemm",))
+    log(f"   tools.test5x5 over epochs 1-2 x seeds 0-{FIVE_SEEDS - 1}: "
+        + "; ".join(lines) + f"; {json.dumps(got)} equals evaluate_dataset "
+        f"in process ({wall:.2f} s for its {len(runs)} runs)")
+    return launches, variants, {"runs": lines, "result": got,
+                                "in_process_s": wall}
+
+
+def parity_dumps(torch, dumps, counts, diff_out):
+    """17 (b): the card's and the CPU's `tools.parity_check` dumps
+    (`dumps` by device, the card's launches in `counts["cuda"]`, the CPU's
+    in `counts["cpu"]`) and `run_diff`'s (`--diff`'s) verdict on them
+    (`diff_out`: (exit code, printout)): PARITY OK at PARITY_RTOL, the
+    same keys, every `.n_valid` and the detection counts equal (and not
+    zero), K1, K2 on both f32 variants and K3 on the card, no launch on
+    the CPU. Returns (launches, variants, record)."""
+    card, cpu = dumps["cuda"], dumps["cpu"]
+    rc, printout = diff_out
+    if rc != 0 or "PARITY OK" not in printout:
+        raise AssertionError(f"parity --diff card vs CPU:\n{printout}")
+    a, b = card["layer_stats"], cpu["layer_stats"]
+    if set(a) != set(b):
+        raise AssertionError(f"dump keys differ: {sorted(set(a) ^ set(b))}")
+    off = {k: (a[k], b[k]) for k in a
+           if k.endswith(".n_valid") and a[k] != b[k]}
+    n_det = (len(card["detections"]["scores"]),
+             len(cpu["detections"]["scores"]))
+    if off or n_det[0] != n_det[1] or n_det[0] == 0:
+        raise AssertionError(f"n_valid off {off}; detections {n_det}")
+    path = "fcaf3d_parity_dump"
+    launches, variants = tool_counts(counts["cuda"], "f32 parity dump",
+                                     path, f32=True)
+    for key in ("gather_gemm/simt_narrow/float32",
+                "gather_gemm/simt_tiled/float32"):
+        if key not in variants:
+            raise AssertionError(f"{path}: no {key} launch")
+    with open(counts["cpu"]) as f:
+        if any(json.load(f)["launches"].values()):
+            raise AssertionError("the CPU dump launched a kernel")
+    worst = next((ln for ln in printout.splitlines()
+                  if ln.startswith("worst layer-stat deviation")),
+                 "every layer statistic equal")
+    log(f"   parity dump card vs CPU at fcaf3d_scannet: {len(a)} records, "
+        f"{n_det[0]} detections each; {worst}; PARITY OK at {PARITY_RTOL}")
+    return launches, variants, {"records": len(a), "detections": n_det[0],
+                                "worst": worst}
+
+
+def evaluation_tools_phase(torch, cfg, tmp, device):
+    """Phase 17 (module docstring) over phase 16 (a)'s data and run under
+    `tmp`. Returns launches and launches by variant by path, and a
+    record."""
+    import io
+    import pickle
+
+    from fcaf3d_tpu_torch.params import init_variables
+    from fcaf3d_tpu_torch.tools import parity_check
+
+    root, work = os.path.join(tmp, "scannet"), os.path.join(tmp, "work")
+    launches, variants = {}, {}
+    path = "fcaf3d_5x5_second_epoch"
+    launches[path], variants[path] = second_epoch(torch, cfg, root, work,
+                                                  device)
+    taken = gt_from_epochs(root, work, tmp, device)
+    log("   val GT from each epoch's own detections: 2 of "
+        + ", ".join(f"{n1} / {n2}" for (n1, _, _), (n2, _, _)
+                    in zip(taken[1], taken[2]))
+        + " (epoch 1 / 2) a scene")
+    bin_path, params = (os.path.join(tmp, k) for k in ("scan.bin",
+                                                       "params.pkl"))
+    scan(0).astype(np.float32).tofile(bin_path)
+    with open(params, "wb") as f:
+        pickle.dump(init_variables(cfg, 0), f)
+    counts = {k: os.path.join(tmp, f"counts_{k}.json")
+              for k in ("test5x5", "cuda", "cpu")}
+    dump_paths = {k: os.path.join(tmp, f"dump_{k}.json")
+                  for k in ("cuda", "cpu")}
+    jobs = {"test5x5": counted_tool(
+        "test5x5", counts["test5x5"], "--dataset", "scannet", "--data-root",
+        root, "--work-dir", work, "--n-ckpts", "5", "--n-seeds",
+        str(FIVE_SEEDS))}
+    for dev in ("cuda", "cpu"):
+        jobs[f"parity_{dev}"] = counted_tool(
+            "parity_check", counts[dev], "--points", bin_path, "--params",
+            params, "--dump", dump_paths[dev], "--device", dev)
+    torch.cuda.empty_cache()
+    done = run_together(jobs)
+    walls = {k: dt for k, (_, dt) in done.items()}
+    log("   tools.test5x5 and the two tools.parity_check dumps started "
+        "together: " + ", ".join(f"{k} {dt:.1f} s" for k, dt in walls.items()))
+    log("   -- (a) the 5 x 5 protocol over phase 16's run, a second epoch "
+        "saved beside it")
+    l5, v5, rec5 = five_by_five(torch, root, work, done["test5x5"][0],
+                                counts["test5x5"], device)
+    launches.update(l5)
+    variants.update(v5)
+    log("   -- (b) the parity dump at fcaf3d_scannet, card vs CPU")
+    dumps = {}
+    for dev, p in dump_paths.items():
+        with open(p) as f:
+            dumps[dev] = json.load(f)
+    printout = io.StringIO()
+    with contextlib.redirect_stdout(printout):
+        rc = parity_check.run_diff(dump_paths["cuda"], dump_paths["cpu"],
+                                   PARITY_RTOL)
+    path = "fcaf3d_parity_dump"
+    launches[path], variants[path], rec_b = parity_dumps(
+        torch, dumps, counts, (rc, printout.getvalue()))
+    return launches, variants, {"walls_s": walls, "test5x5": rec5,
+                                "parity": rec_b}
+
+
 KERNELS = (
     ("searchsorted", "fcaf3d_tpu_torch/csrc/search.cu",
      "fcaf3d_tpu/ops/sparse/search.py:149"),
@@ -6728,6 +7112,8 @@ def main():
                     help="run phase 15 over NCCL at N ranks, one a card, "
                          "instead")
     args = ap.parse_args()
+    import tempfile
+
     import torch
 
     t_start = time.perf_counter()
@@ -6843,10 +7229,17 @@ def main():
         f"train_model (fcaf3d_scannet, bf16, batch {TRAIN_BATCH}) -> "
         "evaluate_dataset under the native and the numpy IoU, model FLOPs; "
         "the overfit proof; the 12-epoch proof with a mid-run resume")
-    ls_launches, ls_variants, ls_k1, ls_rec = last_slice_phase(torch, cfg,
-                                                               "cuda")
-    rec["searchsorted"]["path_calls"].update(ls_k1)
-    rec["gather_gemm"]["last_slice"] = ls_rec
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_slice_") as tmp:
+        ls_launches, ls_variants, ls_k1, ls_rec = last_slice_phase(
+            torch, cfg, "cuda", tmp)
+        rec["searchsorted"]["path_calls"].update(ls_k1)
+        rec["gather_gemm"]["last_slice"] = ls_rec
+        log("== 17 the 5 x 5 protocol (tools.test5x5 over phase 16's run "
+            f"and a second epoch, {FIVE_SEEDS} seeds) and the parity dump "
+            "(tools.parity_check at fcaf3d_scannet, card vs CPU)")
+        et_launches, et_variants, et_rec = evaluation_tools_phase(
+            torch, cfg, tmp, "cuda")
+    rec["gather_gemm"]["evaluation_tools"] = et_rec
     log(f"== all phases passed in {time.perf_counter() - t_start:.1f} s")
     for what, ms, first, second in NOT_FASTER:
         log(f"   not faster than a yardstick: {what}: kernel {ms:.4f} ms, "
@@ -6855,13 +7248,14 @@ def main():
                "fcaf3d_training": train_launches,
                "votenet_inference": vote_launches, **other_launches,
                **rest_launches, **vt_launches, **iv_launches,
-               **pf_launches, **tl_launches, **dp_launches, **ls_launches}
+               **pf_launches, **tl_launches, **dp_launches, **ls_launches,
+               **et_launches}
     variants = {"fcaf3d_inference": infer_variants,
                 "fcaf3d_training": train_variants,
                 "votenet_inference": vote_variants, **other_variants,
                 **rest_variants, **vt_variants, **iv_variants,
                 **pf_variants, **tl_variants, **dp_variants,
-                **ls_variants}
+                **ls_variants, **et_variants}
     kernels = []
     for name, src, tpu in KERNELS:
         k = {"name": name, "route": "cuda", "source": src, "replaces": tpu,

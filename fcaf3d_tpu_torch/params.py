@@ -9,8 +9,11 @@ numpy arrays with the flax paths and shapes of `fcaf3d_tpu.models.FCAF3D`
 the same tree can drive both packages; `load_variables` copies such a tree (or
 a converted checkpoint's) into the torch modules, whose names are the flax
 names (flax `a/b/c` is state_dict `a.b.c`). `init_reference_variables`
-draws the FCAF3D tree from the reference's own init distributions instead:
-training from scratch (`train.create_train_state`) starts there.
+draws the FCAF3D tree from the reference's own init distributions instead,
+and `init_votenet_reference_variables`, `init_detector2d_reference_variables`
+and `init_imvotenet_reference_variables` the other models' trees from
+flax's default init, which the JAX package's tools train from: training
+from scratch (`train.create_*train_state`) starts there.
 
 The draw is made so that a forward pass does real work at full size: normal
 kernels at the kaiming scale (fan_out for sparse convs, fan_in for dense
@@ -208,6 +211,76 @@ def init_reference_variables(cfg: FCAF3DConfig, seed: int = 0) -> dict:
     training. `init_variables` draws for forwards that detect instead."""
     return _draw_tree(variable_shapes(cfg), seed, _reference_param,
                       _reference_stat)
+
+
+# flax's default init, which the JAX tools' VoteNet, VoteNet-v1, Detector2D
+# and ImVoteNet training starts at (`model.init` in `tools/train_votenet.py`,
+# `train_detector2d.py`, `train_imvotenet.py`), drawn here in numpy: every
+# `nn.Dense` / `nn.Conv` kernel `lecun_normal()`, i.e. a normal truncated at
+# +-2 of its scale sqrt(1 / fan_in) / _TRUNCATED_STD (so that the leaf's
+# deviation is sqrt(1 / fan_in)), fan_in the Dense's `in` or the HWIO
+# conv's H x W x Cin; biases zero but Detector2D's `cls_pred`, at
+# _DET2D_CLS_BIAS (`fcaf3d_tpu/models/detector2d.py:102-104`); norm gains and
+# Detector2D's exp scales one; running means zero and variances one.
+_TRUNCATED_STD = 0.87962566103423978  # std of a unit normal cut at +-2
+_DET2D_CLS_BIAS = -4.0
+
+
+def _truncated_normal(rng, shape):
+    """Unit normal draws within [-2, 2] (those outside redrawn)."""
+    x = rng.standard_normal(shape)
+    out = np.abs(x) > 2
+    while out.any():
+        x[out] = rng.standard_normal(int(out.sum()))
+        out = np.abs(x) > 2
+    return x
+
+
+def _flax_default_param(rng, name, shape):
+    module, _, leaf = name.rpartition(".")
+    owner = module.rsplit(".", 1)[-1]
+    if leaf == "kernel":
+        fan_in = int(np.prod(shape[:-1]))
+        return _truncated_normal(rng, shape) * (np.sqrt(1.0 / fan_in)
+                                                / _TRUNCATED_STD)
+    if leaf == "scale" or not module:  # norm gains, Detector2D's scale0..2
+        return np.ones(shape)
+    if leaf == "bias":
+        return np.full(shape, _DET2D_CLS_BIAS if owner == "cls_pred"
+                       else 0.0)
+    raise ValueError(f"no flax default init for parameter {name}")
+
+
+def _flax_reference_tree(model, seed):
+    return _draw_tree(_model_shapes(model), seed, _flax_default_param,
+                      _reference_stat)
+
+
+def init_votenet_reference_variables(cfg: VoteNetConfig, seed: int = 0,
+                                     coder=None) -> dict:
+    """Seeded numpy tree of `VoteNet(cfg)` (v1: `VoteNetV1(cfg, coder)`),
+    as `init_votenet_variables`, drawn from flax's default init, where
+    `create_votenet_train_state` starts training."""
+    return _flax_reference_tree(build_votenet(cfg, coder, device="meta"),
+                                seed)
+
+
+def init_detector2d_reference_variables(n_classes: int = 10, width: int = 64,
+                                        fpn_ch: int = 128,
+                                        seed: int = 0) -> dict:
+    """The same for `Detector2D(n_classes, width, fpn_ch)`, where
+    `create_detector2d_train_state` starts training."""
+    return _flax_reference_tree(Detector2D(n_classes, width, fpn_ch,
+                                           device="meta"), seed)
+
+
+def init_imvotenet_reference_variables(cfg: VoteNetConfig, seed: int = 0,
+                                       num_sampled_seed: int = 1024,
+                                       max_imvote: int = 3) -> dict:
+    """The same for `ImVoteNet`, where `create_imvotenet_train_state`
+    starts training."""
+    return _flax_reference_tree(ImVoteNet(cfg, num_sampled_seed, max_imvote,
+                                          device="meta"), seed)
 
 
 def init_votenet_variables(cfg: VoteNetConfig, seed: int = 0,

@@ -25,6 +25,23 @@ from ..data import (S3DIS_CLASSES, SCANNET_CLASSES, SUNRGBD_CLASSES,
 from ..parallel import destroy, init_from_env, rank
 from ..train.checkpoint import load_meta
 
+# --dataset -> (config factory, class names, val infos, align): the JAX
+# tools' table (`tools/test.py`, `tools/test5x5.py`)
+DATASETS = {
+    "scannet": (fcaf3d_scannet, SCANNET_CLASSES, "scannet_infos_val.pkl",
+                True),
+    "sunrgbd": (fcaf3d_sunrgbd, SUNRGBD_CLASSES, "sunrgbd_infos_val.pkl",
+                False),
+    "s3dis": (fcaf3d_s3dis, S3DIS_CLASSES, "s3dis_infos_Area_5.pkl", False),
+}
+
+
+def val_dataset(data_root, ann, classes, cfg, align):
+    """The val split `ann` under `data_root` through the test pipeline."""
+    return IndoorDetDataset(data_root, os.path.join(data_root, ann), classes,
+                            make_test_pipeline(cfg, align=align),
+                            test_mode=True)
+
 
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -63,14 +80,8 @@ def parse_args(argv=None):
 def main(argv=None):
     args = parse_args(argv)
 
-    cfg, classes, ann, align = {
-        "scannet": (fcaf3d_scannet(), SCANNET_CLASSES,
-                    "scannet_infos_val.pkl", True),
-        "sunrgbd": (fcaf3d_sunrgbd(), SUNRGBD_CLASSES,
-                    "sunrgbd_infos_val.pkl", False),
-        "s3dis": (fcaf3d_s3dis(), S3DIS_CLASSES, "s3dis_infos_Area_5.pkl",
-                  False),
-    }[args.dataset]
+    make_cfg, classes, ann, align = DATASETS[args.dataset]
+    cfg = make_cfg()
     # prefer the training-time config / classes of the checkpoint meta
     meta = load_meta(args.work_dir) if args.work_dir else None
     if meta is not None and meta.get("config"):
@@ -83,10 +94,7 @@ def main(argv=None):
     if args.overrides:
         cfg = apply_overrides(cfg, args.overrides)
 
-    val = IndoorDetDataset(args.data_root,
-                           os.path.join(args.data_root, ann), classes,
-                           make_test_pipeline(cfg, align=align),
-                           test_mode=True)
+    val = val_dataset(args.data_root, ann, classes, cfg, align)
     group, device = None, args.device
     if args.sharded:
         group = init_from_env(args.dist_backend, args.device)

@@ -84,7 +84,8 @@ def load_infos(data_root):
 
 def train(data_root, work_dir, batch=8, epochs=12, lr=1e-3, seed=0,
           device="cuda"):
-    """Train `Detector2D(n_classes=10)` from the seeded numpy draw: every
+    """Train `Detector2D(n_classes=10)` from the seeded numpy draw of
+    flax's default init (`create_detector2d_train_state`): every
     epoch a permutation of the infos from one `default_rng(seed)`, then
     batches of `load_sample` (a flip draw a sample); logs every 50
     iterations and at an epoch's last, and writes `detector2d.pkl` after

@@ -92,7 +92,8 @@ def collate(samples, max_gt_boxes, max_det2d):
 
 def train(data_root, work_dir, detector2d=None, batch=8, epochs=36,
           num_points=20000, max_det2d=32, seed=0, device="cuda"):
-    """Train ImVoteNet at `votenet_sunrgbd` from the seeded numpy draw, at
+    """Train ImVoteNet at `votenet_sunrgbd` from the seeded numpy draw of
+    flax's default init (`create_imvotenet_train_state`), at
     a constant LR, with the 2D boxes of the `detector2d` pickle or, without
     one, the GT 2D boxes. All host draws come from one `default_rng(seed)`:
     one `load_sample` of the first info (the JAX tool builds its init batch

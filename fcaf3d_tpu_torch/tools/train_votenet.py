@@ -9,7 +9,8 @@
 
 Trains on `--device` (default the card) and writes `train_log.jsonl` and a
 checkpoint an epoch (`ckpts/`) under the work dir. The weights start from
-the seeded numpy draw of `params.init_votenet_variables`.
+the seeded numpy draw of `params.init_votenet_reference_variables`
+(flax's default init, as the JAX tool's `model.init`).
 """
 import argparse
 import dataclasses

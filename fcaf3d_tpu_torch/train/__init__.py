@@ -24,5 +24,6 @@ from .checkpoint import (  # noqa: F401
     load_params,
     restore_checkpoint,
     save_checkpoint,
+    saved_epochs,
     save_meta,
 )

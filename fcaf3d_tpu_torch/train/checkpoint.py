@@ -83,11 +83,13 @@ def save_checkpoint(work_dir: str, epoch: int, model: torch.nn.Module,
     path = _ckpt_path(work_dir, epoch)
     torch.save(ckpt, path + ".tmp")
     os.replace(path + ".tmp", path)
-    for old in _epochs(work_dir)[:-max_keep]:
+    for old in saved_epochs(work_dir)[:-max_keep]:
         os.remove(_ckpt_path(work_dir, old))
 
 
-def _epochs(work_dir: str) -> List[int]:
+def saved_epochs(work_dir: str) -> List[int]:
+    """The epochs of the checkpoints under `work_dir/ckpts`, ascending
+    (empty without any)."""
     path = _ckpt_dir(work_dir)
     if not os.path.isdir(path):
         return []
@@ -97,7 +99,7 @@ def _epochs(work_dir: str) -> List[int]:
 
 def latest_epoch(work_dir: str) -> Optional[int]:
     """The newest saved epoch, or None when there is no checkpoint."""
-    epochs = _epochs(work_dir)
+    epochs = saved_epochs(work_dir)
     return epochs[-1] if epochs else None
 
 

@@ -26,10 +26,10 @@ from ..models.votenet_v1 import VoteNetV1, build_votenet, votenet_v1_loss
 from ..parallel.comm import (Group, all_reduce_grads, broadcast_module,
                              data_parallel)
 from ..params import (
-    init_detector2d_variables,
-    init_imvotenet_variables,
+    init_detector2d_reference_variables,
+    init_imvotenet_reference_variables,
     init_reference_variables,
-    init_votenet_variables,
+    init_votenet_reference_variables,
     load_variables,
 )
 from .optim import ClipAdamW, constant_schedule, make_optimizer
@@ -72,12 +72,14 @@ def create_votenet_train_state(cfg: VoteNetConfig, seed: int = 0,
                                device="cuda", steps_per_epoch: int = 1,
                                coder=None) -> Tuple[VoteNet, ClipAdamW, int]:
     """`create_train_state` for VoteNet: `VoteNet(cfg)`, or for a v1 config
-    `VoteNetV1(cfg, coder)`, with the seeded `params.init_votenet_variables`
-    draw, and the config's optimizer (AdamW lr 0.008, weight decay 0.01,
-    clip 10, LR x0.1 at the `lr_steps` epochs)."""
+    `VoteNetV1(cfg, coder)`, with the seeded
+    `params.init_votenet_reference_variables` draw (flax's default init,
+    where `tools/train_votenet.py` starts), and the config's optimizer
+    (AdamW lr 0.008, weight decay 0.01, clip 10, LR x0.1 at the `lr_steps`
+    epochs)."""
     return _train_state(build_votenet(cfg, coder, device=device),
-                        init_votenet_variables(cfg, seed, coder), cfg,
-                        steps_per_epoch)
+                        init_votenet_reference_variables(cfg, seed, coder),
+                        cfg, steps_per_epoch)
 
 
 def create_detector2d_train_state(n_classes: int = 10, width: int = 64,
@@ -85,13 +87,14 @@ def create_detector2d_train_state(n_classes: int = 10, width: int = 64,
                                   device="cuda", lr: float = DETECTOR2D_LR
                                   ) -> Tuple[Detector2D, ClipAdamW, int]:
     """(Detector2D in train mode with the seeded
-    `params.init_detector2d_variables` draw, its optimizer, 0):
+    `params.init_detector2d_reference_variables` draw (flax's default
+    init, `cls_pred`'s bias -4), its optimizer, 0):
     `tools/train_detector2d.py`'s recipe, clip 10 then AdamW at `lr` (its
     `--lr`, default 1e-3), weight decay 1e-4, at a constant learning
     rate."""
     model = Detector2D(n_classes, width, fpn_ch, device=device)
-    load_variables(model, init_detector2d_variables(n_classes, width, fpn_ch,
-                                                    seed))
+    load_variables(model, init_detector2d_reference_variables(
+        n_classes, width, fpn_ch, seed))
     opt = ClipAdamW(model.parameters(), constant_schedule(lr),
                     weight_decay=DETECTOR2D_WEIGHT_DECAY,
                     grad_clip=DETECTOR2D_GRAD_CLIP)
@@ -103,11 +106,12 @@ def create_imvotenet_train_state(cfg: VoteNetConfig, seed: int = 0,
                                  max_imvote: int = 3
                                  ) -> Tuple[ImVoteNet, ClipAdamW, int]:
     """(ImVoteNet in train mode with the seeded
-    `params.init_imvotenet_variables` draw, its optimizer, 0):
+    `params.init_imvotenet_reference_variables` draw (flax's default
+    init), its optimizer, 0):
     `tools/train_imvotenet.py`'s recipe, clip `cfg.grad_clip` then AdamW
     `cfg.lr`, `cfg.weight_decay`, at a constant learning rate."""
     model = ImVoteNet(cfg, num_sampled_seed, max_imvote, device=device)
-    load_variables(model, init_imvotenet_variables(
+    load_variables(model, init_imvotenet_reference_variables(
         cfg, seed, num_sampled_seed, max_imvote))
     opt = ClipAdamW(model.parameters(), constant_schedule(cfg.lr),
                     weight_decay=cfg.weight_decay, grad_clip=cfg.grad_clip)

@@ -384,6 +384,7 @@ def test_detector2d_train_step_matches_jax(setup):
                               (torch.float32, 1e-5, 1e-3)):
         port, opt, _ = create_detector2d_train_state(
             N_CLASSES, WIDTH, FPN_CH, seed=0, device="cpu")
+        load_variables(port, variables)
         port.to(dtype)
         b = {k: v.astype(np.float64) if dtype == torch.float64
              and v.dtype == np.float32 else v for k, v in batch.items()}

@@ -318,6 +318,7 @@ def test_train_step_matches_jax(setup, grid_ball_query):
         port, opt, _ = create_imvotenet_train_state(
             cfg, seed=0, device="cpu", num_sampled_seed=K_SEEDS,
             max_imvote=MAX_IMVOTE)
+        load_variables(port, variables)
         port.to(dtype)
         b = {k: v.astype(np.float64) if dtype == torch.float64
              and v.dtype == np.float32 else v for k, v in batch.items()}

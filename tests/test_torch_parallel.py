@@ -43,6 +43,7 @@ from fcaf3d_tpu_torch.parallel import (Group, all_reduce_grads,
                                        broadcast_module, data_parallel,
                                        global_batch, global_sums, init_group,
                                        spawn)
+from fcaf3d_tpu_torch.params import init_variables, init_votenet_variables
 from fcaf3d_tpu_torch.train import (create_train_state,
                                     create_votenet_train_state,
                                     make_train_step, make_votenet_train_step,
@@ -216,7 +217,8 @@ def train_steps(batch, group, model, opt, make_step, cfg, steps):
 def fcaf3d_steps(batch, group, dtype, steps):
     cfg = dataclasses.replace(tconfigs.fcaf3d_nano(),
                               compute_dtype=str(dtype).split(".")[1])
-    model, opt, _ = chip_smoke.seeded_train_state(cfg, 0, "cpu")
+    model, opt, _ = chip_smoke.seeded(create_train_state(cfg, 0, "cpu"),
+                                      init_variables(cfg, 0))
     model.to(dtype)  # in place: the optimizer keeps the parameters
     return train_steps(batch, group, model, opt, make_train_step, cfg, steps)
 
@@ -227,8 +229,9 @@ def vote_steps(batch, group, v1, steps):
     if v1:
         cfg = dataclasses.replace(cfg, head_version="v1")
         coder, make = chip_smoke.tiny_coder(), make_votenet_v1_train_step
-    model, opt, _ = create_votenet_train_state(cfg, seed=0, device="cpu",
-                                               coder=coder)
+    model, opt, _ = chip_smoke.seeded(
+        create_votenet_train_state(cfg, 0, "cpu", coder=coder),
+        init_votenet_variables(cfg, 0, coder))
     model.to(torch.float64)
     return train_steps(f64(batch), group, model, opt, make, cfg, steps)
 
@@ -323,7 +326,8 @@ def head_outputs(batch):
     numpy level tuples (centerness, bbox_pred, cls_scores, points,
     valid)."""
     cfg = dataclasses.replace(tconfigs.fcaf3d_nano(), compute_dtype="float64")
-    model, _, _ = chip_smoke.seeded_train_state(cfg, 0, "cpu")
+    model, _, _ = chip_smoke.seeded(create_train_state(cfg, 0, "cpu"),
+                                    init_variables(cfg, 0))
     model.to(torch.float64)
     with torch.no_grad():
         outs, _ = model(*(torch.as_tensor(batch[k])
@@ -337,8 +341,9 @@ def vote_predictions(batch, v1):
     if v1:
         cfg = dataclasses.replace(cfg, head_version="v1")
         coder = chip_smoke.tiny_coder()
-    model, _, _ = create_votenet_train_state(cfg, seed=0, device="cpu",
-                                             coder=coder)
+    model, _, _ = chip_smoke.seeded(
+        create_votenet_train_state(cfg, 0, "cpu", coder=coder),
+        init_votenet_variables(cfg, 0, coder))
     model.to(torch.float64)
     with torch.no_grad():
         preds = model(torch.as_tensor(batch["points"]))

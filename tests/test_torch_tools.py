@@ -38,7 +38,8 @@ from fcaf3d_tpu_torch.core import eval2d as teval2d
 from fcaf3d_tpu_torch.data.datasets import boxes_to_bottom_center
 from fcaf3d_tpu_torch.data.synth import crowded_scene, densify
 from fcaf3d_tpu_torch.models.votenet_v1 import build_votenet, sunrgbd_coder
-from fcaf3d_tpu_torch.params import export_variables, flatten
+from fcaf3d_tpu_torch.params import (export_variables, flatten,
+                                     init_votenet_reference_variables)
 from fcaf3d_tpu_torch.tools import train_detector2d as tdet2d
 from fcaf3d_tpu_torch.tools import train_imvotenet as timv
 from fcaf3d_tpu_torch.tools import train_votenet as tvote
@@ -218,7 +219,8 @@ def test_votenet_tool_first_step_matches_jax(vote_root, tmp_path, head,
                                              monkeypatch):
     """`train_votenet.train` for one epoch. Its first step's metrics equal
     the port's own train step on that batch from the same seeded
-    variables. That step run in float64 passes `assert_step_matches`
+    variables, the tool's init (`init_votenet_reference_variables`, flax's
+    default init). That step run in float64 passes `assert_step_matches`
     against the JAX trainer's `make_votenet_train_step` /
     `make_votenet_v1_train_step` in float64 on the port's numpy variables
     (metrics and gradients within 1e-4, parameters after AdamW, batch
@@ -239,9 +241,10 @@ def test_votenet_tool_first_step_matches_jax(vote_root, tmp_path, head,
                            device="cpu")
     assert len(store) == 2
     batch, first = store[0]
+    coder = sunrgbd_coder() if v1 else None
     got, want, lr = step_on_both_sides(
-        cfg, batch, sunrgbd_coder() if v1 else None,
-        jv1.sunrgbd_coder() if v1 else None)
+        cfg, batch, coder, jv1.sunrgbd_coder() if v1 else None,
+        variables=init_votenet_reference_variables(cfg, 0, coder))
     assert first == got[torch.float32]["metrics"]
     assert_step_matches(got[torch.float64], want, lr, ())
     assert set(first) == set(want["metrics"])
@@ -518,7 +521,10 @@ def test_train_imvotenet_cli_needs_2d_boxes(tmp_path):
     ("train_detector2d", ["--data-root", "r", "--work-dir", "w"]),
     ("train_imvotenet", ["--data-root", "r", "--work-dir", "w",
                          "--gt-boxes-2d"]),
-    ("fuse_conv_bn", ["--work-dir", "w", "--out-dir", "o"])])
+    ("fuse_conv_bn", ["--work-dir", "w", "--out-dir", "o"]),
+    ("test5x5", ["--dataset", "scannet", "--data-root", "r", "--work-dir",
+                 "w"]),
+    ("parity_check", ["--config", "fcaf3d_tiny", "--points", "p.bin"])])
 def test_new_clis_default_to_the_card(tool, argv):
     """Without `--device` each CLI that builds a model runs on "cuda"."""
     mod = importlib.import_module(f"fcaf3d_tpu_torch.tools.{tool}")

@@ -26,7 +26,7 @@ import optax
 import pytest
 import torch
 
-from chip_smoke import head_batch, seeded_train_state
+from chip_smoke import head_batch, seeded
 from fcaf3d_tpu import configs as jconfigs
 from fcaf3d_tpu.models.detector import FCAF3D as JFCAF3D
 from fcaf3d_tpu.models.detector import loss_config as j_loss_config
@@ -68,7 +68,8 @@ def step_on_both_sides(cfg, jcfg, batch):
             "overflow": overflow, "outs": outs, "grads": grads,
             "grad_norm": float(optax.global_norm(grads))}
 
-    port, opt, _ = seeded_train_state(cfg, 0, "cpu")
+    port, opt, _ = seeded(create_train_state(cfg, 0, "cpu"),
+                          init_variables(cfg, 0))
     fwd_model = copy.deepcopy(port)
     with torch.no_grad():
         outs_t, ovf_t = fwd_model(*(torch.as_tensor(batch[k])

@@ -3,7 +3,8 @@ package on the CPU at `votenet_tiny`, batch 2: the train-mode PointNet++
 BatchNorm against flax's, the targets, the loss and its gradients, and the
 whole train step against the JAX trainer's.
 
-Both packages start from the same numpy `init_votenet_variables` tree and
+Both packages start from the same numpy `init_votenet_variables` tree
+(loaded over the train state's flax default init) and
 the same numpy batch (`chip_smoke.vote_head_batch`: nested GT boxes about
 scan points, so points lie in 0, 1, 2 and 3 boxes and proposals near them
 are positives). The JAX side's `ball_query` is `ball_query_grid` in its
@@ -22,7 +23,7 @@ import pytest
 import torch
 from flax import linen as fnn
 
-from chip_smoke import vote_head_batch
+from chip_smoke import seeded, vote_head_batch
 from fcaf3d_tpu.models import pointnet2 as jp2
 from fcaf3d_tpu.models import votenet as jv
 from fcaf3d_tpu.models import votenet_v1 as jv1
@@ -36,7 +37,8 @@ from fcaf3d_tpu.train.trainer import (
 from fcaf3d_tpu_torch import configs as tconfigs
 from fcaf3d_tpu_torch.models import pointnet2 as tp2
 from fcaf3d_tpu_torch.models import votenet as tv
-from fcaf3d_tpu_torch.params import flatten, init_votenet_variables
+from fcaf3d_tpu_torch.params import (flatten, init_votenet_variables,
+                                     load_variables)
 from fcaf3d_tpu_torch.train import (
     create_votenet_train_state,
     make_votenet_train_step,
@@ -303,10 +305,13 @@ def to_float64(tree):
         tree)
 
 
-def step_on_both_sides(cfg, batch, coder=None, jax_coder=None):
-    """One train step of each package from the same variables and batch (a
-    v1 config with the port's `coder` and the JAX package's `jax_coder` of
-    the same fields), in float64, and the port's step in float32.
+def step_on_both_sides(cfg, batch, coder=None, jax_coder=None,
+                       variables=None):
+    """One train step of each package from the same variables (default the
+    seeded `init_votenet_variables` draw, loaded over the train state's
+    init) and batch (a v1 config with the port's `coder` and the JAX
+    package's `jax_coder` of the same fields), in float64, and the port's
+    step in float32.
 
     The JAX side runs in float64 (`jax.enable_x64`): its trainer's
     `make_votenet_train_step` (v1: `make_votenet_v1_train_step`) for the
@@ -320,7 +325,8 @@ def step_on_both_sides(cfg, batch, coder=None, jax_coder=None):
     index and group equal). In float64 nothing is that close to a tie.
     Returns ({torch.float64: port results, torch.float32: port results},
     JAX results, lr), results {metrics, grads, stats, params} as numpy."""
-    variables = init_votenet_variables(cfg, seed=0, coder=coder)
+    if variables is None:
+        variables = init_votenet_variables(cfg, seed=0, coder=coder)
     model = jax_votenet(cfg, jax_coder)
     if cfg.head_version == "v1":
         make_step = j_make_votenet_v1_train_step
@@ -371,6 +377,7 @@ def step_on_both_sides(cfg, batch, coder=None, jax_coder=None):
     for dtype in (torch.float64, torch.float32):
         port, opt, _ = create_votenet_train_state(cfg, seed=0, device="cpu",
                                                   coder=coder)
+        load_variables(port, variables)
         port.to(dtype)  # in place: the optimizer keeps the parameters
         b = {k: v.astype(np.float64) if dtype == torch.float64
              and v.dtype == np.float32 else v for k, v in batch.items()}
@@ -467,9 +474,10 @@ def loss_falls(cfg, coder=None):
 
     cfg = dataclasses.replace(cfg, lr=1e-3)
     batch = tiny_batch(cfg)
-    model, opt, _ = create_votenet_train_state(cfg, seed=0, device="cpu",
-                                               steps_per_epoch=100,
-                                               coder=coder)
+    model, opt, _ = seeded(
+        create_votenet_train_state(cfg, 0, "cpu", coder=coder,
+                                   steps_per_epoch=100),
+        init_votenet_variables(cfg, 0, coder))
     step = (make_votenet_v1_train_step if cfg.head_version == "v1"
             else make_votenet_train_step)(model, cfg, opt)
     metrics = [step(batch) for _ in range(6)]
