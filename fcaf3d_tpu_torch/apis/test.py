@@ -19,8 +19,10 @@ from ..models.detector import FCAF3D, infer_config
 from ..models.fcaf3d_head import Detections, fcaf3d_get_bboxes
 from ..models.votenet import VoteDetections
 from ..parallel.comm import Group, all_gather_object, rank, world
+from ..utils import tracing
 
 
+@tracing.spanned("to_numpy")
 def detections_to_numpy(dets: Union[Detections, VoteDetections],
                         sample_idx: int) -> Dict[str, np.ndarray]:
     """Strip padding from one sample of a batched `Detections` or
@@ -124,13 +126,14 @@ def evaluate_dataset(model: FCAF3D, dataset, cfg: FCAF3DConfig,
             samples = [dataset(i, np.random.default_rng([seed, i]))
                        for i in idxs]
             batch = collate(samples, cfg.num_points, cfg.max_gt_boxes)
-            if tta:
-                dts = aug_test_batch(model, batch, cfg, FLIP_TTA,
-                                     rotated=cfg.with_yaw)
-            else:
-                dets = detect_batch(model, cfg, batch["points"], batch)
-                dts = [detections_to_numpy(dets, j)
-                       for j in range(len(samples))]
+            with tracing.item():
+                if tta:
+                    dts = aug_test_batch(model, batch, cfg, FLIP_TTA,
+                                         rotated=cfg.with_yaw)
+                else:
+                    dets = detect_batch(model, cfg, batch["points"], batch)
+                    dts = [detections_to_numpy(dets, j)
+                           for j in range(len(samples))]
             for i, s, dt, keep in zip(idxs, samples, dts, real):
                 if not keep:
                     continue

@@ -10,14 +10,13 @@ import os
 import time
 from typing import Callable, Optional
 
-import numpy as np
-
 from ..configs.fcaf3d import FCAF3DConfig
 from ..parallel.comm import Group, barrier, rank
 from ..train.checkpoint import (latest_epoch, load_params,
                                 restore_checkpoint, save_checkpoint,
                                 save_meta)
 from ..train.trainer import create_train_state, make_train_step
+from ..utils import tracing
 
 
 def train_model(cfg: FCAF3DConfig, loader, work_dir: str, seed: int = 0,
@@ -33,7 +32,10 @@ def train_model(cfg: FCAF3DConfig, loader, work_dir: str, seed: int = 0,
     (`classes`, the config, its class name and `seed`) goes to
     `work_dir/ckpts/meta.json`. Every `log_interval` steps and at the end
     of an epoch a record {epoch, iter, total, time, <metrics>} is appended
-    to `work_dir/train_log.jsonl`; after each epoch a checkpoint is saved,
+    to `work_dir/train_log.jsonl`: `time` is the wall time a step, loading
+    included, from the end of the previous logged step (or the epoch's
+    start) to the end of this one. Each step is a `tracing.item()`. After
+    each epoch a checkpoint is saved,
     then {epoch, epoch_time} is logged, then `eval_hook(model, epoch)`
     runs and {epoch, eval: its result} is logged.
 
@@ -82,27 +84,27 @@ def train_model(cfg: FCAF3DConfig, loader, work_dir: str, seed: int = 0,
 
     for epoch in range(start_epoch, cfg.max_epochs):
         t_epoch = time.time()
-        window = []
+        t_logged, steps = t_epoch, 0
         for i, batch in enumerate(loader.epoch(epoch)):
-            t0 = time.time()
-            metrics = step_fn(batch)
+            with tracing.item():
+                metrics = step_fn(batch)
+            steps += 1
             # the metrics are device tensors: reading them waits for the
             # step, so only the logged steps do
             if (i + 1) % log_interval == 0 or i + 1 == steps_per_epoch:
                 metrics = {k: float(v) for k, v in metrics.items()}
-                window.append(time.time() - t0)
+                now = time.time()
                 rec = {"epoch": epoch + 1, "iter": i + 1,
                        "total": steps_per_epoch,
-                       "time": round(float(np.mean(window)), 3),
+                       "time": round((now - t_logged) / steps, 3),
                        **{k: round(v, 4) for k, v in metrics.items()}}
+                t_logged, steps = now, 0
                 if main:
                     print(f"Epoch [{rec['epoch']}/{cfg.max_epochs}]"
                           f"[{rec['iter']}/{steps_per_epoch}] "
                           + " ".join(f"{k}: {v}" for k, v in rec.items()
                                      if "loss" in k))
                 log(rec)
-            else:
-                window.append(time.time() - t0)
         if main:
             save_checkpoint(work_dir, epoch + 1, model, opt)
         barrier(group)

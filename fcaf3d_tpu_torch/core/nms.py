@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import tracing
 from .rotated_iou import pairwise_iou_bev
 
 
@@ -28,6 +29,7 @@ def _greedy_suppress(iou: torch.Tensor, order_valid: torch.Tensor,
     return alive
 
 
+@tracing.spanned("nms")
 def nms_bev(boxes7: torch.Tensor, scores: torch.Tensor, iou_thr: float,
             valid=None, rotated: bool = True) -> torch.Tensor:
     """BEV NMS on 7-DoF boxes (x, y, z, dx, dy, dz, yaw), pcdet semantics.

@@ -10,6 +10,7 @@ from torch import nn
 
 from ..configs.fcaf3d import FCAF3DConfig
 from ..ops.sparse.tensor import voxelize
+from ..utils import tracing
 from .fcaf3d_head import Fcaf3DNeckWithHead, FcafLossConfig, FcafTestConfig
 from .me_resnet import MEResNet3D, out_channels
 
@@ -40,16 +41,31 @@ class FCAF3D(nn.Module):
         # divide by a device tensor: see `voxelize` on scalar divisors
         scale = torch.full((1,), 255.0, dtype=colors.dtype,
                            device=colors.device)
-        st = voxelize(points, colors / scale, valid,
-                      voxel_size=c.voxel_size, budget=c.input_budget)
-        st = st.with_feats(st.feats.to(getattr(torch, c.compute_dtype)))
-        feats = self.backbone(st)
+        with tracing.span("voxelize"):
+            st = voxelize(points, colors / scale, valid,
+                          voxel_size=c.voxel_size, budget=c.input_budget)
+            st = st.with_feats(st.feats.to(getattr(torch, c.compute_dtype)))
+            _count_rows(st)
+        with tracing.span("backbone"):
+            feats = self.backbone(st)
+            _count_rows(*feats)
         overflow: Dict[str, torch.Tensor] = {"input": st.dropped}
         for f in feats:
             overflow[f"backbone_s{f.stride}"] = f.dropped
-        outs, neck_overflow = self.neck_with_head(feats)
+        with tracing.span("neck_head"):
+            outs, neck_overflow = self.neck_with_head(feats)
         overflow.update(neck_overflow)
         return outs, overflow
+
+
+def _count_rows(*levels) -> None:
+    """While tracing, the open span's counters `budget_rows` (each level's
+    rows over the batch: what the sparse convolutions compute on) and
+    `valid_rows` (those that hold a voxel), one entry a level."""
+    if tracing.enabled():
+        tracing.count("budget_rows", [lv.keys.numel() for lv in levels])
+        tracing.count("valid_rows",
+                      torch.stack([lv.valid.sum() for lv in levels]))
 
 
 def loss_config(cfg: FCAF3DConfig) -> FcafLossConfig:

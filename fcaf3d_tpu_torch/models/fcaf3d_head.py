@@ -48,6 +48,7 @@ from ..ops.sparse.neck_ops import (
 )
 from ..ops.sparse.tensor import SENTINEL, SparseTensor, lookup
 from ..parallel.comm import global_batch
+from ..utils import tracing
 from .assigner import fcaf3d_assign
 from .blocks import (
     SparseBatchNorm,
@@ -373,6 +374,7 @@ def _take(x: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
                                 dim=1)
 
 
+@tracing.spanned("get_bboxes")
 def fcaf3d_get_bboxes(outs: Tuple[HeadLevelOutput, ...],
                       cfg: FcafTestConfig) -> Detections:
     """Batched inference post-processing with static shapes: per level the

@@ -18,6 +18,7 @@ from ..core.geometry import box7_corners, gravity_center, points_in_boxes
 from ..core.nms import aligned_3d_nms
 from ..ops.pointnet import furthest_point_sample
 from ..parallel.comm import global_sums
+from ..utils import tracing
 from .losses import iou3d_loss_sum
 from .pointnet2 import Dense, DenseBNReLU, PointNet2SASSG, PointSAModule
 
@@ -125,7 +126,12 @@ class VoteNet(nn.Module):
 
     def forward(self, points: torch.Tensor, valid=None, sample_mod=None):
         sample_mod = sample_mod or self.sample_mod
-        feat = self.backbone(points, valid=valid)
+        with tracing.span("backbone"):
+            feat = self.backbone(points, valid=valid)
+        with tracing.span("vote_head"):
+            return self._vote_head(feat, sample_mod)
+
+    def _vote_head(self, feat, sample_mod):
         seed_xyz = feat["fp_xyz"][-1]
         vote_xyz, vote_feats, vote_offset = self.vote_module(
             seed_xyz, feat["fp_features"][-1])

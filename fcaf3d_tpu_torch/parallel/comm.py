@@ -42,6 +42,8 @@ from typing import Any, List, Optional
 import torch
 import torch.distributed as dist
 
+from ..utils import tracing
+
 BACKENDS = ("nccl", "gloo")
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 # a rank waits this long in a collective before it raises
@@ -231,6 +233,7 @@ def global_batch(*vectors: torch.Tensor):
     return tuple(r.to(v.dtype) for r, v in zip(rows, vectors))
 
 
+@tracing.spanned("all_reduce_grads")
 def all_reduce_grads(model: torch.nn.Module, group: Optional[Group]) -> None:
     """Sum every parameter's gradient over the ranks, in one flat buffer. A
     parameter without a gradient keeps none (every rank runs the same

@@ -3,14 +3,19 @@ mAP / mAR of a trained run on a dataset's val split.
 
     python -m fcaf3d_tpu_torch.tools.test --dataset scannet \
         --data-root data/scannet --work-dir work_dirs/fcaf3d_scannet \
-        [--tta] [--out metrics.json] [--show-dir vis] [--device cpu]
+        [--tta] [--out metrics.json] [--show-dir vis] [--device cpu] \
+        [--profile-steps 4 --profile-out trace.json]
 
 The config and class names come from the run's `ckpts/meta.json` when it
 has them; `--set` overrides apply on top. `--sharded`, under `torchrun
 --nproc_per_node=N`, shards the val scenes over the N ranks (`--batch` a
 multiple of N; the reference's `multi_gpu_test`): one card a rank over
 NCCL, or ranks sharing a card over gloo (`--dist-backend gloo --device
-cuda:0`); rank 0 prints and writes `--out`.
+cuda:0`); rank 0 prints and writes `--out`. `--profile-steps N` runs the
+first N batches under `torch.profiler` with the port's spans on
+(`utils/tracing.py`: voxelize, backbone, neck_head, get_bboxes with nms,
+to_numpy) and writes their Chrome trace to `--profile-out` (rank 0); open
+it in Perfetto (ui.perfetto.dev) or chrome://tracing.
 """
 import argparse
 import json
@@ -24,6 +29,7 @@ from ..data import (S3DIS_CLASSES, SCANNET_CLASSES, SUNRGBD_CLASSES,
                     IndoorDetDataset)
 from ..parallel import destroy, init_from_env, rank
 from ..train.checkpoint import load_meta
+from ..utils import tracing
 
 # --dataset -> (config factory, class names, val infos, align): the JAX
 # tools' table (`tools/test.py`, `tools/test5x5.py`)
@@ -70,10 +76,13 @@ def parse_args(argv=None):
                          "multiple of the ranks)")
     ap.add_argument("--dist-backend", choices=["nccl", "gloo"],
                     default="nccl")
+    tracing.add_profile_arguments(ap, "evaluation batches")
     add_set_argument(ap)
     args = ap.parse_args(argv)
     if not args.work_dir and not args.params:
         ap.error("one of --work-dir / --params is required")
+    if args.profile_steps and not args.profile_out:
+        ap.error("--profile-steps needs --profile-out")
     return args
 
 
@@ -102,10 +111,13 @@ def main(argv=None):
     try:
         model = init_detector(cfg, params_file=args.params,
                               work_dir=args.work_dir, device=device)
-        metrics = evaluate_dataset(model, val, cfg, batch_size=args.batch,
-                                   seed=args.seed,
-                                   max_scenes=args.max_scenes, tta=args.tta,
-                                   show_dir=args.show_dir, group=group)
+        with tracing.profiled(args.profile_steps if rank(group) == 0 else 0,
+                              args.profile_out):
+            metrics = evaluate_dataset(model, val, cfg,
+                                       batch_size=args.batch, seed=args.seed,
+                                       max_scenes=args.max_scenes,
+                                       tta=args.tta, show_dir=args.show_dir,
+                                       group=group)
     finally:
         destroy(group)
     if rank(group) == 0:

@@ -2,11 +2,17 @@
 
     python -m fcaf3d_tpu_torch.tools.train --dataset scannet \
         --data-root data/scannet --work-dir work_dirs/fcaf3d_scannet \
-        [--batch 16] [--resume] [--device cpu] [--set key=value ...]
+        [--batch 16] [--resume] [--device cpu] [--set key=value ...] \
+        [--profile-steps 5 --profile-out trace.json]
 
 Trains on `--device` (default the card), evaluates mAP on the val split
 after each epoch unless `--no-eval`, and writes `config.json`,
-`train_log.jsonl` and `ckpts/` under the work dir.
+`train_log.jsonl` and `ckpts/` under the work dir. `--profile-steps N`
+runs the first N steps under `torch.profiler` with the port's spans on
+(`utils/tracing.py`: forward with voxelize / backbone / neck_head, loss,
+backward, all_reduce_grads, optimizer) and writes their Chrome trace to
+`--profile-out` (rank 0 under torchrun); open it in Perfetto
+(ui.perfetto.dev) or chrome://tracing. Training goes on after them.
 
 Data parallel, one process a rank (`--batch` stays the global batch; each
 rank loads its rows of every global batch):
@@ -33,6 +39,7 @@ from ..data import (S3DIS_CLASSES, SCANNET_CLASSES, SUNRGBD_CLASSES, Compose,
                     Loader, PointSample, RandomFlip, RepeatDataset,
                     build_s3dis)
 from ..parallel import destroy, init_from_env, rank, world
+from ..utils import tracing
 
 
 def parse_args(argv=None):
@@ -64,10 +71,13 @@ def parse_args(argv=None):
                     help="pytorch: a data-parallel rank started by torchrun")
     ap.add_argument("--dist-backend", choices=["nccl", "gloo"],
                     default="nccl")
+    tracing.add_profile_arguments(ap, "train steps")
     add_set_argument(ap)
     args = ap.parse_args(argv)
     if args.scales != 4 and args.dataset != "scannet":
         ap.error("--scales fast variants exist for ScanNet only")
+    if args.profile_steps and not args.profile_out:
+        ap.error("--profile-steps needs --profile-out")
     return args
 
 
@@ -167,10 +177,12 @@ def main(argv=None):
         if rank(group) == 0:
             with open(os.path.join(args.work_dir, "config.json"), "w") as f:
                 json.dump(dataclasses.asdict(cfg), f, indent=2)
-        train_model(cfg, loader, args.work_dir, seed=args.seed,
-                    eval_hook=eval_hook, resume=args.resume,
-                    load_from=args.load_from, classes=classes,
-                    device=device, group=group)
+        with tracing.profiled(args.profile_steps if rank(group) == 0 else 0,
+                              args.profile_out):
+            train_model(cfg, loader, args.work_dir, seed=args.seed,
+                        eval_hook=eval_hook, resume=args.resume,
+                        load_from=args.load_from, classes=classes,
+                        device=device, group=group)
     finally:
         destroy(group)
 

@@ -32,6 +32,7 @@ from ..params import (
     init_votenet_reference_variables,
     load_variables,
 )
+from ..utils import tracing
 from .optim import ClipAdamW, constant_schedule, make_optimizer
 
 BATCH_KEYS = ("points", "colors", "valid", "gt_boxes", "gt_labels",
@@ -149,14 +150,18 @@ def make_train_step(model: FCAF3D, cfg: FCAF3DConfig, optimizer: ClipAdamW,
         model.train()
         optimizer.zero_grad(set_to_none=True)
         with data_parallel(group):
-            outs, overflow = model(t["points"], t["colors"], t["valid"])
-            losses = fcaf3d_loss(outs, t["gt_boxes"], t["gt_labels"],
-                                 t["gt_valid"], lcfg)
-        total = (losses["loss_cls"] + losses["loss_centerness"]
-                 + losses["loss_bbox"])
-        total.backward()
+            with tracing.span("forward"):
+                outs, overflow = model(t["points"], t["colors"], t["valid"])
+            with tracing.span("loss"):
+                losses = fcaf3d_loss(outs, t["gt_boxes"], t["gt_labels"],
+                                     t["gt_valid"], lcfg)
+                total = (losses["loss_cls"] + losses["loss_centerness"]
+                         + losses["loss_bbox"])
+        with tracing.span("backward"):
+            total.backward()
         all_reduce_grads(model, group)
-        grad_norm = optimizer.step()
+        with tracing.span("optimizer"):
+            grad_norm = optimizer.step()
         metrics = {k: v.detach() for k, v in losses.items()}
         metrics["loss"] = total.detach()
         metrics["grad_norm"] = grad_norm
@@ -169,9 +174,10 @@ def make_train_step(model: FCAF3D, cfg: FCAF3DConfig, optimizer: ClipAdamW,
 
 
 def _loss_step(model: torch.nn.Module, optimizer: ClipAdamW, keys,
-               loss_fn, group: Optional[Group] = None):
-    """A step whose loss is the sum of `loss_fn(tensors of batch[keys])`'s
-    values in their order; metrics: the losses, loss and grad_norm. With a
+               forward, loss_fn, group: Optional[Group] = None):
+    """A step whose loss is the sum of `loss_fn(forward(t), t)`'s values in
+    their order, `t` the tensors of batch[keys]; metrics: the losses, loss
+    and grad_norm. With a
     data-parallel `group`, `loss_fn` gives this rank's shares of the global
     losses: the variables are broadcast from rank 0 when the step is made,
     the gradients and the metrics' losses summed over the ranks."""
@@ -183,11 +189,16 @@ def _loss_step(model: torch.nn.Module, optimizer: ClipAdamW, keys,
         model.train()
         optimizer.zero_grad(set_to_none=True)
         with data_parallel(group):
-            losses = loss_fn(t)
-        total = sum(losses.values())
-        total.backward()
+            with tracing.span("forward"):
+                outs = forward(t)
+            with tracing.span("loss"):
+                losses = loss_fn(outs, t)
+                total = sum(losses.values())
+        with tracing.span("backward"):
+            total.backward()
         all_reduce_grads(model, group)
-        grad_norm = optimizer.step()
+        with tracing.span("optimizer"):
+            grad_norm = optimizer.step()
         metrics = {k: v.detach() for k, v in losses.items()}
         metrics["loss"] = total.detach()
         if group is not None:
@@ -214,11 +225,12 @@ def make_votenet_train_step(model: VoteNet, cfg: VoteNetConfig,
     (before the clip). With a data-parallel `group`, `batch` is this rank's
     rows of the global batch and the step computes what one process
     computes at the global batch (`make_train_step`)."""
-    return _loss_step(model, optimizer, VOTENET_BATCH_KEYS, lambda t: (
-        votenet_loss(model(t["points"]), t["points"], t["gt_boxes"],
-                     t["gt_labels"], t["gt_valid"], n_classes=cfg.n_classes,
-                     with_yaw=cfg.with_yaw, gt_per_seed=cfg.gt_per_seed)),
-        group)
+    return _loss_step(
+        model, optimizer, VOTENET_BATCH_KEYS, lambda t: model(t["points"]),
+        lambda preds, t: votenet_loss(
+            preds, t["points"], t["gt_boxes"], t["gt_labels"], t["gt_valid"],
+            n_classes=cfg.n_classes, with_yaw=cfg.with_yaw,
+            gt_per_seed=cfg.gt_per_seed), group)
 
 
 def make_votenet_v1_train_step(model: VoteNetV1, cfg: VoteNetConfig,
@@ -229,11 +241,12 @@ def make_votenet_v1_train_step(model: VoteNetV1, cfg: VoteNetConfig,
     """`make_votenet_train_step` for the bin-based VoteNet-v1, whose coder
     drives the targets: `votenet_v1_loss`, metrics the eight losses, loss
     and grad_norm."""
-    return _loss_step(model, optimizer, VOTENET_BATCH_KEYS, lambda t: (
-        votenet_v1_loss(model(t["points"]), t["points"], t["gt_boxes"],
-                        t["gt_labels"], t["gt_valid"], coder=model.coder,
-                        n_classes=cfg.n_classes,
-                        gt_per_seed=cfg.gt_per_seed)), group)
+    return _loss_step(
+        model, optimizer, VOTENET_BATCH_KEYS, lambda t: model(t["points"]),
+        lambda preds, t: votenet_v1_loss(
+            preds, t["points"], t["gt_boxes"], t["gt_labels"], t["gt_valid"],
+            coder=model.coder, n_classes=cfg.n_classes,
+            gt_per_seed=cfg.gt_per_seed), group)
 
 
 def make_detector2d_train_step(model: Detector2D, optimizer: ClipAdamW
@@ -247,9 +260,10 @@ def make_detector2d_train_step(model: Detector2D, optimizer: ClipAdamW
     runs the forward, `detector2d_loss`, the backward, the clip and AdamW.
     The metrics are 0-dim tensors: cls_loss, reg_loss, ctr_loss, loss
     (their sum) and grad_norm (before the clip)."""
-    return _loss_step(model, optimizer, DETECTOR2D_BATCH_KEYS, lambda t: (
-        detector2d_loss(model(t["images"]), t["gt_boxes"], t["gt_labels"],
-                        t["gt_valid"])))
+    return _loss_step(
+        model, optimizer, DETECTOR2D_BATCH_KEYS, lambda t: model(t["images"]),
+        lambda preds, t: detector2d_loss(preds, t["gt_boxes"], t["gt_labels"],
+                                         t["gt_valid"]))
 
 
 def make_imvotenet_train_step(model: ImVoteNet, cfg: VoteNetConfig,
@@ -267,11 +281,14 @@ def make_imvotenet_train_step(model: ImVoteNet, cfg: VoteNetConfig,
     over the votes), `imvotenet_loss`, the backward, the clip and AdamW.
     The metrics are 0-dim tensors: the fifteen "{tower}_{loss}" losses,
     loss (their sum) and grad_norm (before the clip)."""
-    def losses(t):
-        outs = model(t["points"], t["images"], t["boxes2d"],
+    def forward(t):
+        return model(t["points"], t["images"], t["boxes2d"],
                      t["boxes2d_valid"], depth2img=t["depth2img"])
+
+    def losses(outs, t):
         return imvotenet_loss(outs, t["points"], t["gt_boxes"],
                               t["gt_labels"], t["gt_valid"],
                               n_classes=cfg.n_classes)
 
-    return _loss_step(model, optimizer, IMVOTENET_BATCH_KEYS, losses)
+    return _loss_step(model, optimizer, IMVOTENET_BATCH_KEYS, forward,
+                      losses)

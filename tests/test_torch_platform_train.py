@@ -197,8 +197,30 @@ def cli_run(tmp_path_factory):
     work = str(tmp / "work")
     out = run_cli("train", "--dataset", "scannet", "--data-root", root,
                   "--work-dir", work, "--batch", "4", "--epochs", "1",
-                  "--device", "cpu", "--set", *TINY_SET)
+                  "--device", "cpu", "--profile-steps", "1",
+                  "--profile-out", str(tmp / "train_trace.json"),
+                  "--set", *TINY_SET)
     return tmp, root, work, out
+
+
+def trace_ranges(path):
+    """{name: count} of the ranges a Chrome trace file holds."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e["name"] for e in events if e.get("ph") == "X"]
+    return {n: names.count(n) for n in set(names)}
+
+
+def test_train_cli_writes_the_profile_of_its_first_steps(cli_run):
+    """`--profile-steps 1`: the first step's spans, once each, in a Chrome
+    trace; the run goes on to its log and checkpoint."""
+    tmp, _, work, _ = cli_run
+    ranges = trace_ranges(tmp / "train_trace.json")
+    for name in ("forward", "voxelize", "backbone", "neck_head", "loss",
+                 "backward", "all_reduce_grads", "optimizer"):
+        assert ranges.get(name) == 1, (name, ranges.get(name))
+    assert "get_bboxes" not in ranges  # the evaluation ran after it
+    assert os.path.exists(os.path.join(work, "ckpts", "epoch_1.pt"))
 
 
 def test_train_cli(cli_run):
@@ -222,9 +244,14 @@ def test_test_cli(cli_run):
     metrics = str(tmp / "m.json")
     out = run_cli("test", "--dataset", "scannet", "--data-root", root,
                   "--work-dir", work, "--tta", "--out", metrics,
-                  "--show-dir", str(tmp / "show"), "--device", "cpu")
+                  "--show-dir", str(tmp / "show"), "--device", "cpu",
+                  "--profile-steps", "1",
+                  "--profile-out", str(tmp / "test_trace.json"))
     for key in ("mAP_0.25", "mAP_0.50", "mAR_0.25", "mAR_0.50"):
         assert f"\n{key}: " in "\n" + out
+    # the first batch of 4 flips: 4 forwards and post-processings
+    ranges = trace_ranges(tmp / "test_trace.json")
+    assert ranges.get("voxelize") == 4 and ranges.get("get_bboxes") == 4
     with open(metrics) as f:
         assert {"mAP_0.25", "mAP_0.50"} <= set(json.load(f))
     assert os.listdir(tmp / "show")
