@@ -8,7 +8,7 @@ and PyTorch built for CUDA:
 Phases (any failure raises and the script exits non-zero):
 
 1. Device: require CUDA; print the card's name and power limit.
-2. Build: compile the CUDA kernels K1-K6 from `fcaf3d_tpu_torch/csrc/`
+2. Build: compile the CUDA kernels K1-K7 from `fcaf3d_tpu_torch/csrc/`
    (one nvcc per source, in parallel).
 3. Kernels against their plain PyTorch versions on the card, at the shapes
    of the main path's maps on a real-size scan: K1 exact (with and without
@@ -55,10 +55,20 @@ Phases (any failure raises and the script exits non-zero):
    zero overflow, finite non-zero gradients on every conv kernel, K1-K4
    launched and the variant gate of phase 5; then f32 steps on the card
    against the CPU plain path: `fcaf3d_tiny` at batch 2 (every gradient
-   element within 1e-3 of its leaf's largest) and `fcaf3d_scannet` at
+   element within 1e-3 of its leaf's largest; where a ReLU's input
+   changes sign card vs CPU within RELU_TIE_ATOL of 0, the CPU takes the
+   card's side: `relu_ties`) and `fcaf3d_scannet` at
    batch 1 (kernel maps and pruned neck maps exactly equal, losses within
    1e-5, each gradient leaf within 5% in L2 norm), their f32 K2 launches
    on the narrow or tiled kernel and K1 on the gallop kernel.
+6b. K7 (the masked train-mode norm with its residual add and activation,
+   `csrc/masked_norm.cu`): every norm call of one bf16 batch-16
+   `fcaf3d_scannet` train step replayed against the plain path on the card
+   (output, running statistics, gradients of input, scale, bias and
+   residual), bitwise repeatable, one stats launch a norm; its forward and
+   forward + backward timed at the stem, s8 and s64 calls beside their
+   bytes-once bound and the plain path; its data-parallel branch at 2 gloo
+   ranks on the card against the plain path under the same group.
 7. K5 (farthest-point sampling) and K6 (ball query) against their plain
    versions at every shape of the VoteNet-v2 path (SA1-SA4, the seeds and
    the vote aggregation on two 20 000-point scans), at batch 1 and at
@@ -440,6 +450,9 @@ K4_RTOL = 1e-4
 # f32 plain version within K4_RTOL; a wrong tile or offset is off by O(1).
 K4_ULP = 2.0 ** -23
 TRAIN_BATCH, TRAIN_STEPS = 8, 5
+# phase 6b: K7 at the norm calls of a step at the benchmark's batch, and
+# its data-parallel branch at this many gloo ranks on the card
+NORM_BATCH, NORM_DP_WORLD = 16, 2
 TRAIN_BOXES, TRAIN_BOX_POINTS, TRAIN_FLOOR_POINTS = 20, 2400, 2000
 # f32 train steps on the card against the CPU plain path. At fcaf3d_tiny
 # (batch 2) the gate is tight: every gradient element within 1e-3 of its
@@ -572,7 +585,8 @@ REFERENCE_ROWS = ((8192, 27, 256, 256), (49152, 27, 128, 128),
 DEEP_ROWS = ((6144, 27, 1024, 1024), (1024, 27, 2048, 128),
              (1024, 1, 1024, 2048))
 # which kernels each main path runs
-INFERENCE_KERNELS = ("searchsorted", "gather_gemm", "gather_max")
+INFERENCE_KERNELS = ("searchsorted", "gather_gemm", "gather_max",
+                     "masked_norm")
 TRAINING_KERNELS = INFERENCE_KERNELS + ("gather_dw",)
 PATH_KERNELS = {
     "fcaf3d_inference": INFERENCE_KERNELS,
@@ -2133,6 +2147,310 @@ def train_phase(torch, cfg, batch, device, steps=TRAIN_STEPS,
             float(np.mean(times)) * 1e3)
 
 
+@contextlib.contextmanager
+def recorded_norm_calls(calls):
+    """Every norm call the models make inside (`models.blocks.masked_norm`)
+    is appended to `calls` as its arguments, the tensors cloned as the call
+    found them (the running statistics before it moved them)."""
+    from fcaf3d_tpu_torch.models import blocks
+
+    real = blocks.masked_norm
+
+    def call(feats, keys, scale, bias, mode, act=None, residual=None,
+             running=None, eps=1e-5, momentum=0.1):
+        calls.append({
+            "feats": feats.detach().clone(), "keys": keys.clone(),
+            "scale": scale.detach().clone(), "bias": bias.detach().clone(),
+            "mode": mode, "act": act,
+            "residual": None if residual is None else residual.detach().clone(),
+            "running": None if running is None else tuple(
+                t.clone() for t in running)})
+        return real(feats, keys, scale, bias, mode, act, residual, running,
+                    eps, momentum)
+
+    blocks.masked_norm = call
+    try:
+        yield
+    finally:
+        blocks.masked_norm = real
+
+
+def norm_leaves(call, grad):
+    """Fresh copies of a recorded norm call's features, scale, bias and
+    residual (leaves that require grad with `grad`) and running
+    statistics."""
+    leaves = [None if call[k] is None
+              else call[k].clone().requires_grad_(grad)
+              for k in ("feats", "scale", "bias", "residual")]
+    running = (None if call["running"] is None
+               else tuple(t.clone() for t in call["running"]))
+    return leaves, running
+
+
+def norm_grads(torch, fn, call, dy):
+    """`fn` (`masked_norm` or `masked_norm_plain`) on a recorded norm call
+    under the upstream gradient `dy`: its output, moved running statistics
+    and the gradients of the features, scale, bias and residual."""
+    (feats, scale, bias, res), running = norm_leaves(call, True)
+    out = fn(feats, call["keys"], scale, bias, call["mode"], call["act"],
+             res, running)
+    out.backward(dy)
+    return {"out": out.detach(), "dx": feats.grad, "dscale": scale.grad,
+            "dbias": bias.grad, "dres": None if res is None else res.grad,
+            "running": running}
+
+
+def norm_pass(torch, fn, call, dy=None):
+    """A closure that runs `fn` on a recorded norm call once: under
+    no_grad without `dy`; with `dy`, forward and backward into leaves made
+    here once (the features, scale, bias and residual, as in training)."""
+    (feats, scale, bias, res), running = norm_leaves(call, dy is not None)
+
+    def run():
+        with torch.set_grad_enabled(dy is not None):
+            out = fn(feats, call["keys"], scale, bias, call["mode"],
+                     call["act"], res, running)
+        if dy is not None:
+            out.backward(dy)
+
+    return run
+
+
+def norm_site(call):
+    """The name of a recorded norm call's site: the stem's InstanceNorm,
+    a backbone level s8-s64 by its width, else the neck."""
+    c = call["feats"].shape[-1]
+    if call["mode"] == "instance":
+        return "stem"
+    if call["mode"] == "running":
+        return f"neck C{c} eval"
+    names = {64: "s8", 128: "s16", 256: "s32", 512: "s64"}
+    return names[c] if call["residual"] is not None else f"C{c}"
+
+
+def norm_bytes(call):
+    """Bytes once of K7's forward and backward on a recorded call: the
+    valid rows of every input the kernels read (features, residual, and
+    in the backward the upstream gradient), every budget row's 8-byte key,
+    and every row of each output (the output; dx and the residual's
+    gradient)."""
+    b, n, c = call["feats"].shape
+    elt = call["feats"].element_size()
+    valid = int((call["keys"] != 0xFFFFFFFF).sum())
+    res = call["residual"] is not None
+    fwd = valid * c * elt * (1 + res) + b * n * 8 + b * n * c * elt
+    bwd = valid * c * elt * (2 + res) + b * n * 8 + b * n * c * elt * (1
+                                                                       + res)
+    return fwd, bwd
+
+
+def masked_norm_phase(torch, cfg, device):
+    """Phase 6b: K7 at every norm call of one bf16 `fcaf3d_scannet` train
+    step at batch NORM_BATCH, each replayed on its recorded inputs with an
+    upstream gradient drawn from the seed (zero on padding rows, as the
+    consumers' are), against the plain path on the card: the output and
+    the residual's gradient within a bf16 step of the largest value, dx
+    within two, the scale's and bias's gradients within a step, the
+    running statistics within 1e-5; a second run bitwise equal. Counts
+    the step's K7 launches by kernel (one stats launch a batch or instance
+    norm). Times the forward (three kernels) and forward + backward at the
+    stem, s8 and s64 calls against their bytes-once bound and the plain
+    path (which the step itself never reaches: it raises there). Then
+    NORM_DP_WORLD gloo ranks on the card hold the data-parallel
+    branch (the sums all-reduced between the kernels) to the plain path
+    under the same group. Returns the record."""
+    import tempfile
+
+    from fcaf3d_tpu_torch import _native
+    from fcaf3d_tpu_torch.models import blocks
+    from fcaf3d_tpu_torch.ops.sparse import masked_norm as mn
+    from fcaf3d_tpu_torch.parallel import spawn
+    from fcaf3d_tpu_torch.params import init_variables
+    from fcaf3d_tpu_torch.train import create_train_state, make_train_step
+
+    model, opt, _ = seeded(create_train_state(cfg, 0, device),
+                           init_variables(cfg, 0))
+    n_norms = sum(isinstance(m, (blocks.SparseBatchNorm,
+                                 blocks.SparseInstanceNorm))
+                  for m in model.modules())
+    step = make_train_step(model, cfg, opt)
+    batch = train_batch(cfg, NORM_BATCH, seed0=200)
+    step(batch)  # warm-up
+    torch.cuda.synchronize()
+    _native.reset_launches()
+    calls = []
+    plain = mn.masked_norm_plain
+
+    def no_plain(*args, **kw):
+        raise AssertionError("K7: a norm took the plain path on the card")
+
+    mn.masked_norm_plain = no_plain
+    try:
+        with recorded_norm_calls(calls):
+            step(batch)
+    finally:
+        mn.masked_norm_plain = plain
+    torch.cuda.synchronize()
+    launches = {key[1]: n for key, n in _native.VARIANT_LAUNCHES.items()
+                if key[0] == "masked_norm"}
+    del model, opt, step
+    torch.cuda.empty_cache()
+    log(f"   one batch-{NORM_BATCH} step: {len(calls)} norm calls of "
+        f"{n_norms} norm modules; K7 launches {launches}")
+    want_launches = {
+        k: sum(c["mode"] != "running" for c in calls)
+        for k in ("stats", "dev")}
+    want_launches.update({k: len(calls) for k in
+                          ("apply", "bwd_reduce", "bwd_apply")})
+    if len(calls) != n_norms or {k: launches.get(k, 0)
+                                 for k in want_launches} != want_launches \
+            or any(k[2] != "bfloat16" for k in _native.VARIANT_LAUNCHES
+                   if k[0] == "masked_norm"):
+        raise AssertionError(f"K7: {len(calls)} calls of {n_norms} norms, "
+                             f"launches {launches}, want {want_launches}")
+    gen = torch.Generator(device=device).manual_seed(0)
+    step_size = 2 ** -7
+    tols = {"out": step_size, "dres": step_size, "dx": 2 * step_size,
+            "dscale": step_size, "dbias": step_size}
+    worst, sites, step_ms = {}, {}, 0.0
+    for i, call in enumerate(calls):
+        valid = (call["keys"] != 0xFFFFFFFF)[..., None]
+        dy = torch.where(valid, torch.randn(
+            call["feats"].shape, generator=gen, device=device), 0.0).to(
+                call["feats"].dtype)
+        want = norm_grads(torch, mn.masked_norm_plain, call, dy)
+        got = norm_grads(torch, mn.masked_norm, call, dy)
+        again = norm_grads(torch, mn.masked_norm, call, dy)
+        step_ms += cuda_ms(torch, norm_pass(torch, mn.masked_norm, call, dy),
+                           reps=3)
+        site = norm_site(call)
+        for k, tol in tols.items():
+            if want[k] is None:
+                continue
+            err = float((got[k].double() - want[k].double()).abs().max()
+                        / max(float(want[k].double().abs().max()), 1e-30))
+            worst[k] = max(worst.get(k, 0.0), err)
+            if not (err <= tol and torch.isfinite(got[k]).all()
+                    and torch.equal(got[k], again[k])):
+                raise AssertionError(
+                    f"K7 call {i} ({site}, {tuple(call['feats'].shape)}, "
+                    f"{call['mode']}, {call['act']}): {k} {err} of the "
+                    f"largest value (tol {tol}) or not repeatable")
+        if call["running"] is not None and call["mode"] == "batch":
+            for g, w in zip(got["running"], want["running"]):
+                err = float((g - w).abs().max() / w.abs().max())
+                worst["running"] = max(worst.get("running", 0.0), err)
+                if not err <= 1e-5:
+                    raise AssertionError(f"K7 call {i}: running statistics "
+                                         f"{err}")
+        sites.setdefault(site, call)
+    log(f"   all {len(calls)} calls held to plain on the card, bitwise "
+        "repeatable; worst (largest diff of the largest value): "
+        + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+        + f"; their forward + backward {step_ms:.3f} ms of device time a "
+        "step (each call timed alone)")
+    rec = {"calls": len(calls), "launches_per_step": launches,
+           "worst": worst, "step_ms": step_ms, "sites": {}}
+    for site in ("stem", "s8", "s64"):
+        call = sites[site]
+        valid = (call["keys"] != 0xFFFFFFFF)[..., None]
+        dy = torch.where(valid, torch.randn(
+            call["feats"].shape, generator=gen, device=device), 0.0).to(
+                call["feats"].dtype)
+        ms = {}
+        for name, fn in (("", mn.masked_norm),
+                         ("plain_", mn.masked_norm_plain)):
+            ms[name + "fwd"] = cuda_ms(torch, norm_pass(torch, fn, call))
+            ms[name + "fwd_bwd"] = cuda_ms(torch,
+                                           norm_pass(torch, fn, call, dy))
+        fb, bb = norm_bytes(call)
+        bound = {"fwd": fb / HBM_BYTES_PER_S * 1e3,
+                 "fwd_bwd": (fb + bb) / HBM_BYTES_PER_S * 1e3}
+        b, n, c = call["feats"].shape
+        fill = float(valid.float().mean())
+        r = {"shape": [b, n, c], "mode": call["mode"], "act": call["act"],
+             "residual": call["residual"] is not None, "fill": fill,
+             "ms": ms, "bound_ms": bound,
+             "share": {k: bound[k] / ms[k] for k in bound}}
+        rec["sites"][site] = r
+        log(f"   {site} {call['mode']} {call['act']} B{b} N{n} C{c} fill "
+            f"{fill:.3f}{' +residual' if r['residual'] else ''}: forward "
+            f"{ms['fwd']:.4f} ms (bound {bound['fwd']:.4f}, share "
+            f"{r['share']['fwd']:.3f}; plain {ms['plain_fwd']:.4f}), "
+            f"forward + backward {ms['fwd_bwd']:.4f} ms (bound "
+            f"{bound['fwd_bwd']:.4f}, share {r['share']['fwd_bwd']:.3f}; "
+            f"plain {ms['plain_fwd_bwd']:.4f})")
+    del calls, sites
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_norm_dp_") as tmp:
+        spawn(dp_norm_rank, NORM_DP_WORLD, tmp, backend="gloo",
+              device=f"{device}:0")
+        ranks = [torch.load(os.path.join(tmp, f"norm_rank{r}.pt"))
+                 for r in range(NORM_DP_WORLD)]
+    rec["data_parallel"] = ranks
+    log(f"   {NORM_DP_WORLD} gloo ranks on the card, K7's data-parallel "
+        "branch against the plain path under the same group (largest diff "
+        "of the largest value, by rank): " + "; ".join(
+            ", ".join(f"{k} {v:.3g}" for k, v in r.items()) for r in ranks))
+    return rec
+
+
+def dp_norm_rank(group, out_dir):
+    """Phase 6b's data-parallel check on one rank: a train-mode BatchNorm
+    with a residual and ReLU over this rank's samples of a global batch
+    (widths and fill of s8), K7 and the plain path each inside
+    `data_parallel(group)`, from the same inputs and upstream gradient:
+    output, dx, the residual's gradient and the running statistics within
+    the phase's tolerances, the scale's and bias's (this rank's)
+    gradients within a bf16 step; saves the worst readings."""
+    import torch
+
+    from fcaf3d_tpu_torch import _native
+    from fcaf3d_tpu_torch.ops.sparse import masked_norm as mn
+    from fcaf3d_tpu_torch.parallel import data_parallel
+
+    _native.load()  # built by the parent
+    device = group.device
+    b, n, c = 4, 30720, 64
+    gen = torch.Generator(device=device).manual_seed(group.rank)
+    keys = torch.full((b, n), 0xFFFFFFFF, dtype=torch.int64, device=device)
+    for i in range(b):
+        k = int(n * (0.1 + 0.05 * i + 0.1 * group.rank))
+        keys[i, :k] = torch.arange(k, device=device)
+    valid = (keys != 0xFFFFFFFF)[..., None]
+
+    def rows(scale):
+        return torch.where(valid, scale * torch.randn(
+            (b, n, c), generator=gen, device=device), 0.0).to(torch.bfloat16)
+
+    call = {"feats": rows(1.5), "keys": keys, "residual": rows(1.0),
+            "scale": 1 + 0.2 * torch.randn(c, generator=gen, device=device),
+            "bias": 0.3 * torch.randn(c, generator=gen, device=device),
+            "mode": "batch", "act": "relu",
+            "running": (torch.zeros(c, device=device),
+                        torch.ones(c, device=device))}
+    dy = rows(0.7)
+    with data_parallel(group):
+        want = norm_grads(torch, mn.masked_norm_plain, call, dy)
+        got = norm_grads(torch, mn.masked_norm, call, dy)
+    tols = {"out": 2 ** -7, "dres": 2 ** -7, "dx": 2 ** -6,
+            "dscale": 2 ** -7, "dbias": 2 ** -7}
+    out = {}
+    for k, tol in tols.items():
+        out[k] = float((got[k].double() - want[k].double()).abs().max()
+                       / want[k].double().abs().max())
+        if not out[k] <= tol:
+            raise AssertionError(f"rank {group.rank}: K7's data-parallel "
+                                 f"{k} {out[k]} of the largest (tol {tol})")
+    for g, w in zip(got["running"], want["running"]):
+        out["running"] = max(out.get("running", 0.0),
+                             float((g - w).abs().max() / w.abs().max()))
+    if not out["running"] <= 1e-5:
+        raise AssertionError(f"rank {group.rank}: running statistics "
+                             f"{out['running']}")
+    torch.save(out, os.path.join(out_dir, f"norm_rank{group.rank}.pt"))
+
+
 def head_batch(torch, cfg, extent, b=2, boxes_per_scene=3, seed=0):
     """B `data.synth.synth_scene` scans of `extent` for a miniature config, with
     GT boxes of ~0.2 m around level-0 head locations of the training
@@ -2172,10 +2490,11 @@ def head_batch(torch, cfg, extent, b=2, boxes_per_scene=3, seed=0):
     return batch
 
 
-def step_grads(torch, cfg, batch, dev, seed=0):
+def step_grads(torch, cfg, batch, dev, seed=0, hook=None):
     """Forward in train mode, `fcaf3d_loss` and backward on `dev`: the
     head-level maps, overflow counts, losses and every parameter's
-    gradient, on the CPU."""
+    gradient, on the CPU. `hook(model)` -> handles, removed after the
+    step."""
     from fcaf3d_tpu_torch.models.detector import loss_config
     from fcaf3d_tpu_torch.models.fcaf3d_head import fcaf3d_loss
     from fcaf3d_tpu_torch.params import init_variables
@@ -2183,11 +2502,14 @@ def step_grads(torch, cfg, batch, dev, seed=0):
 
     model, _, _ = seeded(create_train_state(cfg, seed, dev),
                           init_variables(cfg, seed))
+    handles = [] if hook is None else hook(model)
     t = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
     outs, overflow = model(t["points"], t["colors"], t["valid"])
     losses = fcaf3d_loss(outs, t["gt_boxes"], t["gt_labels"], t["gt_valid"],
                          loss_config(cfg))
     sum(losses.values()).backward()
+    for h in handles:
+        h.remove()
     return ([(o.points.cpu(), o.valid.cpu()) for o in outs],
             {k: v.cpu().tolist() for k, v in overflow.items()},
             {k: float(v.detach()) for k, v in losses.items()},
@@ -2203,12 +2525,81 @@ def leaf_errs(got, want):
          n) for n, w in want.items())
 
 
-def card_vs_cpu(torch, cfg, batch, device, what, seed=0):
+def norm_relu_input(torch, mod, args, kwargs):
+    """The input of the ReLU of a sparse norm's call `mod(st, act="relu",
+    residual=...)`: the same norm and residual add with no activation, the
+    running statistics left as they are."""
+    from fcaf3d_tpu_torch.models.blocks import SparseInstanceNorm
+    from fcaf3d_tpu_torch.ops.sparse.masked_norm import masked_norm
+
+    st, res = args[0], kwargs.get("residual")
+    mode = ("instance" if isinstance(mod, SparseInstanceNorm)
+            else "batch" if mod.training else "running")
+    return masked_norm(st.feats, st.keys, mod.scale, mod.bias, mode, None,
+                       None if res is None else res.feats,
+                       (mod.mean, mod.var) if mode == "running" else None,
+                       mod.eps)
+
+
+def relu_ties(torch, inputs, replay=None, flips=None):
+    """A `step_grads` hook on every sparse norm whose call applies a ReLU:
+    it keeps the ReLU's input (`norm_relu_input`) on the CPU in `inputs` by
+    module name. With `replay` (another device's `inputs`) the step takes
+    that device's side of each ReLU whose input changes sign between the
+    two: there the output is the input times 1, 0 or 1/2 (the replayed
+    input positive, negative or 0), so its gradient is the replayed one.
+    Each such input lies within RELU_TIE_ATOL of 0 on both devices, else
+    it raises; `flips` gets (name, count, largest |input|) of each norm."""
+    from fcaf3d_tpu_torch.models.blocks import (SparseBatchNorm,
+                                                SparseInstanceNorm)
+
+    def hook(name):
+        def keep(mod, args, kwargs, out):
+            if kwargs.get("act") != "relu":
+                return None
+            with (torch.no_grad() if replay is None
+                  else contextlib.nullcontext()):
+                pre = norm_relu_input(torch, mod, args, kwargs)
+            inputs[name] = pre.detach().cpu()
+            if replay is None:
+                return None
+            want = replay[name].to(pre.device)
+            flip = torch.sign(want) != torch.sign(pre.detach())
+            if not flip.any():
+                return None
+            at = float(torch.maximum(want.abs(), pre.detach().abs())[flip]
+                       .max())
+            flips.append((name, int(flip.sum()), at))
+            if at > RELU_TIE_ATOL:
+                raise AssertionError(f"{name}: ReLU inputs change sign "
+                                     f"between the devices away from 0: "
+                                     f"{flips[-1]}")
+            side = torch.where(want > 0, 1.0, torch.where(want < 0, 0.0, 0.5))
+            return out.with_feats(torch.where(flip, pre * side.to(pre.dtype),
+                                              out.feats))
+        return keep
+
+    def register(model):
+        return [mod.register_forward_hook(hook(name), with_kwargs=True)
+                for name, mod in model.named_modules()
+                if isinstance(mod, (SparseBatchNorm, SparseInstanceNorm))]
+    return register
+
+
+def card_vs_cpu(torch, cfg, batch, device, what, seed=0, flips=None):
     """One f32 train step on the card and on the CPU from the same weights
-    and batch: head-level maps and overflow counts exactly equal. Returns
-    the card's and the CPU's losses and the per-leaf errors."""
-    lv_g, ovf_g, loss_g, grad_g = step_grads(torch, cfg, batch, device, seed)
-    lv_c, ovf_c, loss_c, grad_c = step_grads(torch, cfg, batch, "cpu", seed)
+    and batch: head-level maps and overflow counts exactly equal. With
+    `flips` (a list) the CPU step takes the card's side of each ReLU tie
+    (`relu_ties`) and `flips` gets them. Returns the card's and the CPU's
+    losses and the per-leaf errors."""
+    card, cpu_hook = {}, None
+    if flips is not None:
+        cpu_hook = relu_ties(torch, {}, replay=card, flips=flips)
+    lv_g, ovf_g, loss_g, grad_g = step_grads(
+        torch, cfg, batch, device, seed,
+        None if flips is None else relu_ties(torch, card))
+    lv_c, ovf_c, loss_c, grad_c = step_grads(torch, cfg, batch, "cpu", seed,
+                                             cpu_hook)
     for i, ((pg, vg), (pc, vc)) in enumerate(zip(lv_g, lv_c)):
         if not (torch.equal(pg, pc) and torch.equal(vg, vc)):
             raise AssertionError(f"{what}: level {i} map differs card vs CPU "
@@ -2227,21 +2618,29 @@ def compare_train_tiny(torch, device, with_yaw=False, **over):
     """One f32 train step at `fcaf3d_tiny` (`with_yaw`: rotated boxes, 8
     regression outputs, yawed GT boxes; `over`: fields replaced, e.g.
     depth=50), batch 2, card against CPU, with the tight per-element
-    gate."""
+    gate. A ReLU input a rounding away from 0 can fall on either side on
+    the two devices (a residual cancelling its norm's output), and one
+    such flip moves a bias gradient by ~20% of its largest element: the
+    CPU step takes the card's side of each ReLU whose input changes sign
+    within RELU_TIE_ATOL of 0 (`relu_ties`), as the VoteNet gates replay
+    the card's FPS ties, and the flips are logged."""
     from fcaf3d_tpu_torch.configs import fcaf3d_tiny
 
     cfg = dataclasses.replace(fcaf3d_tiny(with_yaw=with_yaw), **over)
     what = (f"f32 tiny{' with_yaw' if with_yaw else ''}"
             + "".join(f" {k}={v}" for k, v in over.items()) + " train")
     batch = head_batch(torch, cfg, TINY_EXTENT)
-    loss_g, loss_c, _, errs = card_vs_cpu(torch, cfg, batch, device, what)
+    flips = []
+    loss_g, loss_c, _, errs = card_vs_cpu(torch, cfg, batch, device, what,
+                                          flips=flips)
     loss_err = max(abs(loss_g[k] / loss_c[k] - 1) for k in loss_c)
     worst = max(errs, key=lambda x: x[1])
     log(f"   {what}, batch 2: head-level maps equal card vs CPU; "
         f"losses {loss_c} (max rel err {loss_err:.3g}, tol "
         f"{TRAIN_LOSS_RTOL}); gradient leaves, largest-element rel err: "
         f"worst {worst[2]} {worst[1]:.3g} (tol {TINY_GRAD_RTOL}); norm rel "
-        f"err {report_errs(errs)}")
+        f"err {report_errs(errs)}; ReLU inputs of another sign card vs "
+        f"CPU, the card's side taken: {flips or 'none'}")
     if loss_c["loss_bbox"] <= 0 or loss_err > TRAIN_LOSS_RTOL \
             or worst[1] > TINY_GRAD_RTOL:
         raise AssertionError(f"{what}: card and CPU disagree")
@@ -7097,6 +7496,7 @@ KERNELS = (
      "fcaf3d_tpu/ops/pointnet/fps_kernel.py:98"),
     ("ball_query", "fcaf3d_tpu_torch/csrc/ball_query.cu",
      "fcaf3d_tpu/ops/pointnet/ballq_kernel.py:157"),
+    ("masked_norm", "fcaf3d_tpu_torch/csrc/masked_norm.cu", None),
 )
 
 
@@ -7152,6 +7552,10 @@ def main():
         f"{cfg.num_points} points per scan")
     train_launches, train_variants, k1_train, step_ms = train_phase(
         torch, cfg, batch, "cuda")
+    log(f"== 6b K7: the norm calls of a batch-{NORM_BATCH} train step "
+        f"against plain, timed; its data-parallel branch at {NORM_DP_WORLD} "
+        "gloo ranks")
+    rec["masked_norm"] = masked_norm_phase(torch, cfg, "cuda")
     _native.reset_launches()
     compare_train_tiny(torch, "cuda")
     compare_train_f32(torch, cfg, "cuda")

@@ -17,7 +17,8 @@ add one per launch), so a run can show which kernels its path went through;
 variant, dtype), so a run can show that its searches ran on the gallop
 kernel, its bf16 convs on the tensor cores, its f32 convs on the narrow and
 tiled SIMT kernels, its max-pool on the vector kernel, its farthest-point
-sampling on the cluster kernel and its ball queries on the tiled kernel.
+sampling on the cluster kernel, its ball queries on the tiled kernel and
+its train-mode norms on K7's five kernels.
 """
 from __future__ import annotations
 
@@ -39,7 +40,7 @@ SMS = 132  # streaming multiprocessors of an H100 SXM (launch plans)
 
 # kernel name -> launches since the last `reset_launches()`
 LAUNCHES = {"searchsorted": 0, "gather_gemm": 0, "gather_max": 0,
-            "gather_dw": 0, "fps": 0, "ball_query": 0}
+            "gather_dw": 0, "fps": 0, "ball_query": 0, "masked_norm": 0}
 
 # (kernel, variant, dtype name) -> launches since the last `reset_launches()`
 VARIANT_LAUNCHES: dict = {}
@@ -183,6 +184,19 @@ def _bind(lib):
     lib.fcaf3d_ball_query_tiled.argtypes = [
         p, p, p, p, i64, i64, i64, i64, ctypes.c_float, p]
     lib.fcaf3d_ball_query_tiled.restype = i
+    f = ctypes.c_float
+    geo = [i64, i64, i64, i64, i64]  # groups, rows, C, rows a CTA, CTAs
+    tail = [i, i, i, p]  # dtype, vec, threads, stream
+    lib.fcaf3d_masked_norm_stats.argtypes = [p] * 5 + geo + tail
+    lib.fcaf3d_masked_norm_dev.argtypes = [p] * 6 + geo + tail
+    lib.fcaf3d_masked_norm_apply.argtypes = (
+        [p, p, p, p, p, i, p, p, p, p, f, f, p] + geo + [i, f] + tail)
+    lib.fcaf3d_masked_norm_bwd_reduce.argtypes = (
+        [p, p, p, p, p, p, i, p, p, p, p, p, p, p] + geo + [i, f] + tail)
+    lib.fcaf3d_masked_norm_bwd_apply.argtypes = (
+        [p, p, p, p, p, p, i, p, p, p, p, p] + geo + [i, f] + tail)
+    for name in ("stats", "dev", "apply", "bwd_reduce", "bwd_apply"):
+        getattr(lib, f"fcaf3d_masked_norm_{name}").restype = i
 
 
 def load():

@@ -7,7 +7,10 @@ Parameters stay f32; convs cast their kernel to the activations' dtype.
 `module.train()` / `.eval()` take the place of the flax `train` argument:
 training normalises with masked batch statistics and updates the running
 ones; evaluation folds every BN, activation and residual add into the
-producing conv's epilogue.
+producing conv's epilogue. The norms take the activation and the residual
+add that follow them (`forward(st, act=..., residual=...)`): on the card
+each norm is one call of kernel K7 (`ops/sparse/masked_norm.py`), on the
+CPU the plain ops.
 """
 from __future__ import annotations
 
@@ -23,14 +26,9 @@ from ..ops.sparse.conv import (
     sparse_conv,
     sparse_max_pool,
 )
+from ..ops.sparse.masked_norm import masked_norm
 from ..ops.sparse.neck_ops import gen_children
 from ..ops.sparse.tensor import SparseTensor
-from ..parallel.comm import global_sums
-
-
-def at_least_f32(x: torch.Tensor) -> torch.Tensor:
-    """`x` in f32, or in its own dtype when that is wider (float64)."""
-    return x.to(torch.promote_types(x.dtype, torch.float32))
 
 
 class SparseConv(nn.Module):
@@ -108,7 +106,11 @@ class SparseBatchNorm(nn.Module):
     evaluation uses the running statistics. Under a data-parallel group
     (`parallel.data_parallel`) the whole batch is the global one: the
     count and sum, then the squared deviations, are summed over the ranks
-    (two all-reduces, gradients flowing through both)."""
+    (two all-reduces, gradients flowing through both).
+
+    `forward(st, act=None, residual=None)` adds `residual`'s features after
+    the norm's rounding to the activations' dtype and then applies `act`
+    (None, "relu" or "elu"), in one call (`masked_norm`)."""
 
     momentum = 0.1
 
@@ -126,31 +128,18 @@ class SparseBatchNorm(nn.Module):
         inv = self.scale / torch.sqrt(self.var + self.eps)
         return inv, self.bias - self.mean * inv
 
-    def forward(self, st: SparseTensor) -> SparseTensor:
-        feats32 = at_least_f32(st.feats)
-        if self.training:
-            mask = st.valid[..., None].float()
-            count, total = global_sums(mask.sum(),
-                                       (feats32 * mask).sum(dim=(0, 1)))
-            count = torch.clamp_min(count, 1.0)
-            mean = total / count
-            (sq,) = global_sums((((feats32 - mean) ** 2) * mask).sum(
-                dim=(0, 1)))
-            var = sq / count
-            with torch.no_grad():
-                m = self.momentum
-                self.mean.copy_((1 - m) * self.mean + m * mean)
-                self.var.copy_((1 - m) * self.var + m * var)
-        else:
-            mean, var = self.mean, self.var
-        inv = self.scale / torch.sqrt(var + self.eps)
-        out = (feats32 - mean) * inv + self.bias
-        out = torch.where(st.valid[..., None], out, 0.0).to(st.feats.dtype)
-        return st.with_feats(out)
+    def forward(self, st: SparseTensor, act: Optional[str] = None,
+                residual: Optional[SparseTensor] = None) -> SparseTensor:
+        return st.with_feats(masked_norm(
+            st.feats, st.keys, self.scale, self.bias,
+            "batch" if self.training else "running", act,
+            None if residual is None else residual.feats,
+            (self.mean, self.var), self.eps, self.momentum))
 
 
 class SparseInstanceNorm(nn.Module):
-    """Per-sample masked InstanceNorm (stem of the backbone)."""
+    """Per-sample masked InstanceNorm (stem of the backbone);
+    `forward(st, act)` as `SparseBatchNorm`'s."""
 
     def __init__(self, num_features: int, eps: float = 1e-5, device=None):
         super().__init__()
@@ -158,28 +147,11 @@ class SparseInstanceNorm(nn.Module):
         self.scale = nn.Parameter(torch.ones(num_features, device=device))
         self.bias = nn.Parameter(torch.zeros(num_features, device=device))
 
-    def forward(self, st: SparseTensor) -> SparseTensor:
-        feats32 = at_least_f32(st.feats)
-        mask = st.valid[..., None].float()
-        count = torch.clamp_min(mask.sum(dim=1, keepdim=True), 1.0)
-        mean = (feats32 * mask).sum(dim=1, keepdim=True) / count
-        var = (((feats32 - mean) ** 2) * mask).sum(dim=1, keepdim=True) / count
-        out = (feats32 - mean) / torch.sqrt(var + self.eps) * self.scale \
-            + self.bias
-        out = torch.where(st.valid[..., None], out, 0.0).to(st.feats.dtype)
-        return st.with_feats(out)
-
-
-def sparse_relu(st: SparseTensor) -> SparseTensor:
-    """max(x, 0) with the JAX package's gradient: 1/2 at exactly 0, where
-    `relu` and `clamp_min` give 0 and 1."""
-    return st.with_feats(torch.maximum(st.feats, st.feats.new_zeros(())))
-
-
-def sparse_elu(st: SparseTensor) -> SparseTensor:
-    """ELU with expm1 (the fused epilogue's ELU is exp(min(x, 0)) - 1)."""
-    out = torch.where(st.feats > 0, st.feats, torch.expm1(st.feats))
-    return st.with_feats(torch.where(st.valid[..., None], out, 0.0))
+    def forward(self, st: SparseTensor,
+                act: Optional[str] = None) -> SparseTensor:
+        return st.with_feats(masked_norm(
+            st.feats, st.keys, self.scale, self.bias, "instance", act,
+            eps=self.eps))
 
 
 def sparse_pool2x2(st: SparseTensor,
@@ -191,7 +163,8 @@ class SparseBasicBlock(nn.Module):
     """ME `BasicBlock`: conv3(stride)-BN-ReLU-conv3-BN (+skip), ReLU; the
     skip is conv1(stride)+BN when the stride or width changes. Evaluation
     runs every BN, activation and the residual add in the convs' fused
-    epilogues; training runs them as separate ops."""
+    epilogues; training runs each BN with the residual add and the ReLU
+    after it as one norm call."""
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
                  out_budget: Optional[int] = None, device=None):
@@ -214,13 +187,13 @@ class SparseBasicBlock(nn.Module):
         precomputed `conv_plan`s."""
         p1, p2, pds = plans if plans is not None else (None, None, None)
         if self.training:
-            out = sparse_relu(self.norm1(self.conv1(st, plan=p1)))
-            out = self.norm2(self.conv2(out, plan=p2))
+            out = self.norm1(self.conv1(st, plan=p1), act="relu")
             residual = st
             if self.has_ds:
                 residual = self.downsample_norm(
                     self.downsample_conv(st, plan=pds))
-            return sparse_relu(out.with_feats(out.feats + residual.feats))
+            return self.norm2(self.conv2(out, plan=p2), act="relu",
+                              residual=residual)
         inv1, sh1 = self.norm1.affine()
         inv2, sh2 = self.norm2.affine()
         out = self.conv1(st, plan=p1, epilogue=ConvEpilogue(inv1, sh1, "relu"))
@@ -238,7 +211,8 @@ class SparseBottleneck(nn.Module):
     conv1x1-BN-ReLU, conv3(stride)-BN-ReLU, conv1x1(4 x planes)-BN (+skip),
     ReLU; the skip is conv1(stride)+BN when the stride or width changes.
     Evaluation folds every BN, activation and the residual add into the
-    convs' epilogues; training runs them as separate ops."""
+    convs' epilogues; training runs each BN with the residual add and the
+    ReLU after it as one norm call."""
 
     expansion = 4
 
@@ -267,14 +241,13 @@ class SparseBottleneck(nn.Module):
         k1 on unchanged maps and need none."""
         p2, _, pds = plans if plans is not None else (None, None, None)
         if self.training:
-            out = sparse_relu(self.norm1(self.conv1(st)))
-            out = sparse_relu(self.norm2(self.conv2(out, plan=p2)))
-            out = self.norm3(self.conv3(out))
+            out = self.norm1(self.conv1(st), act="relu")
+            out = self.norm2(self.conv2(out, plan=p2), act="relu")
             residual = st
             if self.has_ds:
                 residual = self.downsample_norm(
                     self.downsample_conv(st, plan=pds))
-            return sparse_relu(out.with_feats(out.feats + residual.feats))
+            return self.norm3(self.conv3(out), act="relu", residual=residual)
         inv1, sh1 = self.norm1.affine()
         inv2, sh2 = self.norm2.affine()
         inv3, sh3 = self.norm3.affine()

@@ -46,6 +46,7 @@ from ..ops.sparse.neck_ops import (
     sort_tensor,
     threshold_select,
 )
+from ..ops.sparse.masked_norm import at_least_f32
 from ..ops.sparse.tensor import SENTINEL, SparseTensor, lookup
 from ..parallel.comm import global_batch
 from ..utils import tracing
@@ -55,8 +56,6 @@ from .blocks import (
     SparseConv,
     SparseGenConv3,
     SparseGenerativeTranspose,
-    at_least_f32,
-    sparse_elu,
 )
 from .losses import bce_loss_sum, focal_loss_sum, iou3d_loss_sum
 from .votenet import _atan2_safe_x
@@ -145,8 +144,7 @@ class Fcaf3DNeckWithHead(nn.Module):
         kmap = build_kernel_map_self(x.keys, x.coords, x.stride)
         plan = (x.coords, x.keys, kmap, None)
 
-        x = getattr(self, f"up_block_{i + 1}_bn1")(x)
-        x = sparse_elu(x)
+        x = getattr(self, f"up_block_{i + 1}_bn1")(x, act="elu")
         x = self._conv_bn_elu(f"up_block_{i + 1}_conv",
                               f"up_block_{i + 1}_bn2", x, plan)
 
@@ -172,9 +170,9 @@ class Fcaf3DNeckWithHead(nn.Module):
         gradient). Returns (level map, None: the level's self map is
         still to build, keys the union dropped)."""
         x = getattr(self, f"up_block_{i + 1}_tr").generate(parent)
-        x = sparse_elu(getattr(self, f"up_block_{i + 1}_bn1")(x))
+        x = getattr(self, f"up_block_{i + 1}_bn1")(x, act="elu")
         x = getattr(self, f"up_block_{i + 1}_conv")(x, parent_kmap=parent_kmap)
-        x = sparse_elu(getattr(self, f"up_block_{i + 1}_bn2")(x))
+        x = getattr(self, f"up_block_{i + 1}_bn2")(x, act="elu")
         x = sparse_union_add(x, lateral)
         interp = interpolate_at(scores_st.with_feats(scores_st.feats.detach()),
                                 x.coords.float())
@@ -183,10 +181,10 @@ class Fcaf3DNeckWithHead(nn.Module):
 
     def _conv_bn_elu(self, conv, bn, x, plan):
         """conv3 -> BN -> ELU on a shared plan: one conv with the folded
-        epilogue in evaluation, three ops in training."""
+        epilogue in evaluation, the conv and one norm call in training."""
         conv, bn = getattr(self, conv), getattr(self, bn)
         if self.training:
-            return sparse_elu(bn(conv(x, plan=plan)))
+            return bn(conv(x, plan=plan), act="elu")
         inv, sh = bn.affine()
         return conv(x, plan=plan, epilogue=ConvEpilogue(inv, sh, "elu"))
 

@@ -24,7 +24,6 @@ from .blocks import (
     SparseConv,
     SparseInstanceNorm,
     sparse_pool2x2,
-    sparse_relu,
 )
 
 # depth -> (blocks per stage, bottleneck?) (reference `me_resnet.py:104-121`)
@@ -84,9 +83,7 @@ class MEResNet3D(nn.Module):
                 inplanes = widths[i]
 
     def forward(self, st: SparseTensor) -> Tuple[SparseTensor, ...]:
-        x = self.conv1(st)
-        x = self.norm1(x)
-        x = sparse_relu(x)
+        x = self.norm1(self.conv1(st), act="relu")
         x = sparse_pool2x2(x, out_budget=self.budgets[1])
         outs = []
         for i in range(self.n_outs):

@@ -18,7 +18,9 @@ reference-side dump.
 The keys are the flax intermediates' (`module/path/__call__[k]...`): one
 entry a call of each named module of the port's `FCAF3D` (forward hooks),
 the folded norms' `affine()` pairs and the reference neck's transposes'
-`generate()` recorded as the calls that flax records for them, and the
+`generate()` recorded as the calls that flax records for them, a norm
+called with the activation or residual add that follows it recorded as its
+call without them (flax's norm returns the norm alone), and the
 model's and the neck's head outputs (the flax modules sow their overflow
 counts elsewhere). A `SparseTensor` gives its valid rows' statistics and a
 `.n_valid` count; a plain tensor its statistics over every element,
@@ -43,6 +45,7 @@ import numpy as np
 import torch
 
 from .. import configs
+from ..models.blocks import SparseBatchNorm, SparseInstanceNorm
 from ..models.detector import FCAF3D, infer_config
 from ..models.fcaf3d_head import Fcaf3DNeckWithHead, fcaf3d_get_bboxes
 from ..ops.sparse.tensor import SparseTensor
@@ -117,7 +120,13 @@ def recorded_calls(model):
     calls = {}
     handles, patched = [], []
 
-    def record(path, module, out):
+    def record(path, module, args, kwargs, out):
+        if isinstance(module, (SparseBatchNorm, SparseInstanceNorm)) and (
+                kwargs.get("act") is not None
+                or kwargs.get("residual") is not None):
+            with torch.no_grad():
+                module(*args)  # the norm alone, recorded by this hook
+            return
         if isinstance(module, (FCAF3D, Fcaf3DNeckWithHead)):
             out = out[0]
         calls.setdefault(path, []).append(out)
@@ -125,7 +134,8 @@ def recorded_calls(model):
     for name, module in model.named_modules():
         path = name.replace(".", "/")
         handles.append(module.register_forward_hook(
-            lambda m, args, out, path=path: record(path, m, out)))
+            lambda m, args, kwargs, out, path=path: record(
+                path, m, args, kwargs, out), with_kwargs=True))
         for method in RECORDED_METHODS:
             real = getattr(module, method, None)
             if real is None:
@@ -133,7 +143,7 @@ def recorded_calls(model):
 
             def wrapped(*args, real=real, path=path, module=module, **kw):
                 out = real(*args, **kw)
-                record(path, module, out)
+                record(path, module, args, {}, out)
                 return out
             setattr(module, method, wrapped)
             patched.append((module, method))

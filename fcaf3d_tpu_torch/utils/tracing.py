@@ -29,9 +29,13 @@ The spans of the port: FCAF3D's forward `voxelize`, `backbone`,
 `forward`, `loss`, `backward`, `all_reduce_grads` and `optimizer`. The
 counters `budget_rows` / `valid_rows` of `voxelize` and `backbone` are the
 rows of each level's static budget over the batch and the rows that hold a
-voxel (one entry a level). The autograd engine runs the backward on a
-thread of its own; its kernels fall inside the caller's `backward` span
-by time.
+voxel (one entry a level). The counters `norm_budget_rows` / `norm_rows`
+(`ops/sparse/masked_norm.py`, kernel K7 on the card) are the rows each
+norm call was launched over and the valid rows its kernels touched,
+summed over the calls in the span open at each (`backbone`, `neck_head`):
+how far K7's skipping of the padding engages. The autograd engine runs
+the backward on a thread of its own; its kernels fall inside the caller's
+`backward` span by time.
 
 `profiled(n, path)` runs a block with its first `n` items under
 `torch.profiler` and tracing on, and writes their Chrome trace to `path`

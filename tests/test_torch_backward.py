@@ -25,6 +25,7 @@ from fcaf3d_tpu_torch import configs as tconfigs
 from fcaf3d_tpu_torch.apis import init_detector
 from fcaf3d_tpu_torch.models import blocks as tb
 from fcaf3d_tpu_torch.ops.sparse import conv as tc
+from fcaf3d_tpu_torch.ops.sparse.masked_norm import elu_masked, relu_half_tie
 from fcaf3d_tpu_torch.ops.sparse import tensor as tt
 from fcaf3d_tpu_torch.params import flatten, init_variables, load_variables
 from tests.test_torch_model import EXTENT, _bn_vars, _stage_plans
@@ -187,8 +188,11 @@ def test_activation_gradients_at_zero_match_jax():
     feats[0, :20:3] = 0.0
     dout = np.random.default_rng(10).standard_normal(feats.shape).astype(
         np.float32)
-    for fn_t, fn_j in ((tb.sparse_relu, jb.sparse_relu),
-                       (tb.sparse_elu, jb.sparse_elu)):
+    for fn_t, fn_j in (
+            (lambda st: st.with_feats(relu_half_tie(st.feats)),
+             jb.sparse_relu),
+            (lambda st: st.with_feats(elu_masked(st.feats, st.valid)),
+             jb.sparse_elu)):
         f_t = torch.tensor(feats, requires_grad=True)
         (fn_t(t_map(coords, keys, f_t, 2)).feats
          * torch.as_tensor(dout)).sum().backward()

@@ -29,6 +29,7 @@ from fcaf3d_tpu_torch import configs as tconfigs
 from fcaf3d_tpu_torch.apis import (inference_detector, init_detector,
                                    init_votenet, train_model)
 from fcaf3d_tpu_torch.models import blocks as tb
+from fcaf3d_tpu_torch.ops.sparse.masked_norm import elu_masked, relu_half_tie
 from fcaf3d_tpu_torch.ops.sparse import tensor as tt
 from fcaf3d_tpu_torch.params import init_variables, load_variables
 from fcaf3d_tpu_torch.train import create_train_state
@@ -201,8 +202,11 @@ def test_norms_and_activations_match_jax():
         inorm_t(st_t).feats.detach().numpy(),
         np.asarray(jb.SparseInstanceNorm().apply({"params": params},
                                                  st_j).feats), atol=1e-6)
-    for fn_t, fn_j in ((tb.sparse_relu, jb.sparse_relu),
-                       (tb.sparse_elu, jb.sparse_elu)):
+    for fn_t, fn_j in (
+            (lambda st: st.with_feats(relu_half_tie(st.feats)),
+             jb.sparse_relu),
+            (lambda st: st.with_feats(elu_masked(st.feats, st.valid)),
+             jb.sparse_elu)):
         np.testing.assert_allclose(fn_t(st_t).feats.numpy(),
                                    np.asarray(fn_j(st_j).feats), atol=1e-6)
 
