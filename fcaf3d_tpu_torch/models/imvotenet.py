@@ -8,6 +8,16 @@ argsorts (the top `max_imvote` pairs of a seed by inside + confidence, and
 the valid imvotes' resampling), the forward-axis guard of the geometric cue
 verbatim, and no Python scalar divisor (the texture's `/ 255` divides by a
 device tensor). Each tower's proposals run K5 and K6 over its votes.
+
+Nothing in the forward waits on the device: the calibration's inverse skips
+`torch.linalg.inv`'s error check (a read of its status on the host), and
+the x / z columns of a ray are a strided view, not an index list copied to
+the device. Tracing (`utils.tracing`) sees the spans `backbone`, `fusion`
+(`vote_fusion`, `sample_valid_seeds`, the gathers and the image MLP) and
+`tower_joint`, `tower_pts`, `tower_img`; while it is on, `fusion` counts
+`fusion_pairs` (the valid pairs kept) over `fusion_slots` (S x
+`max_imvote` a scan), `fusion_seeds` (the seeds with at least one valid
+pair) and `boxes2d_valid` (the valid 2D boxes).
 """
 from __future__ import annotations
 
@@ -18,6 +28,7 @@ from torch import nn
 
 from ..configs.votenet import VoteNetConfig
 from ..ops.pointnet import furthest_point_sample
+from ..utils import tracing
 from .pointnet2 import Dense, DenseBNReLU, PointNet2SASSG, PointSAModule
 from .votenet import VoteModule, _take_rows, decode_vote_bbox, votenet_loss
 
@@ -72,7 +83,7 @@ def vote_fusion(image: torch.Tensor, boxes2d: torch.Tensor,
     delta_v = ((t + btm) / 2.0)[:, None, :] - v
     imvote_uvz = torch.stack([delta_u, delta_v, torch.zeros_like(delta_u)],
                              -1) * z_cam[..., None, None]
-    inv = torch.linalg.inv(depth2img.transpose(1, 2))
+    inv = torch.linalg.inv_ex(depth2img.transpose(1, 2)).inverse
     imvote = (imvote_uvz.reshape(b, s * d, 3) @ inv).reshape(b, s, d, 3)
     seed_exp = seeds_depth[:, :, None, :].expand(b, s, d, 3)
     ray = seed_exp + imvote
@@ -82,7 +93,7 @@ def vote_fusion(image: torch.Tensor, boxes2d: torch.Tensor,
     den = ray[..., 1:2]
     den = torch.where(den.abs() < 1e-4, torch.where(
         den < 0, den.new_full((), -1e-4), den.new_full((), 1e-4)), den)
-    xz = ray[..., [0, 2]] / den * seed_exp[..., 1:2] - seed_exp[..., [0, 2]]
+    xz = ray[..., ::2] / den * seed_exp[..., 1:2] - seed_exp[..., ::2]
     geo = torch.cat([xz, ray], -1)  # [B, S, D, 5]
     cues = torch.cat([geo, sem], -1) * inside[..., None]
 
@@ -192,21 +203,12 @@ class ImVoteNet(nn.Module):
                 depth2img: Optional[torch.Tensor] = None, valid=None,
                 sample_mod: str = "vote",
                 towers: Sequence[str] = TOWERS) -> dict:
-        feat = self.backbone(points, valid=valid)
-        seeds = feat["fp_xyz"][-1]
-        seed_feats = feat["fp_features"][-1]
-        seed_idx = feat["fp_indices"][-1]
-        seeds_depth = seeds_depth_fn(seeds) if seeds_depth_fn else seeds
-        cues, mask = vote_fusion(images, boxes2d, boxes2d_valid, seeds_depth,
-                                 depth2img, self.cfg.n_classes,
-                                 self.max_imvote)
-        inds = sample_valid_seeds(mask, self.num_sampled_seed)  # into S*V
-        cues = _take_rows(cues, inds)
-        seed_sel = inds % seeds.shape[1]
-        sel_xyz = _take_rows(seeds, seed_sel)
-        sel_feats = _take_rows(seed_feats, seed_sel)
-        sel_idx = torch.gather(seed_idx, 1, seed_sel)
-        img_feats = self.img_mlp1(self.img_mlp0(cues))
+        with tracing.span("backbone"):
+            feat = self.backbone(points, valid=valid)
+        with tracing.span("fusion"):
+            sel_xyz, sel_feats, sel_idx, img_feats = self._fuse(
+                feat, images, boxes2d, boxes2d_valid, seeds_depth_fn,
+                depth2img)
         variants = {
             "joint": lambda: torch.cat([sel_feats, img_feats], -1),
             "pts": lambda: torch.cat([sel_feats, torch.zeros_like(img_feats)],
@@ -214,8 +216,38 @@ class ImVoteNet(nn.Module):
             "img": lambda: torch.cat([torch.zeros_like(sel_feats), img_feats],
                                      -1),
         }
-        return {name: self.tower(sel_xyz, variants[name](), sel_idx,
-                                 sample_mod) for name in towers}
+        out = {}
+        for name in towers:
+            with tracing.span(f"tower_{name}"):
+                out[name] = self.tower(sel_xyz, variants[name](), sel_idx,
+                                       sample_mod)
+        return out
+
+    def _fuse(self, feat, images, boxes2d, boxes2d_valid, seeds_depth_fn,
+              depth2img):
+        """The resampled seeds' (xyz, point features, input indices) and
+        their image features."""
+        seeds = feat["fp_xyz"][-1]
+        seed_feats = feat["fp_features"][-1]
+        seed_idx = feat["fp_indices"][-1]
+        seeds_depth = seeds_depth_fn(seeds) if seeds_depth_fn else seeds
+        cues, mask = vote_fusion(images, boxes2d, boxes2d_valid, seeds_depth,
+                                 depth2img, self.cfg.n_classes,
+                                 self.max_imvote)
+        if tracing.enabled():
+            b, slots = mask.shape
+            tracing.count("fusion_pairs", mask.sum())
+            tracing.count("fusion_slots", b * slots)
+            tracing.count("fusion_seeds", mask.reshape(
+                b, -1, self.max_imvote).any(-1).sum())
+            tracing.count("boxes2d_valid", boxes2d_valid.sum())
+        inds = sample_valid_seeds(mask, self.num_sampled_seed)  # into S*V
+        cues = _take_rows(cues, inds)
+        seed_sel = inds % seeds.shape[1]
+        sel_xyz = _take_rows(seeds, seed_sel)
+        sel_feats = _take_rows(seed_feats, seed_sel)
+        sel_idx = torch.gather(seed_idx, 1, seed_sel)
+        return sel_xyz, sel_feats, sel_idx, self.img_mlp1(self.img_mlp0(cues))
 
 
 def imvotenet_loss(tower_outs: dict, points: torch.Tensor,
