@@ -8,7 +8,7 @@ and PyTorch built for CUDA:
 Phases (any failure raises and the script exits non-zero):
 
 1. Device: require CUDA; print the card's name and power limit.
-2. Build: compile the CUDA kernels K1-K7 from `fcaf3d_tpu_torch/csrc/`
+2. Build: compile the CUDA kernels K1-K8 from `fcaf3d_tpu_torch/csrc/`
    (one nvcc per source, in parallel).
 3. Kernels against their plain PyTorch versions on the card, at the shapes
    of the main path's maps on a real-size scan: K1 exact (with and without
@@ -69,6 +69,12 @@ Phases (any failure raises and the script exits non-zero):
    forward + backward timed at the stem, s8 and s64 calls beside their
    bytes-once bound and the plain path; its data-parallel branch at 2 gloo
    ranks on the card against the plain path under the same group.
+6c. K8 (the optimizer step, `csrc/clip_adamw.cu`) at the leaf sets of
+   `fcaf3d_scannet` (149 leaves, 70 479 574 parameters) and
+   `votenet_sunrgbd` (98 leaves), below and above the clip: against the
+   plain loop on the card (bitwise below the clip), bitwise repeatable, two
+   launches a step; its device time beside its bytes-once bound and the
+   plain loop, and each step's wall.
 7. K5 (farthest-point sampling) and K6 (ball query) against their plain
    versions at every shape of the VoteNet-v2 path (SA1-SA4, the seeds and
    the vote aggregation on two 20 000-point scans), at batch 1 and at
@@ -2451,6 +2457,136 @@ def dp_norm_rank(group, out_dir):
     torch.save(out, os.path.join(out_dir, f"norm_rank{group.rank}.pt"))
 
 
+def clip_adamw_phase(torch, device):
+    """Phase 6c: K8 (the optimizer step) at the leaf sets of
+    `fcaf3d_scannet` (149 leaves, 70 479 574 parameters) and
+    `votenet_sunrgbd` (98 leaves), gradients drawn from a seed at a norm
+    below the clip and at one above it: the step against the plain loop
+    on the card from the same state (parameters and moments bitwise equal
+    below the clip; above it the largest gap over the leaf's largest value,
+    and the norm's relative gap), two K8 runs bitwise equal, two launches a
+    step. Times K8's device time (CUDA events behind a sleep kernel) beside
+    its bytes-once bound (32 bytes a parameter: g read by the norm; p, g,
+    mu and nu read and p, mu and nu written by the update) and the plain
+    loop, and each step's wall (enqueue to synchronise, as the benchmark's
+    `optimizer` span sees it). Returns the record."""
+    from fcaf3d_tpu_torch import _native
+    from fcaf3d_tpu_torch.configs import fcaf3d_scannet, votenet_sunrgbd
+    from fcaf3d_tpu_torch.models.detector import FCAF3D
+    from fcaf3d_tpu_torch.models.votenet import VoteNet
+    from fcaf3d_tpu_torch.train.optim import ClipAdamW, constant_schedule
+
+    def wall_ms(fn, reps=5):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+            torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    rec = {}
+    for name, model in (("fcaf3d_scannet", FCAF3D(fcaf3d_scannet(),
+                                                   device=device)),
+                        ("votenet_sunrgbd", VoteNet(votenet_sunrgbd(),
+                                                    device=device))):
+        params = list(model.parameters())
+        n = sum(p.numel() for p in params)
+        gen = torch.Generator(device=device).manual_seed(8)
+        with torch.no_grad():
+            for p in params:
+                p.normal_(0.0, 0.05, generator=gen)
+        grads = [torch.randn(p.shape, generator=gen, device=device)
+                 for p in params]
+        unit = float(torch.sqrt(sum(torch.sum(g * g) for g in grads)))
+        opt = ClipAdamW(params, constant_schedule(1e-3))
+        r = {"leaves": len(params), "params": n}
+        for side, norm in (("below", 0.5 * opt.grad_clip),
+                           ("above", 4.0 * opt.grad_clip)):
+            for p, g in zip(params, grads):
+                p.grad = g * (norm / unit)
+            start = [(p.detach().clone(), opt.state[p].get("mu"),
+                      opt.state[p].get("nu")) for p in params]
+            start = [(p0, None if m is None else m.clone(),
+                      None if v is None else v.clone())
+                     for p0, m, v in start]
+            count = opt.count
+            runs = []
+            for _ in range(2):
+                with torch.no_grad():
+                    for p, (p0, m, v) in zip(params, start):
+                        p.copy_(p0)
+                        if m is None:
+                            opt.state[p].clear()
+                        else:
+                            opt.state[p] = {"mu": m.clone(), "nu": v.clone()}
+                opt.count = count
+                _native.reset_launches()
+                got_norm = opt.step()
+                torch.cuda.synchronize()
+                if _native.VARIANT_LAUNCHES != {
+                        ("clip_adamw", "norm", "float32"): 1,
+                        ("clip_adamw", "update", "float32"): 1}:
+                    raise AssertionError(f"K8 {name}: launches "
+                                         f"{_native.VARIANT_LAUNCHES}")
+                runs.append((got_norm.item(), [
+                    (p.detach().clone(), opt.state[p]["mu"].clone(),
+                     opt.state[p]["nu"].clone()) for p in params]))
+            if runs[0][0] != runs[1][0] or not all(
+                    torch.equal(a, b) for x, y in zip(runs[0][1], runs[1][1])
+                    for a, b in zip(x, y)):
+                raise AssertionError(f"K8 {name} {side}: not repeatable")
+            full = [p.grad for p in params]
+            plain_norm = torch.sqrt(sum(torch.sum(g * g) for g in full))
+            states = [{"mu": torch.zeros_like(p0) if m is None else m.clone(),
+                       "nu": torch.zeros_like(p0) if v is None else v.clone()}
+                      for p0, m, v in start]
+            plain_p = [p0.clone() for p0, _, _ in start]
+            c = [float(1 - np.float32(b) ** np.float32(count + 1))
+                 for b in (opt.B1, opt.B2)]
+            opt._plain_update(plain_p, full, states, plain_norm,
+                              opt.schedule(count), *c)
+            gap = 0.0
+            equal = True
+            for (kp, km, kn), pp, st in zip(runs[0][1], plain_p, states):
+                for a, b in ((kp, pp), (km, st["mu"]), (kn, st["nu"])):
+                    equal &= torch.equal(a, b)
+                    gap = max(gap, float((a - b).abs().max()
+                                         / b.abs().max().clamp_min(1e-30)))
+            norm_gap = abs(runs[0][0] - plain_norm.item()) / plain_norm.item()
+            r[side] = {"norm": runs[0][0], "norm_gap": norm_gap,
+                       "bitwise_plain": equal, "worst_gap": gap}
+            if not (norm_gap <= 1e-6 and (equal or side == "above")
+                    and gap <= 1e-5):
+                raise AssertionError(f"K8 {name} {side}: {r[side]}")
+            del runs, start, states, plain_p
+        states = [opt.state[p] for p in params]
+
+        @torch.no_grad()
+        def plain():
+            grads = [p.grad for p in params]
+            opt._plain_update(params, grads, states, torch.sqrt(
+                sum(torch.sum(g * g) for g in grads)), 1e-3, 0.5, 0.5)
+
+        ms = {"k8": cuda_ms(torch, opt.step),
+              "plain": cuda_ms(torch, plain, reps=3)}
+        walls = {"k8": wall_ms(opt.step), "plain": wall_ms(plain, reps=3)}
+        bound = 32 * n / HBM_BYTES_PER_S * 1e3
+        r.update(ms=ms, wall_ms=walls, bound_ms=bound,
+                 share=bound / ms["k8"])
+        rec[name] = r
+        log(f"   K8 {name}: {len(params)} leaves, {n} parameters: "
+            f"{ms['k8']:.4f} ms (bound {bound:.4f}, share "
+            f"{r['share']:.3f}; plain {ms['plain']:.4f}); step wall "
+            f"{walls['k8']:.3f} ms (plain {walls['plain']:.3f}); below the "
+            f"clip bitwise the plain loop {r['below']['bitwise_plain']}, "
+            f"norm gap {r['below']['norm_gap']:.2e}; above: worst gap "
+            f"{r['above']['worst_gap']:.2e}, norm gap "
+            f"{r['above']['norm_gap']:.2e}; two runs bitwise equal")
+        del model, opt, params, grads, states
+        torch.cuda.empty_cache()
+    return rec
+
 def head_batch(torch, cfg, extent, b=2, boxes_per_scene=3, seed=0):
     """B `data.synth.synth_scene` scans of `extent` for a miniature config, with
     GT boxes of ~0.2 m around level-0 head locations of the training
@@ -3934,13 +4070,19 @@ def hold_selections_to_plain(torch, calls, what):
     return with_grad
 
 
-def check_vote_launches(launches, variants, calls_per_run, runs, what):
+def check_vote_launches(launches, variants, calls_per_run, runs, what,
+                        train=False):
     """`calls_per_run` K5 and as many K6 launches a run, every K5 on the
-    cluster kernel and every K6 on the tiled kernel, nothing else."""
+    cluster kernel and every K6 on the tiled kernel; with `train`, a run is
+    a train step and K8 launches its two kernels once; nothing else."""
     want = {k: calls_per_run * runs if k in ("fps", "ball_query") else 0
             for k in launches}
     on_path = {"fps/cluster/float32": want["fps"],
                "ball_query/tiled/float32": want["ball_query"]}
+    if train:
+        want["clip_adamw"] = 2 * runs
+        on_path.update({"clip_adamw/norm/float32": runs,
+                        "clip_adamw/update/float32": runs})
     if launches != want or variants != on_path:
         raise AssertionError(f"{what}: launches {launches}, by variant "
                              f"{variants}; expected {want}, {on_path}")
@@ -4034,7 +4176,8 @@ def held_and_timed_steps(torch, model, step, batch, steps, path, live,
     launches = dict(_native.LAUNCHES)
     variants = {"/".join(key): n
                 for key, n in sorted(_native.VARIANT_LAUNCHES.items())}
-    check_vote_launches(launches, variants, calls_per_step, steps, path)
+    check_vote_launches(launches, variants, calls_per_step, steps, path,
+                        train=True)
     sa1 = fps_plan(b, cfg.num_points, cfg.backbone_num_points[0])
     clusters = max_active_clusters(sa1)
     n_kernels = sum(n.endswith("kernel") for n, _ in model.named_parameters())
@@ -5504,15 +5647,17 @@ def held_tool_calls(torch, calls, what):
                              "did not take the votes (vote mode)")
 
 
-def tool_launches(path, calls_per_step, steps):
+def tool_launches(path, calls_per_step, steps, train=True):
     """The launches since the last reset: `calls_per_step` K5 and K6 a step
-    on the cluster and tiled kernels (`check_vote_launches`)."""
+    on the cluster and tiled kernels, and with `train` K8's two a step
+    (`check_vote_launches`)."""
     from fcaf3d_tpu_torch import _native
 
     launches = dict(_native.LAUNCHES)
     variants = {"/".join(key): n
                 for key, n in sorted(_native.VARIANT_LAUNCHES.items())}
-    check_vote_launches(launches, variants, calls_per_step, steps, path)
+    check_vote_launches(launches, variants, calls_per_step, steps, path,
+                        train)
     return launches, variants
 
 
@@ -5884,7 +6029,7 @@ def converter_phase(torch, cfg, scans, tmp, frame, device):
             n = check_detections(run(), vcfg.n_classes, p)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-        launches[p], variants[p] = tool_launches(p, 5, 1)
+        launches[p], variants[p] = tool_launches(p, 5, 1, train=False)
         hold_selections_to_plain(torch, calls, p)
         del model, calls
         log(f"   {model_name}: {nbytes} bytes of .pth, converted in "
@@ -7497,6 +7642,7 @@ KERNELS = (
     ("ball_query", "fcaf3d_tpu_torch/csrc/ball_query.cu",
      "fcaf3d_tpu/ops/pointnet/ballq_kernel.py:157"),
     ("masked_norm", "fcaf3d_tpu_torch/csrc/masked_norm.cu", None),
+    ("clip_adamw", "fcaf3d_tpu_torch/csrc/clip_adamw.cu", None),
 )
 
 
@@ -7556,6 +7702,9 @@ def main():
         f"against plain, timed; its data-parallel branch at {NORM_DP_WORLD} "
         "gloo ranks")
     rec["masked_norm"] = masked_norm_phase(torch, cfg, "cuda")
+    log("== 6c K8: the optimizer step at the fcaf3d_scannet and "
+        "votenet_sunrgbd leaf sets against the plain loop, timed")
+    rec["clip_adamw"] = clip_adamw_phase(torch, "cuda")
     _native.reset_launches()
     compare_train_tiny(torch, "cuda")
     compare_train_f32(torch, cfg, "cuda")
@@ -7663,8 +7812,9 @@ def main():
     kernels = []
     for name, src, tpu in KERNELS:
         k = {"name": name, "route": "cuda", "source": src, "replaces": tpu,
-             "launches": sum(p[name] for p in by_path.values()),
-             "launches_by_path": {k: p[name] for k, p in by_path.items()},
+             "launches": sum(p.get(name, 0) for p in by_path.values()),
+             "launches_by_path": {k: p.get(name, 0)
+                                  for k, p in by_path.items()},
              **rec[name]}
         k["launches_by_variant"] = {
             path: {key: n for key, n in v.items()

@@ -17,8 +17,8 @@ add one per launch), so a run can show which kernels its path went through;
 variant, dtype), so a run can show that its searches ran on the gallop
 kernel, its bf16 convs on the tensor cores, its f32 convs on the narrow and
 tiled SIMT kernels, its max-pool on the vector kernel, its farthest-point
-sampling on the cluster kernel, its ball queries on the tiled kernel and
-its train-mode norms on K7's five kernels.
+sampling on the cluster kernel, its ball queries on the tiled kernel, its
+train-mode norms on K7's five kernels and its optimizer steps on K8's two.
 """
 from __future__ import annotations
 
@@ -40,7 +40,8 @@ SMS = 132  # streaming multiprocessors of an H100 SXM (launch plans)
 
 # kernel name -> launches since the last `reset_launches()`
 LAUNCHES = {"searchsorted": 0, "gather_gemm": 0, "gather_max": 0,
-            "gather_dw": 0, "fps": 0, "ball_query": 0, "masked_norm": 0}
+            "gather_dw": 0, "fps": 0, "ball_query": 0, "masked_norm": 0,
+            "clip_adamw": 0}
 
 # (kernel, variant, dtype name) -> launches since the last `reset_launches()`
 VARIANT_LAUNCHES: dict = {}
@@ -197,6 +198,11 @@ def _bind(lib):
         [p, p, p, p, p, p, i, p, p, p, p, p] + geo + [i, f] + tail)
     for name in ("stats", "dev", "apply", "bwd_reduce", "bwd_apply"):
         getattr(lib, f"fcaf3d_masked_norm_{name}").restype = i
+    lib.fcaf3d_clip_adamw_norm.argtypes = [p, i64, i64, p, p, p, p, p]
+    lib.fcaf3d_clip_adamw_norm.restype = i
+    lib.fcaf3d_clip_adamw_update.argtypes = [p, i64, i64, p, p] + [f] * 10 + [
+        p]
+    lib.fcaf3d_clip_adamw_update.restype = i
 
 
 def load():

@@ -11,6 +11,12 @@ the same gradients give the JAX package's parameters:
   decoupled decay `+ weight_decay * p` on every parameter, times `-lr`
   (`torch.optim.AdamW` decays by `p * (1 - lr * wd)` and orders eps
   differently).
+
+On the card `step()` runs kernel K8 (`ops/optim/clip_adamw.py`): the norm
+and the update over every leaf in two launches, with no host wait; CPU
+leaves run the plain loop, in PyTorch ops (`_plain_update`). K8 rounds as
+the plain loop rounds on the card, op for op; only the norm's order of
+summation differs.
 """
 from __future__ import annotations
 
@@ -18,6 +24,9 @@ from typing import Iterable, Sequence
 
 import numpy as np
 import torch
+
+from ..ops.optim import ClipAdamWKernel
+from ..utils import tracing
 
 
 def step_lr_schedule(base_lr: float, steps_per_epoch: int,
@@ -51,7 +60,11 @@ class ClipAdamW(torch.optim.Optimizer):
     `step()` reads each parameter's `.grad` (a missing gradient counts as
     zero), updates in place and returns the global gradient norm before
     the clip. `count` is the number of steps taken; the schedule reads it
-    before the increment, as optax does."""
+    before the increment, as optax does. Leaves on a CUDA device take K8
+    (every leaf f32, contiguous, on one device, or it raises); CPU leaves
+    the plain loop. While tracing is on, a step adds the counters
+    `adamw_leaves`, `adamw_fused_leaves` (the leaves K8 took) and
+    `adamw_table_uploads` to the open span."""
 
     B1, B2, EPS = 0.9, 0.999, 1e-8
 
@@ -62,35 +75,52 @@ class ClipAdamW(torch.optim.Optimizer):
         self.weight_decay = weight_decay
         self.grad_clip = grad_clip
         self.count = 0
+        self.kernel = ClipAdamWKernel()
 
     @torch.no_grad()
     def step(self, closure=None) -> torch.Tensor:
         if closure is not None:
             raise ValueError("ClipAdamW.step takes no closure")
         params = [p for group in self.param_groups for p in group["params"]]
-        grads = [torch.zeros_like(p) if p.grad is None else p.grad
-                 for p in params]
-        norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
-        clip = norm >= self.grad_clip
         lr = self.schedule(self.count)
         self.count += 1
-        b1, b2 = self.B1, self.B2
         # bias corrections 1 - b ** count, in f32 as optax computes them
-        c1 = float(1 - np.float32(b1) ** np.float32(self.count))
-        c2 = float(1 - np.float32(b2) ** np.float32(self.count))
-        for p, g in zip(params, grads):
-            g = torch.where(clip, g / norm * self.grad_clip, g)
-            state = self.state[p]
+        c1 = float(1 - np.float32(self.B1) ** np.float32(self.count))
+        c2 = float(1 - np.float32(self.B2) ** np.float32(self.count))
+        states = [self.state[p] for p in params]
+        for p, state in zip(params, states):
             if not state:
                 state["mu"] = torch.zeros_like(p)
                 state["nu"] = torch.zeros_like(p)
+        fused = params[0].device.type != "cpu"
+        tracing.count("adamw_leaves", len(params))
+        tracing.count("adamw_fused_leaves", len(params) if fused else 0)
+        if fused:
+            norm, uploads = self.kernel.step(
+                [(p, p.grad, s["mu"], s["nu"]) for p, s in zip(params, states)],
+                lr, c1, c2, self.B1, self.B2, self.EPS, self.weight_decay,
+                self.grad_clip)
+            tracing.count("adamw_table_uploads", uploads)
+            return norm
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad
+                 for p in params]
+        norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+        self._plain_update(params, grads, states, norm, lr, c1, c2)
+        return norm
+
+    def _plain_update(self, params, grads, states, norm, lr, c1, c2) -> None:
+        """The clip by `norm` and the AdamW update of each leaf, in PyTorch
+        ops; `states` holds each leaf's "mu" and "nu", replaced."""
+        clip = norm >= self.grad_clip
+        b1, b2 = self.B1, self.B2
+        for p, g, state in zip(params, grads, states):
+            g = torch.where(clip, g / norm * self.grad_clip, g)
             mu = (1 - b1) * g + b1 * state["mu"]
             nu = (1 - b2) * (g * g) + b2 * state["nu"]
             state["mu"], state["nu"] = mu, nu
             update = (mu / c1) / (torch.sqrt(nu / c2) + self.EPS)
             update = update + self.weight_decay * p
             p.add_(-lr * update)
-        return norm
 
 
 def make_optimizer(params: Iterable[torch.nn.Parameter], lr: float = 1e-3,

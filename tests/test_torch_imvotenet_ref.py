@@ -318,7 +318,7 @@ def _traced_step(config, tree, batch):
     finally:
         tracing.disable()
         hook.remove()
-    return tracing.drain(), seeds[0]
+    return tracing.drain(), seeds[0], len(list(model.parameters()))
 
 
 @pytest.mark.parametrize("conf", [1.0, 0.5], ids=["gt_conf", "half_conf"])
@@ -330,13 +330,16 @@ def test_spans_nest_and_fusion_counts_its_pairs(setup, conf):
     batch = dict(pool[0])
     batch["boxes2d"] = batch["boxes2d"].copy()
     batch["boxes2d"][..., 4] = np.where(batch["boxes2d_valid"], conf, 0)
-    spans, seeds = _traced_step(config, tree, batch)
+    spans, seeds, n_leaves = _traced_step(config, tree, batch)
     by_id = {s.id: s for s in spans}
     assert [(s.name, by_id[s.parent].name if s.parent else None)
             for s in spans] == NESTING
     assert len({s.item for s in spans}) == 1
     counters = {s.name: s.counters for s in spans if s.counters}
-    assert set(counters) == {"fusion"}
+    assert set(counters) == {"fusion", "optimizer"}
+    # CPU leaves: the optimizer's plain loop, none fused
+    assert counters["optimizer"] == {"adamw_leaves": n_leaves,
+                                     "adamw_fused_leaves": 0}
     t = _tensors(batch)
     _, mask = ref_iv.vote_fusion(t["images"], t["boxes2d"],
                                  t["boxes2d_valid"], seeds, t["depth2img"],

@@ -171,6 +171,10 @@ def test_counters_read_the_budgets_rows_at_drain(built, case):
         hook.remove()
     spans = tracing.drain()
     counters = {s.name: s.counters for s in spans if s.counters}
+    if case.endswith("train"):  # CPU leaves: the plain loop, none fused
+        assert counters.pop("optimizer") == {
+            "adamw_leaves": len(list(model.parameters())),
+            "adamw_fused_leaves": 0}
     if case.startswith("votenet"):
         assert counters == {}
         return
