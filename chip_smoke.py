@@ -14,37 +14,34 @@ Phases (any failure raises and the script exits non-zero):
    of the main path's maps on a real-size scan: K1 exact (with and without
    `with_miss`, also on edge clouds: N = 1, N < L, N = 1 mod L, runs of
    equal keys across every L-th key, a compaction cumsum, random-order and
-   all-SENTINEL queries, both K1 variants), K2 in f32 and bf16 with every
-   epilogue (f32, and bf16 off the tensor cores' granule, equal to the
-   earlier kernel), K3 exact (`torch.equal`) and equal to the first,
-   scalar kernel on the stem pool maps of batch 1 and batch 8 in f32 and
-   bf16, and on edge cases (C off the 16-byte vector, all-miss rows, ties,
-   K = 27). Device times (CUDA events behind a sleep
+   all-SENTINEL queries, the gallop kernel at the plan's and at
+   K1_EDGE_RUN rows a thread), K2 in f32 and bf16 with every epilogue (f32,
+   and bf16 off the tensor cores' granule, bitwise repeatable over two
+   runs), K3 exact (`torch.equal`) on the stem pool maps of batch 1 and
+   batch 8 in f32 and bf16, and on edge cases (C off the 16-byte vector,
+   all-miss rows, ties, K = 27). Device times (CUDA events behind a sleep
    kernel, so that the host's enqueue rate does not set them), timed in
-   turns with the plain version and the yardsticks: for K1 the binary-search
-   kernel and, for positions, `torch.searchsorted(out_int32=True)`;
-   for f32 K2 the earlier kernel, for bf16 K2 and K4 the SIMT kernel, and one
-   matmul on the pre-gathered rows (not the same function: it shows what
-   the GEMM alone costs), for K3 the scalar kernel. Each time is printed
-   beside its bound (FLOPs over the peak, bytes over the memory rate, from
-   the real map's hits) and its share of it.
+   turns with the plain version and, for K1's positions,
+   `torch.searchsorted(out_int32=True)`, for K2 and K4 one matmul on the
+   pre-gathered rows (not the same function: it shows what the GEMM alone
+   costs). Each time is printed beside its bound (FLOPs over the peak,
+   bytes over the memory rate, from the real map's hits) and its share of
+   it.
 4. The backward kernels, the same way, on the maps of one scan (batch 1)
    and of the batch-8 training batch: K4 (weight gradient) at every
    (C, E, K) of the training path in f32 and bf16, bitwise equal over two
    runs; K2 as dFeats on a reversed self map and on an inverted k3 s2 map
    (the inverse map card vs CPU exactly), and K2's training forward at
-   s16 C128 E128 (at batch 8 its 128 x 128 tile).
+   s16 C128 E128 (at batch 8 its 128 x 128 tile), f32 bitwise repeatable.
 5. Inference: `init_detector(fcaf3d_scannet())` in bf16 and
    `inference_detector` on three 100 000-point scans, with zero overflow,
    every inference kernel launched, every bf16 K2 launch on the tensor
-   cores, every f32 K2 launch on the narrow or tiled kernel, every K1
-   launch on the gallop kernel and every K3 launch on the vector kernel
-   (launches by variant printed); the warm-up
-   scan's K1 calls, each distinct one exact against plain and the
-   earlier kernel and timed beside them; then one scan in f32 on the card
-   against the plain path on the CPU (voxel keys and backbone kernel maps exactly
+   cores, every f32 K2 launch on the narrow or tiled kernel (launches by
+   variant printed); the warm-up scan's K1 calls, each distinct one exact
+   against plain and timed; then one scan in f32 on the card against the
+   plain path on the CPU (voxel keys and backbone kernel maps exactly
    equal, detections equal within tolerance), and that scan's K2 calls
-   replayed on the card, as the path runs them and on the earlier kernel.
+   replayed on the card and timed.
 6. Training: `create_train_state` / `make_train_step` at `fcaf3d_scannet`
    (from the `params.init_variables` draw, as every phase that holds
    kernels or gradients: `seeded`) in bf16, batch 8 of
@@ -81,16 +78,15 @@ Phases (any failure raises and the script exits non-zero):
    batch 2 with a valid mask: exactly equal; plus S above the valid count,
    N beyond shared memory, N beyond the K5 cluster's registers, lattice tie
    clouds (SA1 and each side of every `fps_plan` boundary), every K5
-   cluster size of the sweep at SA1; K6 also equal to its first kernel at
-   every shape, and on edge clouds (N % 4 != 0, N below one tile, M off
-   the CTA's centres, nsample above N, points at exactly r^2, masked and
-   not, centres without a hit). Times at batch 1; K5's beside its
-   single-CTA kernel (the earlier one), the operations bound and the
-   serial floor (the cluster kernel at the plan's cluster and CTA size
-   with one point a thread, on a cloud with one valid point a CTA: S - 1
-   steps of the protocol alone); K6's beside its first kernel (one warp a
-   centre), summed over a scan's five calls, and each call's host enqueue
-   time beside the first kernel's.
+   cluster size of the sweep at SA1; K6 also on edge clouds (N % 4 != 0,
+   N below one tile, M off the CTA's centres, nsample above N, points at
+   exactly r^2, masked and not, centres without a hit). Times at batch 1
+   beside the plain versions; K5's also beside its single-CTA kernel
+   (`_plan=single_plan(n)`), the operations bound and the serial floor
+   (the cluster kernel at the plan's cluster and CTA size with one point a
+   thread, on a cloud with one valid point a CTA: S - 1 steps of the
+   protocol alone); K6's summed over a scan's five calls, and each call's
+   host enqueue time.
 8. VoteNet-v2 inference: `init_votenet(votenet_sunrgbd())` in f32 and
    `inference_votenet` on three 20 000-point scans, non-empty detections,
    five K5 and five K6 launches per scan, every K5 launch on the cluster
@@ -98,8 +94,7 @@ Phases (any failure raises and the script exits non-zero):
    the card against the CPU (every FPS and SA1-SA4 group exactly equal,
    aggregation groups equal but for members within 1e-4 of r^2, detections
    within tolerance), one scan in "vote" mode, and the scans' wall, FPS and
-   ball-query device time with K5 and K6 against the kernels they replaced,
-   in turns.
+   ball-query device time over two passes.
 9. The other FCAF3D configs: `fcaf3d_scannet_3scales`,
    `fcaf3d_scannet_2scales` (2 cm voxels), `fcaf3d_s3dis` (5 classes) and
    `fcaf3d_sunrgbd` (10 classes, rotated boxes), each as phase 5 runs
@@ -562,9 +557,9 @@ K1_EDGE_RUN = 7  # K1 gallop rows a thread on the edge clouds
 K1_EDGE_LINE = 16  # K1 edge clouds' L: N < L, N = 1 mod L, runs across L
 FPS_TIE_S = 64  # samples of the K5 tie clouds at the plan's boundaries
 BALLQ_OPS = 9  # per K6 point scanned: 3 sub, 3 mul, 2 add, 1 compare
-# (what, kernel ms, SIMT ms, plain ms) of every bf16 K2/K4 path shape where
-# the tensor-core kernel is not faster than its plain version and the SIMT
-# one: printed at the end, for PERF.md
+# (what, kernel ms, {yardstick: ms}) of every timed shape where a kernel is
+# not faster than its plain version (or, for K1's positions, than
+# torch.searchsorted): printed at the end, for PERF.md
 NOT_FASTER = []
 # the other FCAF3D configs of phase 9: bf16 inference scans of each after
 # a warm-up scan, and SUN RGB-D's timed batch-8 train steps
@@ -847,7 +842,7 @@ def timing_record(times, work, peak):
     rec = {"ms": times["kernel"][0], "bound_ms": bound_ms, "bound_by": by,
            "share": bound_ms / times["kernel"][0],
            "library_ms": times["library"][0] if "library" in times else None}
-    for name in ("plain", "simt", "gemm_only", "earlier"):
+    for name in ("plain", "gemm_only", "single"):
         if name in times:
             rec[f"{name}_ms"] = times[name][0]
     if "floor" in times:
@@ -859,7 +854,7 @@ def timing_record(times, work, peak):
 def report(rec):
     """One log fragment of a timing record."""
     out = f"kernel {rec['ms']:.4f} ms"
-    for name in ("earlier", "simt", "plain", "library", "gemm_only"):
+    for name in ("single", "plain", "library", "gemm_only"):
         if rec.get(f"{name}_ms") is not None:
             out += f", {name} {rec[f'{name}_ms']:.4f}"
     if "gemm_only_ms" in rec:
@@ -873,36 +868,34 @@ def report(rec):
     return out
 
 
-def tc_yardsticks(what, rec):
-    """Record `what` in NOT_FASTER when a tensor-core kernel's time is not
-    below its plain version's and the SIMT kernel's."""
-    if rec["ms"] >= min(rec["plain_ms"], rec["simt_ms"]):
-        NOT_FASTER.append((what, rec["ms"], rec["simt_ms"], rec["plain_ms"]))
+def not_faster(what, rec, *names):
+    """Record `what` in NOT_FASTER when the kernel's time in `rec` is not
+    below that of each yardstick of `names` ("plain", "library") that was
+    timed."""
+    others = {name: rec[f"{name}_ms"] for name in names
+              if rec.get(f"{name}_ms") is not None}
+    if others and rec["ms"] >= min(others.values()):
+        NOT_FASTER.append((what, rec["ms"], others))
         log(f"   NOT FASTER: {what}")
 
 
 def k1_case(torch, name, kk, qq, miss, shapes=None, time_plain=True):
-    """K1 (the gallop kernel) exactly equal to its plain version and to the
-    earlier binary-search kernel on keys `kk` [B, N] and queries `qq`, timed in
-    turns with the earlier kernel, the plain version unless `time_plain` is
-    false and, for positions, `torch.searchsorted(out_int32=True)`
-    (checked equal too). Returns the timing record (with the plan); adds it
-    to `shapes` under `name`."""
+    """K1 (the gallop kernel) exactly equal to its plain version on keys
+    `kk` [B, N] and queries `qq`, timed in turns with the plain version
+    unless `time_plain` is false and, for positions,
+    `torch.searchsorted(out_int32=True)` (checked equal too). Returns the
+    timing record (with the plan); adds it to `shapes` under `name`."""
     from fcaf3d_tpu_torch.ops.sparse import search
 
     got = search.searchsorted_segments(kk, qq, with_miss=miss, layout="ms")
     want = search.searchsorted_segments_plain(kk, qq, with_miss=miss)
-    old = search.searchsorted_segments(kk, qq, with_miss=miss, layout="ms",
-                                       _variant="binary")
     torch.cuda.synchronize()
     err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
-    if not (torch.equal(got, want) and torch.equal(old, want)):
+    if not torch.equal(got, want):
         raise AssertionError(f"K1 {name}: kernel != plain (max abs diff "
-                             f"{err}) or the earlier kernel != plain")
+                             f"{err})")
     fns = {"kernel": lambda: search.searchsorted_segments(
-               kk, qq, with_miss=miss, layout="ms"),
-           "earlier": lambda: search.searchsorted_segments(
-               kk, qq, with_miss=miss, layout="ms", _variant="binary")}
+               kk, qq, with_miss=miss, layout="ms")}
     if time_plain:
         fns["plain"] = lambda: search.searchsorted_segments_plain(
             kk, qq, with_miss=miss)
@@ -926,16 +919,13 @@ def k1_case(torch, name, kk, qq, miss, shapes=None, time_plain=True):
     r["shape"] = [list(kk.shape), list(qq.shape), miss]
     spread = ", ".join(f"{k} {v[1]:.4f}/{v[2]:.4f}" for k, v in times.items())
     log(f"   K1 {name} {tuple(qq.shape)} in N={kk.shape[1]}"
-        f"{', with_miss' if miss else ''}: exact (and the earlier kernel); "
+        f"{', with_miss' if miss else ''}: exact; "
         f"{r['plan']} rows a thread; {report(r)}; readings {spread}")
-    if r["ms"] >= min(r["earlier_ms"], r.get("library_ms") or np.inf):
-        NOT_FASTER.append((f"K1 {name}", r["ms"], r["earlier_ms"],
-                           r.get("library_ms")))
-        log(f"   NOT FASTER: K1 {name}")
+    not_faster(f"K1 {name}", r, "plain", "library")
     if shapes is not None:
         shapes[name] = {k: r.get(k) for k in (
-            "shape", "plan", "ms", "earlier_ms", "plain_ms", "library_ms",
-            "bound_ms", "share")}
+            "shape", "plan", "ms", "plain_ms", "library_ms", "bound_ms",
+            "share")}
     return r
 
 
@@ -976,8 +966,9 @@ def k1_edge_queries(keys, rng, m=512):
 
 def k1_phase(torch, cfg, maps):
     """K1 at the s8 self-map lookup (with_miss and positions) and the voxel
-    compaction (`k1_case`); both variants on the edge clouds (random-order
-    and all-SENTINEL queries), exactly equal to plain. Returns the s8
+    compaction (`k1_case`); the gallop kernel at the plan's and at
+    K1_EDGE_RUN rows a thread on the edge clouds (random-order and
+    all-SENTINEL queries), exactly equal to plain. Returns the s8
     positions record."""
     from fcaf3d_tpu_torch.ops.sparse import (
         SENTINEL, decode_coords, encode_coords, kernel_offsets)
@@ -1006,24 +997,21 @@ def k1_phase(torch, cfg, maps):
         for qq in (k1_edge_queries(keys, rng),
                    np.full((2, 64, 1), SENTINEL, np.int64)):
             qq = torch.as_tensor(qq, device=dev)
-            for variant, plan in (("gallop", None), ("gallop", K1_EDGE_RUN),
-                                  ("binary", None)):
+            for plan in (None, K1_EDGE_RUN):
                 for miss in (False, True):
                     got = search.searchsorted_segments(
-                        kk, qq, with_miss=miss, layout="ms",
-                        _variant=variant, _plan=plan)
+                        kk, qq, with_miss=miss, layout="ms", _plan=plan)
                     want = search.searchsorted_segments_plain(kk, qq, miss)
                     torch.cuda.synchronize()
                     if not torch.equal(got, want):
                         raise AssertionError(
-                            f"K1 {variant} ({plan} rows a thread) edge "
-                            f"{name}, L={K1_EDGE_LINE}, with_miss={miss}: "
-                            "!= plain")
+                            f"K1 ({plan} rows a thread) edge {name}, "
+                            f"L={K1_EDGE_LINE}, with_miss={miss}: != plain")
                     n_edge += 1
     log(f"   K1 edge clouds (N = 1, N < L, N = 1 mod L, runs across every "
         f"L-th key, a compaction cumsum; random-order and all-SENTINEL "
         f"queries) at L = {K1_EDGE_LINE}, gallop at the plan's and at "
-        f"{K1_EDGE_RUN} rows a thread, binary: {n_edge} cases exact")
+        f"{K1_EDGE_RUN} rows a thread: {n_edge} cases exact")
     return rec
 
 
@@ -1071,7 +1059,7 @@ def kernel_phase(torch, cfg, maps, maps8):
                         f"K2 C={c} E={e} K={k} {dname} {vname}: max abs "
                         f"diff {diff} > {tol}")
                 if dname == "float32":
-                    k2_equal_simt(torch, got, feats, idx, w, kw,
+                    k2_repeatable(torch, got, feats, idx, w, kw,
                                   f"C={c} E={e} K={k} {vname}")
                 k2_err[dname] = max(k2_err[dname], diff)
             kw = dict(variants)[PATH_VARIANT[(c, e, k)]]
@@ -1079,18 +1067,12 @@ def kernel_phase(torch, cfg, maps, maps8):
             log(f"   K2 C={c} E={e} K={k} {dname} idx {tuple(idx.shape)} "
                 f"N={n}: {len(variants)} variants ok (max abs diff so far "
                 f"{k2_err[dname]:.3g}); {r['variant']}: {report(r)}")
-            if dname == "bfloat16":
-                tc_yardsticks(f"K2 C={c} E={e} K={k} "
-                              f"{PATH_VARIANT[(c, e, k)]}", r)
+            not_faster(f"K2 {dname} C={c} E={e} K={k} "
+                       f"{PATH_VARIANT[(c, e, k)]}", r, "plain")
             if dname == "float32":
                 f32_shapes[f"C{c} E{e} K{k}"] = {key: r[key] for key in (
-                    "variant", "tile", "ms", "earlier_ms", "plain_ms",
-                    "gemm_only_ms", "bound_ms", "bound_by", "share")}
-                if not r["ms"] < min(r["earlier_ms"], r["plain_ms"]):
-                    NOT_FASTER.append((f"K2 f32 C={c} E={e} K={k}", r["ms"],
-                                       r["earlier_ms"], r["plain_ms"]))
-                    log(f"   NOT FASTER than the earlier kernel and plain: K2 "
-                        f"f32 C={c} E={e} K={k}")
+                    "variant", "tile", "ms", "plain_ms", "gemm_only_ms",
+                    "bound_ms", "bound_by", "share")}
             if (c, e, k, dname) == (64, 64, 27, "bfloat16"):
                 rec["gather_gemm"] = r
     rec["gather_gemm"]["max_abs_err"] = k2_err["bfloat16"]
@@ -1104,21 +1086,20 @@ def kernel_phase(torch, cfg, maps, maps8):
 
 def k3_phase(torch, maps, maps8, gen):
     """K3 (the vector kernel) exactly equal (`torch.equal`) to its plain
-    version and to the first kernel (`_variant="scalar"`) on the stem pool
-    map at batch 1 and batch 8, in f32 and bf16, timed in turns beside both;
-    then on edge cases: C off the 16-byte vector, all-miss rows and ties.
+    version on the stem pool map at batch 1 and batch 8, in f32 and bf16,
+    timed in turns beside it; then on edge cases: C off the 16-byte vector,
+    all-miss rows and ties.
     Returns the batch-1 bf16 record with every shape's times."""
     from fcaf3d_tpu_torch.ops.sparse import gather_kernel as gk
 
     def exact(feats, idx, what):
         got = gk.fused_gather_max(feats, idx)
         want = gk.fused_gather_max_plain(feats, idx)
-        old = gk.fused_gather_max(feats, idx, _variant="scalar")
         torch.cuda.synchronize()
         err = float((got.float() - want.float()).abs().max())
-        if not (torch.equal(got, want) and torch.equal(old, want)):
+        if not torch.equal(got, want):
             raise AssertionError(f"K3 {what}: kernel != plain (max abs diff "
-                                 f"{err}) or the first kernel != plain")
+                                 f"{err})")
         return err
 
     k3_err, shapes, rec = 0.0, {}, None
@@ -1130,16 +1111,11 @@ def k3_phase(torch, maps, maps8, gen):
                                 device=idx.device).to(dt)
             k3_err = max(k3_err, exact(feats, idx, f"B={batch} {dname}"))
             r = k3_timing(torch, feats, idx)
-            log(f"   K3 {dname} idx {tuple(idx.shape)} N={n} C=64: exact (and "
-                f"the first kernel); {r['variant']}: {report(r)}")
+            log(f"   K3 {dname} idx {tuple(idx.shape)} N={n} C=64: exact; "
+                f"{r['variant']}: {report(r)}")
             shapes[f"B{batch} {dname}"] = {key: r[key] for key in (
-                "variant", "ms", "earlier_ms", "plain_ms", "bound_ms",
-                "bound_by", "share")}
-            if r["ms"] >= r["earlier_ms"]:
-                NOT_FASTER.append((f"K3 B={batch} {dname}", r["ms"],
-                                   r["earlier_ms"], r["plain_ms"]))
-                log(f"   NOT FASTER than the first kernel: K3 B={batch} "
-                    f"{dname}")
+                "variant", "ms", "plain_ms", "bound_ms", "bound_by", "share")}
+            not_faster(f"K3 B={batch} {dname}", r, "plain")
             if (batch, dname) == (1, "bfloat16"):
                 rec = r
     # edge cases on the batch-1 map: C off the 16-byte vector (every narrower
@@ -1159,24 +1135,21 @@ def k3_phase(torch, maps, maps8, gen):
                 k3_err = max(k3_err, exact(ties, miss, f"{dname} C={c} K="
                                            f"{kidx.shape[2]} edge"))
                 cases += 1
-    log(f"   K3 edge cases exact (and the first kernel): {cases} (C off the "
-        "16-byte vector, every 7th row all miss, values in -2..2, K 8 and 27)")
+    log(f"   K3 edge cases exact: {cases} (C off the 16-byte vector, every "
+        "7th row all miss, values in -2..2, K 8 and 27)")
     rec["max_abs_err"] = k3_err
     rec["shapes"] = shapes
     return rec
 
 
 def k3_timing(torch, feats, idx):
-    """K3 timed in turns with its plain version and the first kernel, with
-    its bound (bytes: feats, the map and out; operations: one max per
+    """K3 timed in turns with its plain version, with its bound (bytes: feats, the map and out; operations: one max per
     gathered element, on the CUDA cores) and its variant."""
     from fcaf3d_tpu_torch.ops.sparse import gather_kernel as gk
 
     times = timed_turns(torch, {
         "plain": lambda: gk.fused_gather_max_plain(feats, idx),
-        "kernel": lambda: gk.fused_gather_max(feats, idx),
-        "earlier": lambda: gk.fused_gather_max(feats, idx,
-                                               _variant="scalar")})
+        "kernel": lambda: gk.fused_gather_max(feats, idx)})
     b, m, k = idx.shape
     n, c = feats.shape[1:]
     elt = feats.element_size()
@@ -1186,19 +1159,19 @@ def k3_timing(torch, feats, idx):
     return r
 
 
-def k2_equal_simt(torch, got, feats, idx, w, kw, what):
-    """`got` (K2 as the path runs it) equal to the earlier kernel on the same
-    inputs: the f32 kernels keep its arithmetic."""
+def k2_repeatable(torch, got, feats, idx, w, kw, what):
+    """`got` (K2 as the path runs it) bitwise equal to a second run on the
+    same inputs: the f32 kernels sum in an order fixed by the shapes."""
     from fcaf3d_tpu_torch.ops.sparse import gather_kernel as gk
 
-    old = gk.fused_gather_gemm(feats, idx, w, **kw, _variant="simt")
+    again = gk.fused_gather_gemm(feats, idx, w, **kw)
     torch.cuda.synchronize()
-    if not torch.equal(got, old):
-        diff = float((got.float() - old.float()).abs().max())
+    if not torch.equal(got, again):
+        diff = float((got.float() - again.float()).abs().max())
         k, c, e = w.shape
         raise AssertionError(f"K2 {feats.dtype} {what}: "
-                             f"{gk.k2_variant(c, e, k, feats.dtype)} != the "
-                             f"earlier kernel (max abs diff {diff})")
+                             f"{gk.k2_variant(c, e, k, feats.dtype)} differs "
+                             f"over two runs (max abs diff {diff})")
 
 
 def k2_off_granule(torch, maps, gen):
@@ -1206,8 +1179,7 @@ def k2_off_granule(torch, maps, gen):
     not take it (E or C off the 8-channel granule), on the narrow and tiled
     kernels, and the same shapes in f32 (C and E off 16 and 64, partial
     channel groups, C and E off the 4-channel granule of 16-byte copies):
-    equal to the earlier kernel, within K2_RTOL of plain, three epilogues
-    each."""
+    bitwise repeatable, within K2_RTOL of plain, three epilogues each."""
     from fcaf3d_tpu_torch.ops.sparse import gather_kernel as gk
 
     # (18, 30): f32 off 16-byte copies, staged 4 bytes at a time
@@ -1240,17 +1212,15 @@ def k2_off_granule(torch, maps, gen):
                                                     1.0):
                     raise AssertionError(f"K2 {dname} C={c} E={e} {variant}:"
                                          f" max abs diff {diff}")
-                k2_equal_simt(torch, got, feats, idx, w, kw, f"C={c} E={e}")
+                k2_repeatable(torch, got, feats, idx, w, kw, f"C={c} E={e}")
             log(f"   K2 {dname} off the path C={c} E={e} K={k} idx "
-                f"{tuple(idx.shape)}: {variant}, 3 epilogues equal to the "
-                "earlier kernel and within tolerance of plain")
+                f"{tuple(idx.shape)}: {variant}, 3 epilogues bitwise "
+                "repeatable and within tolerance of plain")
 
 
 def k2_timing(torch, feats, idx, w, kw, dname):
-    """K2 timed in turns with its plain version, one matmul on the
-    pre-gathered rows and the earlier kernel ("earlier" in f32, the f32
-    variants' predecessor; "simt" in bf16, the tensor cores'); with its
-    bound."""
+    """K2 timed in turns with its plain version and one matmul on the
+    pre-gathered rows; with its bound."""
     from fcaf3d_tpu_torch.ops.sparse import gather_kernel as gk
 
     b, n, c = feats.shape
@@ -1262,15 +1232,12 @@ def k2_timing(torch, feats, idx, w, kw, dname):
     g = gk.gather_rows(feats, idx).reshape(b, m, k * c)
     w2 = w.reshape(k * c, e)
     fns["gemm_only"] = lambda: torch.matmul(g, w2)
-    fns["simt" if dname == "bfloat16" else "earlier"] = (
-        lambda: gk.fused_gather_gemm(feats, idx, w, **kw, _variant="simt"))
     times = timed_turns(torch, fns)
     work = gemm_work(idx, n, c, e, feats.element_size(),
                      epilogue="scale" in kw, add=kw.get("add") is not None)
     rec = timing_record(times, work, PEAK_OPS[dname])
     rec["variant"] = variant
-    if variant != "simt":
-        rec["tile"] = list(gk.k2_tiles(variant, b, m, e, k))
+    rec["tile"] = list(gk.k2_tiles(variant, b, m, e, k))
     return rec
 
 
@@ -1542,24 +1509,19 @@ def hold_calls_to_plain(torch, calls, what):
 
 def k2_scan_times(torch, calls, what):
     """Device ms of a run's recorded K2 calls replayed on their own inputs,
-    as the path runs them and on the earlier kernel, in turns."""
+    as the path runs them."""
     from fcaf3d_tpu_torch.ops.sparse import gather_kernel as gk
 
-    def replay(variant):
-        def run():
-            with torch.inference_mode():  # as the scan ran them
-                for args, kw in calls:
-                    gk.fused_gather_gemm(*args, **kw, _variant=variant)
-        return run
+    def replay():
+        with torch.inference_mode():  # as the scan ran them
+            for args, kw in calls:
+                gk.fused_gather_gemm(*args, **kw)
 
-    times = timed_turns(torch, {"kernel": replay(None),
-                                "earlier": replay("simt")}, reps=3)
-    rec = {"calls": len(calls), "ms": times["kernel"][0],
-           "earlier_ms": times["earlier"][0]}
+    times = timed_turns(torch, {"kernel": replay}, reps=3)
+    rec = {"calls": len(calls), "ms": times["kernel"][0]}
     log(f"   K2 device time of {what}, its {len(calls)} calls replayed: "
-        f"{rec['ms']:.4f} ms (the earlier kernel {rec['earlier_ms']:.4f}); "
-        "readings " + ", ".join(f"{k} {v[1]:.4f}/{v[2]:.4f}"
-                                for k, v in times.items()))
+        f"{rec['ms']:.4f} ms; readings "
+        + ", ".join(f"{k} {v[1]:.4f}/{v[2]:.4f}" for k, v in times.items()))
     return rec
 
 
@@ -1618,13 +1580,11 @@ def slice_phase(torch, cfg, scans, device, path="fcaf3d_inference",
 
 def check_variants(what, tc_kernels=(), f32=False, counts=None):
     """The launches since the last reset of the counts (or `counts`, another
-    process's by "kernel/variant/dtype") went through the
-    path's kernels: every bf16 K2 and K4 launch through a tensor-core
-    variant (and each of `tc_kernels` had one), every f32 K2 launch through
-    "simt_narrow" / "simt_tiled" (never the first "simt"), every K1 launch
-    through the gallop kernel, every K3 launch through the vector kernel
-    (never the first "scalar"); with `f32`, at least one f32 K2 and one K1
-    launch. Logs and returns the launches by "kernel/variant/dtype"."""
+    process's by "kernel/variant/dtype") went through the path's kernels:
+    no bf16 K4 launch off the tensor cores (and each of `tc_kernels` had a
+    bf16 launch on them); with `f32`, at least one f32 K2 launch (on the
+    narrow or tiled kernel) and one K1 launch. Logs and returns the launches
+    by "kernel/variant/dtype"."""
     from fcaf3d_tpu_torch import _native
 
     if counts is None:
@@ -1632,11 +1592,7 @@ def check_variants(what, tc_kernels=(), f32=False, counts=None):
                   for key, n in sorted(_native.VARIANT_LAUNCHES.items())}
     log(f"   {what}: K1-K4 launches by variant: {counts}")
     off = {key: n for key, n in counts.items()
-           if key.endswith("/simt/bfloat16")
-           or key == "gather_gemm/simt/float32"
-           or key.startswith("gather_max/scalar/")
-           or (key.startswith("searchsorted/")
-               and key != "searchsorted/gallop/int64")}
+           if key.endswith("/simt/bfloat16")}
     if off:
         raise AssertionError(f"{what}: launches off the path's kernels: "
                              f"{off}")
@@ -1682,11 +1638,10 @@ def recorded_k1_calls(calls):
 
 def k1_path_phase(torch, calls, runs, what):
     """K1 at every distinct call of a path recorded over `runs` runs
-    (`recorded_k1_calls`): exactly equal to plain and to the earlier kernel,
-    timed beside the earlier kernel and `torch.searchsorted` (`k1_case`).
-    Returns the
-    records by call, each with its launches a run, and the device ms a run
-    of K1 and of the earlier kernel summed over the calls."""
+    (`recorded_k1_calls`): exactly equal to plain, timed beside
+    `torch.searchsorted` (`k1_case`). Returns the records by call, each with
+    its launches a run, and the device ms a run of K1 summed over the
+    calls."""
     shapes = {}
     for (site, kshape, qshape, miss), (n, kk, qq) in sorted(
             calls.items(), key=lambda kv: -kv[1][2].numel()):
@@ -1695,15 +1650,13 @@ def k1_path_phase(torch, calls, runs, what):
         k1_case(torch, name, kk, qq, miss, shapes, time_plain=False)
         shapes[name]["launches"] = n / runs
     total = {k: sum(r[k] * r["launches"] for r in shapes.values())
-             for k in ("ms", "earlier_ms", "bound_ms")}
+             for k in ("ms", "bound_ms")}
     log(f"   K1 over the {len(shapes)} distinct calls of {what}: "
         f"{sum(r['launches'] for r in shapes.values()):g} launches a run, "
-        f"{total['ms']:.4f} ms of device time a run (the earlier kernel "
-        f"{total['earlier_ms']:.4f}), bound {total['bound_ms']:.4f} ms "
-        f"(the calls' bounds summed), share "
+        f"{total['ms']:.4f} ms of device time a run, bound "
+        f"{total['bound_ms']:.4f} ms (the calls' bounds summed), share "
         f"{total['bound_ms'] / total['ms']:.3f}")
     return {"calls": shapes, "ms_per_run": total["ms"],
-            "earlier_ms_per_run": total["earlier_ms"],
             "bound_ms_per_run": total["bound_ms"]}
 
 
@@ -1745,8 +1698,8 @@ def backward_kernel_phase(torch, cfg, maps_by_batch):
 def k4_case(torch, idx_n, c, e, dname, what):
     """K4 against its plain version on one map: within K4_RTOL of the
     largest |dW|, bitwise equal over two runs; timed in turns with its
-    plain version and, in bf16, with the SIMT kernel and one matmul on the
-    pre-gathered rows. Returns (timing record, max abs diff)."""
+    plain version and, in bf16, one matmul on the pre-gathered rows.
+    Returns (timing record, max abs diff)."""
     from fcaf3d_tpu_torch.ops.sparse import gather_kernel as gk
 
     idx, n = idx_n
@@ -1771,8 +1724,6 @@ def k4_case(torch, idx_n, c, e, dname, what):
     if dname == "bfloat16":
         g = gk.gather_rows(feats, idx).reshape(b * m, k * c)
         d2 = dout.reshape(b * m, e)
-        fns["simt"] = lambda: gk.fused_gather_dw(feats, idx, dout,
-                                                 _variant="simt")
         fns["gemm_only"] = lambda: torch.matmul(g.t(), d2)
     times = timed_turns(torch, fns)
     r = timing_record(times, gemm_work(idx, n, c, e, feats.element_size(),
@@ -1782,7 +1733,7 @@ def k4_case(torch, idx_n, c, e, dname, what):
         f"repeatable (max abs diff {diff:.3g}, tol {tol:.3g}); "
         f"{r['variant']}: {report(r)}")
     if dname == "bfloat16":
-        tc_yardsticks(f"K4 {what} B={b}", r)
+        not_faster(f"K4 {what} B={b}", r, "plain")
     return r, diff
 
 
@@ -1822,13 +1773,13 @@ def k2_train_case(torch, idx_n, c, e, how):
             raise AssertionError(f"K2 {how} {dname} B={b}: max abs diff "
                                  f"{diff} > {tol}")
         if dname == "float32":
-            k2_equal_simt(torch, got, x, src, w, {}, f"{how} B={b}")
+            k2_repeatable(torch, got, x, src, w, {}, f"{how} B={b}")
         r = k2_timing(torch, x, src, w, {}, dname)
         log(f"   K2 {how} {dname} map {tuple(src.shape)} C={cin} -> "
             f"E={cout}: ok (max abs diff {diff:.3g}); {r['variant']} "
             f"{r.get('tile', '')}: {report(r)}")
         if dname == "bfloat16":
-            tc_yardsticks(f"K2 {how} C={cin} E={cout} B={b}", r)
+            not_faster(f"K2 {how} C={cin} E={cout} B={b}", r, "plain")
 
 
 def train_batch(cfg, batch, seed0):
@@ -3238,12 +3189,12 @@ def pointnet_kernel_phase(torch, cfg, device):
     side of every boundary of `fps_plan`) and at every cluster size of the
     sweep at SA1; K6 with centres that find no point. Times (batch 1) of
     each kernel and its plain version; K5 also beside its single-CTA kernel
-    (the earlier one), its operations bound and its serial floor."""
+    (`single_plan`), its operations bound and its serial floor."""
     from fcaf3d_tpu_torch.ops.pointnet.ball_query import (
         ball_query, ball_query_plain, ball_query_plan)
     from fcaf3d_tpu_torch.ops.pointnet.fps import (
         CLUSTER_SIZE, MAX_CTA_POINTS, fps_plan, furthest_point_sample,
-        furthest_point_sample_plain)
+        furthest_point_sample_plain, single_plan)
 
     gen = torch.Generator(device=device).manual_seed(0)
     fps_cases, ballq_cases = pointnet_cases(torch, cfg, device)
@@ -3285,7 +3236,8 @@ def pointnet_kernel_phase(torch, cfg, device):
         times = timed_turns(torch, {
             "plain": lambda: furthest_point_sample_plain(x, s),
             "kernel": lambda: furthest_point_sample(x, s),
-            "earlier": lambda: furthest_point_sample(x, s, _variant="single"),
+            "single": lambda: furthest_point_sample(x, s,
+                                                    _plan=single_plan(n)),
             "floor": empty_step(torch, plan, s, device)})
         # the S x N distance updates; xyz read once, the indices written
         r = timing_record(times, (s * n * FPS_OPS, n * 12 + s * 4),
@@ -3294,7 +3246,7 @@ def pointnet_kernel_phase(torch, cfg, device):
         log(f"   K5 {what} {n} -> {s}: exact at B=1 and B=2 (masked); plan "
             f"{tuple(plan)}; {report(r)}")
         shapes[what] = {k: r[k] for k in (
-            "ms", "earlier_ms", "plain_ms", "bound_ms", "serial_floor_ms",
+            "ms", "single_ms", "plain_ms", "bound_ms", "serial_floor_ms",
             "plan")}
         if "ms" not in rec["fps"]:
             rec["fps"].update(r)
@@ -3317,43 +3269,30 @@ def pointnet_kernel_phase(torch, cfg, device):
             want = ball_query_plain(c, x, r, ns, v)
             check("ball_query", f"{what} B={b}", ball_query(c, x, r, ns, v),
                   want)
-            check("ball_query", f"{what} B={b} first kernel",
-                  ball_query(c, x, r, ns, v, _variant="warp"), want)
         c, x = cent[:1].contiguous(), pts[:1].contiguous()
         times = timed_turns(torch, {
             "plain": lambda: ball_query_plain(c, x, r, ns),
-            "kernel": lambda: ball_query(c, x, r, ns),
-            "earlier": lambda: ball_query(c, x, r, ns, _variant="warp")})
+            "kernel": lambda: ball_query(c, x, r, ns)})
         # each centre scans its points in index order up to its ns-th hit
         # (or all N); centres and points read once, the indices written
         rt = timing_record(times, (ballq_scanned(torch, c, x, r, ns)
                                    * BALLQ_OPS, (m + n) * 12 + m * ns * 4),
                            PEAK_OPS["float32"])
         rt["plan"] = list(ball_query_plan(1, m, n))
-        host = host_turns(torch, {
-            "kernel": lambda: ball_query(c, x, r, ns),
-            "earlier": lambda: ball_query(c, x, r, ns, _variant="warp")})
-        rt["enqueue_us"], rt["earlier_enqueue_us"] = (
-            host["kernel"][0], host["earlier"][0])
+        host = host_turns(torch, {"kernel": lambda: ball_query(c, x, r, ns)})
+        rt["enqueue_us"] = host["kernel"][0]
         log(f"   K6 {what} M={m} N={n} r={r} ns={ns}: exact at B=1 and B=2 "
-            f"(masked), and the first kernel; plan {tuple(rt['plan'])}; "
-            f"{report(rt)}; host enqueue {rt['enqueue_us']:.1f} us a call "
-            f"(the first kernel {rt['earlier_enqueue_us']:.1f})")
+            f"(masked); plan {tuple(rt['plan'])}; {report(rt)}; host "
+            f"enqueue {rt['enqueue_us']:.1f} us a call")
         shapes[what] = {k: rt[k] for k in (
-            "ms", "earlier_ms", "plain_ms", "bound_ms", "share", "plan",
-            "enqueue_us", "earlier_enqueue_us")}
-        if rt["ms"] >= rt["earlier_ms"]:
-            NOT_FASTER.append((f"K6 {what}", rt["ms"], rt["earlier_ms"],
-                               rt["plain_ms"]))
-            log(f"   NOT FASTER than the first kernel: K6 {what}")
+            "ms", "plain_ms", "bound_ms", "share", "plan", "enqueue_us")}
+        not_faster(f"K6 {what}", rt, "plain")
         if "ms" not in rec["ball_query"]:
             rec["ball_query"].update(rt)
-    scan = {k: sum(r[k] for r in shapes.values())
-            for k in ("ms", "earlier_ms")}
-    log(f"   K6 over a scan's {len(shapes)} calls: {scan['ms']:.4f} ms of "
-        f"device time (the first kernel {scan['earlier_ms']:.4f})")
-    rec["ball_query"].update(shapes=shapes, scan_ms=scan["ms"],
-                             earlier_scan_ms=scan["earlier_ms"])
+    scan_ms = sum(r["ms"] for r in shapes.values())
+    log(f"   K6 over a scan's {len(shapes)} calls: {scan_ms:.4f} ms of "
+        "device time")
+    rec["ball_query"].update(shapes=shapes, scan_ms=scan_ms)
     for what, c, x, r, ns, v in extra_ballq + ballq_edges(torch, gen,
                                                           device):
         want = ball_query_plain(c, x, r, ns, v)
@@ -3581,55 +3520,45 @@ def compare_votenet_f32(torch, model, cfg, scan_xyz, device):
         raise AssertionError("VoteNet f32: card and CPU disagree")
 
 
-def votenet_turns(torch, model, scans):
+def votenet_times(torch, model, scans):
     """Per-scan wall ms of `inference_votenet` and device ms of its FPS and
-    of its ball-query calls, with K5 and K6 as planned ("new") and with the
-    kernels they replaced wrapped in ("earlier": K5's single-CTA kernel,
-    K6's first kernel, one warp a centre), in turns: new, earlier, earlier,
-    new. Each scan runs twice: bare for the wall time, then with CUDA events
-    around each call behind a sleep kernel (TURN_SLEEP_CYCLES), so that an
-    event times the kernel and not the host's enqueue of it. Returns
-    variant -> (wall ms, FPS ms, ball-query ms) lists."""
+    of its ball-query calls, over two passes over the scans. Each scan
+    runs twice: bare for the wall time, then with CUDA events around each
+    call behind a sleep kernel (TURN_SLEEP_CYCLES), so that an event times
+    the kernel and not the host's enqueue of it. Returns the (wall ms, FPS
+    ms, ball-query ms) lists."""
     from fcaf3d_tpu_torch.apis import inference_votenet
 
     spans = {"fps": [], "ball_query": []}
-    earlier = {"fps": "single", "seed_fps": "single", "ball_query": "warp"}
 
-    def wrap_with(old, timed):
-        def wrap(kind, fn):
-            key = "ball_query" if kind == "ball_query" else "fps"
+    def timed(kind, fn):
+        key = "ball_query" if kind == "ball_query" else "fps"
 
-            def call(*args):
-                variant = earlier[kind] if old else None
-                if not timed:
-                    return fn(*args, _variant=variant)
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                torch.cuda._sleep(TURN_SLEEP_CYCLES)
-                start.record()
-                out = fn(*args, _variant=variant)
-                end.record()
-                spans[key].append((start, end))
-                return out
-            return call
-        return wrap
+        def call(*args):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(TURN_SLEEP_CYCLES)
+            start.record()
+            out = fn(*args)
+            end.record()
+            spans[key].append((start, end))
+            return out
+        return call
 
-    res = {"new": ([], [], []), "earlier": ([], [], [])}
-    for variant in ("new", "earlier", "earlier", "new"):
+    res = ([], [], [])
+    for _ in range(2):
         for pts in scans:
-            with wrapped_selections(wrap_with(variant == "earlier", False)):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                inference_votenet(model, pts)
-                res[variant][0].append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            inference_votenet(model, pts)
+            res[0].append((time.perf_counter() - t0) * 1e3)
             for kept in spans.values():
                 kept.clear()
-            with wrapped_selections(wrap_with(variant == "earlier", True)):
+            with wrapped_selections(timed):
                 inference_votenet(model, pts)
             torch.cuda.synchronize()
             for i, key in ((1, "fps"), (2, "ball_query")):
-                res[variant][i].append(sum(a.elapsed_time(b)
-                                           for a, b in spans[key]))
+                res[i].append(sum(a.elapsed_time(b) for a, b in spans[key]))
     return res
 
 
@@ -3640,9 +3569,8 @@ def votenet_phase(torch, cfg, device):
     cluster of more than one CTA) and every K6 launch on the tiled kernel.
     Then the f32 card-vs-CPU comparison, one scan in "vote" mode (launches
     by variant and finiteness), and the scans' wall, FPS and ball-query
-    device time with K5 and K6 against the kernels they replaced, in turns.
-    Returns launches per kernel and by variant over the timed scans, and the
-    turns' medians."""
+    device time (`votenet_times`). Returns launches per kernel and by
+    variant over the timed scans, and the medians of those times."""
     from fcaf3d_tpu_torch import _native
     from fcaf3d_tpu_torch.apis import inference_votenet, init_votenet
     from fcaf3d_tpu_torch.ops.pointnet.fps import fps_plan
@@ -3684,15 +3612,12 @@ def votenet_phase(torch, cfg, device):
     check_vote_launches(vote_launches, vote_variants, 5, 1,
                         "VoteNet vote mode")
     log(f"   \"vote\" mode, scan 1: {n} detections, launches {vote_launches}")
-    turns = votenet_turns(torch, model, scans)
-    for variant, (wall, fps, ballq) in turns.items():
-        log(f"   K5 / K6 {variant}: scan wall ms "
-            + " ".join(f"{t:.1f}" for t in wall) + "; FPS device ms "
-            + " ".join(f"{t:.3f}" for t in fps) + "; ball-query device ms "
-            + " ".join(f"{t:.4f}" for t in ballq))
-    medians = {variant: {k: float(np.median(v)) for k, v in zip(
+    wall, fps, ballq = lists = votenet_times(torch, model, scans)
+    log("   K5 / K6: scan wall ms " + " ".join(f"{t:.1f}" for t in wall)
+        + "; FPS device ms " + " ".join(f"{t:.3f}" for t in fps)
+        + "; ball-query device ms " + " ".join(f"{t:.4f}" for t in ballq))
+    medians = {k: float(np.median(v)) for k, v in zip(
         ("wall_ms", "fps_ms", "ball_query_ms"), lists)}
-        for variant, lists in turns.items()}
     return launches, variants, medians
 
 
@@ -3716,8 +3641,8 @@ def stem_rows(torch, cfg, points, gen):
     """K2 at the stem (C3 E64 K27, as the path runs it: the plain sum) and
     K3 at the s2 pool, bf16, on the stride-1 and stride-2 maps of one of
     the config's scans: within K2_RTOL of / exactly equal to plain, timed
-    in turns (`k2_timing`; K3 beside its plain version and the first
-    kernel), with bound and share. Returns {"gather_gemm": record,
+    in turns (`k2_timing`; K3 beside its plain version), with bound and
+    share. Returns {"gather_gemm": record,
     "gather_max": record}."""
     from fcaf3d_tpu_torch.ops.sparse import gather_kernel as gk
 
@@ -3858,7 +3783,7 @@ def shape_rows(torch, calls, k2_shapes, k4_shapes, rows, what):
             f"{' with epilogue' if kw else ''}: {r['variant']} "
             f"{r.get('tile', '')}: {report(r)}")
         if dname == "bfloat16":
-            tc_yardsticks(f"K2 {name}", r)
+            not_faster(f"K2 {name}", r, "plain")
     for args, _ in calls.get("fused_gather_dw", ()):
         feats, idx, dout = args
         key = (idx.shape[1], idx.shape[2], feats.shape[2], dout.shape[2])
@@ -7716,12 +7641,10 @@ def main():
     rec.update(pointnet_kernel_phase(torch, vcfg, "cuda"))
     log(f"== 8 inference: votenet_sunrgbd, f32, batch 1, {vcfg.num_points} "
         "points per scan")
-    vote_launches, vote_variants, turns = votenet_phase(torch, vcfg, "cuda")
-    rec["fps"]["scan_turns"] = {v: {k: t[k] for k in ("wall_ms", "fps_ms")}
-                                for v, t in turns.items()}
-    rec["ball_query"]["scan_turns"] = {
-        v: {k: t[k] for k in ("wall_ms", "ball_query_ms")}
-        for v, t in turns.items()}
+    vote_launches, vote_variants, vote_ms = votenet_phase(torch, vcfg, "cuda")
+    rec["fps"]["scan"] = {k: vote_ms[k] for k in ("wall_ms", "fps_ms")}
+    rec["ball_query"]["scan"] = {k: vote_ms[k]
+                                 for k in ("wall_ms", "ball_query_ms")}
     log("== 9 the other FCAF3D configs: " + ", ".join(OTHER_CONFIGS)
         + f"; bf16 inference, {OTHER_SCANS} scans each; SUN RGB-D f32 card "
         f"vs CPU and bf16 training at batch {TRAIN_BATCH}")
@@ -7794,9 +7717,9 @@ def main():
             torch, cfg, tmp, "cuda")
     rec["gather_gemm"]["evaluation_tools"] = et_rec
     log(f"== all phases passed in {time.perf_counter() - t_start:.1f} s")
-    for what, ms, first, second in NOT_FASTER:
+    for what, ms, others in NOT_FASTER:
         log(f"   not faster than a yardstick: {what}: kernel {ms:.4f} ms, "
-            f"yardsticks {first} and {second} ms")
+            + ", ".join(f"{k} {v:.4f} ms" for k, v in others.items()))
     by_path = {"fcaf3d_inference": infer_launches,
                "fcaf3d_training": train_launches,
                "votenet_inference": vote_launches, **other_launches,

@@ -10,15 +10,15 @@ cold build takes seconds rather than the minutes of
 `torch.utils.cpp_extension.load`.
 
 Each C entry point launches on the stream it is given and returns the
-`cudaError_t` of the launch; the wrappers in `ops/` raise on a
-non-zero value. `LAUNCHES` counts the launches of each kernel (the wrappers
-add one per launch), so a run can show which kernels its path went through;
-`VARIANT_LAUNCHES` counts the launches of every kernel by (kernel,
-variant, dtype), so a run can show that its searches ran on the gallop
-kernel, its bf16 convs on the tensor cores, its f32 convs on the narrow and
-tiled SIMT kernels, its max-pool on the vector kernel, its farthest-point
-sampling on the cluster kernel, its ball queries on the tiled kernel, its
-train-mode norms on K7's five kernels and its optimizer steps on K8's two.
+`cudaError_t` of the launch; the wrappers in `ops/` raise on a non-zero
+value. Each operation has one kernel for each class of shapes, which its
+wrapper picks from the shapes alone. `LAUNCHES` counts the launches of each
+kernel (the wrappers add one per launch), so a run can show which kernels
+its path went through; `VARIANT_LAUNCHES` counts them by (kernel, variant,
+dtype), so a run can show which shape classes it met: its bf16 convs on the
+tensor cores, its f32 convs on the narrow and tiled SIMT kernels, its
+max-pool's vector widths, its farthest-point sampling on the cluster or the
+single-CTA kernel, and so on.
 """
 from __future__ import annotations
 
@@ -144,14 +144,9 @@ def build():
 
 def _bind(lib):
     p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    lib.fcaf3d_searchsorted.argtypes = [p, p, p, i64, i64, i64, i, p]
-    lib.fcaf3d_searchsorted.restype = i
     lib.fcaf3d_searchsorted_gallop.argtypes = [
         p, p, p, i64, i64, i64, i64, i64, i, p]
     lib.fcaf3d_searchsorted_gallop.restype = i
-    lib.fcaf3d_gather_gemm.argtypes = [
-        p, p, p, p, p, p, p, p, i64, i64, i64, i64, i64, i64, i64, i64, i, i, p]
-    lib.fcaf3d_gather_gemm.restype = i
     lib.fcaf3d_gather_gemm_simt.argtypes = [
         p, p, p, p, p, p, p, p, p, i64, i64, i64, i64, i64, i64, i64, i64, i,
         i, i, i, i, i, p]
@@ -160,9 +155,6 @@ def _bind(lib):
         p, p, p, p, p, p, p, p, p, i64, i64, i64, i64, i64, i64, i, i, i, i,
         i, i64, i64, p]
     lib.fcaf3d_gather_gemm_tc.restype = i
-    lib.fcaf3d_gather_max.argtypes = [
-        p, p, p, i64, i64, i64, i64, i64, i, ctypes.c_float, p]
-    lib.fcaf3d_gather_max.restype = i
     lib.fcaf3d_gather_max_vec.argtypes = [
         p, p, p, i64, i64, i64, i64, i64, i, i, i, ctypes.c_float, p]
     lib.fcaf3d_gather_max_vec.restype = i
@@ -179,9 +171,6 @@ def _bind(lib):
     lib.fcaf3d_fps_cluster_occupancy.argtypes = [
         i, i, i, ctypes.POINTER(ctypes.c_int)]
     lib.fcaf3d_fps_cluster_occupancy.restype = i
-    lib.fcaf3d_ball_query.argtypes = [
-        p, p, p, p, i64, i64, i64, i64, ctypes.c_float, p]
-    lib.fcaf3d_ball_query.restype = i
     lib.fcaf3d_ball_query_tiled.argtypes = [
         p, p, p, p, i64, i64, i64, i64, ctypes.c_float, p]
     lib.fcaf3d_ball_query_tiled.restype = i

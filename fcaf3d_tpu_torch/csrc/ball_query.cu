@@ -22,13 +22,11 @@
 // 64 samples) few points lie within 0.2 m, so nearly every centre scans the
 // whole cloud: ~41 M distance tests of ~10 instructions a lane, some 15-20
 // us of the 132 SMs' issue time. Read from L2 by every centre on its own,
-// the 240 KB cloud moves ~490 MB, one dependent load a step: that traffic
-// and its latency were the cost of the first kernel (`ball_query_warp`,
-// one warp a centre, kept as the `_variant="warp"` yardstick). With the
-// cloud in shared memory the cost is latency: SA1 puts ~16 centres on an
-// SM, so few warps hide each other's stalls; hence one centre a warp (2 and
-// 4 were slower at SA1: PERF.md), and straight-line tests with no state
-// carried between steps.
+// the 240 KB cloud moves ~490 MB, one dependent load a step: staging the
+// cloud in shared memory removes that traffic and its latency. What is left
+// is latency: SA1 puts ~16 centres on an SM, so few warps hide each other's
+// stalls; hence one centre a warp (2 and 4 were slower at SA1: PERF.md),
+// and straight-line tests with no state carried between steps.
 //
 // Design (`ball_query_tiled`): a CTA of kWarps warps owns kWarps centres,
 // one a warp, its xyz and hit counter in registers (the CTAs are
@@ -75,48 +73,6 @@ __device__ __forceinline__ float sq_dist(float x, float y, float z, float cx,
   return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
                    __fmul_rn(dz, dz));
 }
-
-// ---- the first kernel: one warp a centre, points read from global memory --
-
-constexpr int kWarpKernelWarps = 8;
-
-__global__ void __launch_bounds__(kWarpKernelWarps * 32)
-    ball_query_warp_kernel(const float* __restrict__ centers,
-                           const float* __restrict__ points,
-                           const uint8_t* __restrict__ valid,
-                           int32_t* __restrict__ out, int64_t rows, int m,
-                           int n, int nsample, float r2) {
-  const int lane = threadIdx.x & 31;
-  const int64_t row =
-      (int64_t)blockIdx.x * kWarpKernelWarps + (threadIdx.x >> 5);
-  if (row >= rows) return;  // the whole warp leaves together
-  const int64_t b = row / m;
-  const float cx = __ldg(centers + 3 * row);
-  const float cy = __ldg(centers + 3 * row + 1);
-  const float cz = __ldg(centers + 3 * row + 2);
-  const float* p = points + b * n * 3;
-  const uint8_t* v = valid == nullptr ? nullptr : valid + b * n;
-  int32_t* o = out + row * nsample;
-  const unsigned lower = (1u << lane) - 1u;
-
-  int count = 0;  // hits so far, the same in every lane
-  int first = 0;  // the first hit; 0 while there is none
-  for (int base = 0; base < n && count < nsample; base += 32) {
-    const int i = base + lane;
-    bool hit = false;
-    if (i < n && (v == nullptr || v[i]))
-      hit = sq_dist(__ldg(p + 3 * i), __ldg(p + 3 * i + 1),
-                    __ldg(p + 3 * i + 2), cx, cy, cz) < r2;
-    const unsigned ballot = __ballot_sync(kFull, hit);
-    if (count == 0 && ballot != 0u) first = base + __ffs(ballot) - 1;
-    const int slot = count + __popc(ballot & lower);
-    if (hit && slot < nsample) o[slot] = i;
-    count += __popc(ballot);
-  }
-  for (int k = min(count, nsample) + lane; k < nsample; k += 32) o[k] = first;
-}
-
-// ---- the tiled kernel: a CTA's centres share each staged tile ------------
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
@@ -365,24 +321,8 @@ bool bad_shape(int64_t m, int64_t n, int64_t nsample) {
 }  // namespace
 
 // centers [B, M, 3], points [B, N, 3] f32 contiguous; valid [B, N] bytes or
-// null; out [B, M, nsample] int32; r2 the squared radius in f32. The first
-// kernel, one warp a centre. Returns the cudaError_t of the launch.
-extern "C" int fcaf3d_ball_query(const float* centers, const float* points,
-                                 const uint8_t* valid, int32_t* out,
-                                 int64_t batch, int64_t m, int64_t n,
-                                 int64_t nsample, float r2, void* stream) {
-  const int64_t rows = batch * m;
-  if (rows == 0 || nsample == 0) return 0;
-  if (bad_shape(m, n, nsample)) return (int)cudaErrorInvalidValue;
-  const int64_t blocks = (rows + kWarpKernelWarps - 1) / kWarpKernelWarps;
-  ball_query_warp_kernel<<<(unsigned)blocks, kWarpKernelWarps * 32, 0,
-                           (cudaStream_t)stream>>>(
-      centers, points, valid, out, rows, (int)m, (int)n, (int)nsample, r2);
-  return (int)cudaGetLastError();
-}
-
-// The same arguments and result, on the tiled kernel: one centre a warp,
-// kWarps warps a CTA.
+// null; out [B, M, nsample] int32; r2 the squared radius in f32. One centre
+// a warp, kWarps warps a CTA. Returns the cudaError_t of the launch.
 extern "C" int fcaf3d_ball_query_tiled(const float* centers,
                                        const float* points,
                                        const uint8_t* valid, int32_t* out,

@@ -63,11 +63,11 @@
 // into another CTA, and a last one, which keeps every CTA alive until no
 // other can still store into its shared memory, are the only two.
 //
-// "single" (fps_kernel, the earlier kernel): one CTA of 1024 threads per
-// cloud, the running minima in shared memory (a global scratch row beyond
-// 48K points), the points re-read from global memory each step, two block
-// barriers a step. The plan takes it only for clouds beyond the cluster
-// kernel's register capacity; it stays reachable as the earlier kernel.
+// "single" (fps_kernel): one CTA of 1024 threads per cloud, the running
+// minima in shared memory (a global scratch row beyond 48K points), the
+// points re-read from global memory each step, two block barriers a step.
+// The plan takes it only for clouds beyond the cluster kernel's register
+// capacity.
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>

@@ -14,8 +14,9 @@
 // What bounds it on the H100: 2 * B * M * K * C * E multiply-adds over the
 // rows that hit (~50 GFLOP for the s8 64x64 convs at batch 8) against one
 // read of the gathered feats rows and the dout rows per (offset, channel
-// tile): compute bound. This first version runs float FMAs on the CUDA cores
-// (67 TFLOP/s peak), so it is bound by issue rate, at a fraction of that.
+// tile): compute bound. This kernel runs float FMAs on the CUDA cores (67
+// TFLOP/s peak), so it is bound by issue rate, at a fraction of that; bf16
+// on the tensor cores' granule takes `gather_dw_tc.cu`.
 //
 // Design, kept simple on purpose. Blocks run in no order, so nothing is
 // carried between them: one block per (64 output channels E, 64 input
@@ -32,6 +33,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "elementwise.cuh"
 #include "sum_slices.cuh"
 
 namespace {
@@ -40,11 +42,6 @@ constexpr int kTileR = 32;   // rows per tile (one warp ballot)
 constexpr int kTileC = 64;   // input channels per block
 constexpr int kTileE = 64;   // output channels per block
 constexpr int kThreads = 256;  // 16 x 16 threads, 4 x 4 outputs each
-
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads) gather_dw_kernel(

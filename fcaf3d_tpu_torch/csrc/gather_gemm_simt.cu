@@ -9,8 +9,7 @@
 //
 // Replaces the TPU kernel fcaf3d_tpu/ops/sparse/gather_kernel.py::_fused_pallas
 // (entry fused_gather_gemm), which DMAs a window of input rows per output tile
-// and selects rows with one-hot matmuls on the MXU. The first SIMT
-// kernel (`gather_gemm.cu`) computes the same; it stays as the yardstick.
+// and selects rows with one-hot matmuls on the MXU.
 //
 // What bounds it on the H100: 2 * hits * C * E float FMAs on the CUDA cores
 // (67 TFLOP/s) against one read of feats, the map and W and one write of
@@ -18,10 +17,11 @@
 // (the prune-score conv C1 E8, the f32 stem C3 E64) by the latency of the
 // gathered rows, a few bytes each.
 //
-// Rounding. Every output keeps `gather_gemm.cu`'s arithmetic, so the
-// kernels agree exactly: `part` is an fmaf chain over the offsets in index
-// order and the channels in order within an offset, starting from zero at
-// each of the plain version's three offset chunks; `total` adds the chunks
+// Rounding, the same in both variants and at every tile, so a shape's
+// result does not depend on its launch: `part` is an fmaf chain over the
+// offsets in index order and the channels in order within an offset,
+// starting from zero at each of the plain version's three offset chunks
+// (closed at k == chunk1 and chunk2, hit or not); `total` adds the chunks
 // in order with __fadd_rn, and the epilogue rounds its multiply and adds
 // separately. A miss row or a zero-padded channel is skipped or multiplies
 // zeros, which leaves the value of `part` unchanged.
@@ -48,7 +48,7 @@
 //   not fill the SMs (the stride-64 convs at batch 1), the offsets are
 //   split into the plain version's three chunks, each in blocks of its own
 //   writing float32 partials, and a second kernel adds the chunks in order
-//   (((0 + p0) + p1) + p2, `gather_gemm.cu`'s order) and runs the epilogue.
+//   (((0 + p0) + p1) + p2, the order of `total`) and runs the epilogue.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -56,6 +56,7 @@
 
 #include <type_traits>
 
+#include "elementwise.cuh"
 #include "tensor_core.cuh"
 
 namespace {
@@ -68,23 +69,6 @@ constexpr int kTN = 4;       // output channels a thread (tiled)
 constexpr int kBN = 64;      // output channels a block (tiled)
 constexpr int kMaxSplit = 3;  // offset chunks of the split tiled variant
 
-enum Act { kNone = 0, kRelu = 1, kElu = 2 };
-
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T>
-__device__ __forceinline__ T from_float(float v);
-template <>
-__device__ __forceinline__ float from_float<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
 struct Epilogue {
   const float* scale;  // null: no epilogue
   const float* shift;
@@ -93,8 +77,8 @@ struct Epilogue {
   int act;
 };
 
-// The epilogue of output y at flat row `row` (= b * M + m), channel e, as in
-// `gather_gemm.cu`: separately rounded multiply and adds.
+// The epilogue of output y at flat row `row` (= b * M + m), channel e:
+// separately rounded multiply and adds.
 template <typename T>
 __device__ __forceinline__ float epilogue(float y, int e, int64_t row,
                                           const Epilogue& ep,
@@ -105,12 +89,7 @@ __device__ __forceinline__ float epilogue(float y, int e, int64_t row,
   if (ep.add != nullptr)
     y = __fadd_rn(y, to_float(static_cast<const T*>(
                          ep.add)[row * out_channels + e]));
-  if (ep.act == kRelu) {
-    y = fmaxf(y, 0.f);
-  } else if (ep.act == kElu) {
-    y = y > 0.f ? y : __fsub_rn(expf(fminf(y, 0.f)), 1.f);
-  }
-  return __fmul_rn(y, vm);
+  return __fmul_rn(epilogue_act(y, ep.act), vm);
 }
 
 // ---------------------------------------------------------------- narrow
@@ -346,8 +325,8 @@ __global__ void __launch_bounds__(Tiled<BM>::kThreads)
     if (t + kStages - 1 < iters) load(t + kStages - 1);
     tc::cp_async_commit();
     if (t % n_slices == 0) {
-      // close the offset chunks passed since the last offset with a hit:
-      // gather_gemm.cu closes at k == chunk1 and chunk2, hit or not
+      // close the offset chunks passed since the last offset with a hit
+      // (the rounding above: closed at chunk1 and chunk2, hit or not)
       const int k = offs[t / n_slices];
       if ((prev < chunk1 && chunk1 <= k) || (prev < chunk2 && chunk2 <= k)) {
 #pragma unroll

@@ -6,7 +6,7 @@
 //
 // in bfloat16 with float32 accumulators. A miss (idx == N) adds zero;
 // without `scale` there is no epilogue at all. The same function as the
-// SIMT kernel of `gather_gemm.cu`, which keeps the float32 variant.
+// SIMT kernels of `gather_gemm_simt.cu`, which keep the float32 variant.
 //
 // Replaces the TPU kernel fcaf3d_tpu/ops/sparse/gather_kernel.py::
 // _fused_pallas (entry fused_gather_gemm), which DMAs a window of input rows
@@ -53,6 +53,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "elementwise.cuh"
 #include "tensor_core.cuh"
 
 namespace {
@@ -64,8 +65,6 @@ constexpr int kDepth = 32;   // input channels per stage (two k16 steps)
 constexpr int kMaxFold = 512;  // largest K * C padded depth of the folded variant
 constexpr int kInFlight = 4;  // (row, offset) pairs a thread gathers at once
 constexpr int kMaxSplit = 3;  // offset chunks of the split generic variant
-
-enum Act { kNone = 0, kRelu = 1, kElu = 2 };
 
 struct Epilogue {
   const float* scale;  // null: no epilogue
@@ -84,12 +83,7 @@ __device__ __forceinline__ float epilogue(float y, int e, int64_t row,
   y = __fadd_rn(__fmul_rn(y, ep.scale[e]), ep.shift[e]);
   if (ep.add != nullptr)
     y = __fadd_rn(y, __bfloat162float(ep.add[row * out_channels + e]));
-  if (ep.act == kRelu) {
-    y = fmaxf(y, 0.f);
-  } else if (ep.act == kElu) {
-    y = y > 0.f ? y : __fsub_rn(expf(fminf(y, 0.f)), 1.f);
-  }
-  return __fmul_rn(y, vm);
+  return __fmul_rn(epilogue_act(y, ep.act), vm);
 }
 
 // Epilogue and store of a warp's MT x NT m16n8 accumulator tiles, whose

@@ -20,63 +20,18 @@
 // loads, skipping misses (idx == N), before it reduces them. The max runs
 // in float (fmaxf), which is exact for f32 and bf16 inputs; a row with no
 // hit returns `lowest` (finfo(dtype).min), which the caller masks.
-//
-// The first kernel (`gather_max_scalar`, one thread per channel, its K
-// gathers one after another) stays as the `_variant="scalar"` yardstick.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 #include <string.h>
 
+#include "elementwise.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kChunk = 8;  // offsets whose gathers are in flight together
-
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T>
-__device__ __forceinline__ T from_float(float v);
-template <>
-__device__ __forceinline__ float from_float<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// ---- the first kernel: one thread per (sample, output row, channel) -------
-
-template <typename T>
-__global__ void gather_max_scalar_kernel(const T* __restrict__ feats,
-                                         const int32_t* __restrict__ idx,
-                                         T* __restrict__ out, int64_t n_rows,
-                                         int64_t m_rows, int n_offsets,
-                                         int64_t channels, int64_t total,
-                                         float lowest) {
-  const int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  const int64_t c = i % channels;
-  const int64_t bm = i / channels;
-  const T* f = feats + (bm / m_rows) * n_rows * channels + c;
-  const int32_t* ix = idx + bm * n_offsets;
-  float best = -INFINITY;
-  bool any = false;
-  for (int k = 0; k < n_offsets; ++k) {
-    const int32_t r = ix[k];
-    if (r < n_rows) {
-      best = fmaxf(best, to_float(f[(int64_t)r * channels]));
-      any = true;
-    }
-  }
-  out[i] = from_float<T>(any ? best : lowest);
-}
-
-// ---- the vector kernel: one thread per (sample, output row, VB bytes) ----
 
 template <int VB>
 struct Vec;
@@ -157,20 +112,6 @@ __global__ void __launch_bounds__(kThreads)
   reinterpret_cast<V*>(out)[i] = res;
 }
 
-template <typename T>
-int launch_scalar(const void* feats, const int32_t* idx, void* out,
-                  int64_t batch, int64_t n_rows, int64_t m_rows,
-                  int64_t n_offsets, int64_t channels, float lowest,
-                  cudaStream_t stream) {
-  const int64_t total = batch * m_rows * channels;
-  if (total == 0) return 0;
-  const int64_t blocks = (total + kThreads - 1) / kThreads;
-  gather_max_scalar_kernel<T><<<(unsigned)blocks, kThreads, 0, stream>>>(
-      (const T*)feats, idx, (T*)out, n_rows, m_rows, (int)n_offsets, channels,
-      total, lowest);
-  return (int)cudaGetLastError();
-}
-
 template <typename T, int VB>
 int launch_vec(const void* feats, const int32_t* idx, void* out,
                int64_t batch, int64_t n_rows, int64_t m_rows,
@@ -216,29 +157,11 @@ bool aligned(const void* p, int64_t bytes) {
 }  // namespace
 
 // feats [B, N, C]; idx [B, M, K] int32 in [0, N]; out [B, M, C] in the feats
-// dtype (dtype 0 = float32, 1 = bfloat16). The first kernel. Returns the
-// cudaError_t of the launch, or cudaErrorInvalidValue for an unknown dtype.
-extern "C" int fcaf3d_gather_max(const void* feats, const int32_t* idx,
-                                 void* out, int64_t batch, int64_t n_rows,
-                                 int64_t m_rows, int64_t n_offsets,
-                                 int64_t channels, int dtype, float lowest,
-                                 void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0)
-    return launch_scalar<float>(feats, idx, out, batch, n_rows, m_rows,
-                                n_offsets, channels, lowest, s);
-  if (dtype == 1)
-    return launch_scalar<__nv_bfloat16>(feats, idx, out, batch, n_rows,
-                                        m_rows, n_offsets, channels, lowest,
-                                        s);
-  return (int)cudaErrorInvalidValue;
-}
-
-// The same arguments and result on the vector kernel: `vector_bytes` (16,
-// 8, 4, or 2 in bf16) of channels a thread, which must divide a row of C
-// channels and align feats and out; `map_vector` 4 reads the map by int4
-// (K % 4 == 0 and idx 16-byte aligned), 1 entry by entry. Returns
-// cudaErrorInvalidValue for arguments the kernel does not take.
+// dtype (dtype 0 = float32, 1 = bfloat16). `vector_bytes` (16, 8, 4, or 2
+// in bf16) of channels a thread, which must divide a row of C channels and
+// align feats and out; `map_vector` 4 reads the map by int4 (K % 4 == 0 and
+// idx 16-byte aligned), 1 entry by entry. Returns the cudaError_t of the
+// launch, or cudaErrorInvalidValue for arguments the kernel does not take.
 extern "C" int fcaf3d_gather_max_vec(const void* feats, const int32_t* idx,
                                      void* out, int64_t batch, int64_t n_rows,
                                      int64_t m_rows, int64_t n_offsets,

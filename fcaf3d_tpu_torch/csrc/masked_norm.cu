@@ -52,6 +52,8 @@
 #include <initializer_list>
 #include <type_traits>
 
+#include "elementwise.cuh"
+
 namespace {
 
 constexpr int64_t kSentinel = 0xFFFFFFFFll;  // keys: int64 holding uint32
@@ -59,24 +61,9 @@ constexpr int64_t kSentinel = 0xFFFFFFFFll;  // keys: int64 holding uint32
 constexpr int kMaxThreads = 512;
 // rows a thread loads before it uses any: forward, backward (three inputs)
 constexpr int kUnroll = 4, kUnrollBwd = 2;
-constexpr int kNone = 0, kRelu = 1, kElu = 2;
 // the statistics: running (eval BN), batch (train BN), per sample (IN)
 constexpr int kRunning = 0, kBatch = 1, kInstance = 2;
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T>
-__device__ __forceinline__ T from_float(float v);
-template <>
-__device__ __forceinline__ float from_float<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 // v rounded to T: the plain path's cast to the activations' dtype
 template <typename T>
 __device__ __forceinline__ float round_to(float v) {

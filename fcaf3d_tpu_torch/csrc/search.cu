@@ -15,19 +15,17 @@
 // Keys are int64 carrying uint32 values with the padding value 0xFFFFFFFF,
 // so the padding sorts last and never equals a real query. Queries come as
 // [B, M, S]: S segments (a kernel map's offsets), each ascending in m but
-// for its padding; both kernels are exact for any order. Two kernels:
+// for its padding; the kernel is exact for any order.
 //
-// - gallop (the path's): one thread walks one segment over a run of
-//   consecutive rows, starting from its previous answer: it doubles its
-//   step from there until it passes the query (forward, or backward for a
-//   smaller query), then binary-searches the bracket. A kernel map's next
-//   row is a key or two on, so a query costs two or three dependent loads
-//   of one cache line, instead of ~16. Consecutive threads take consecutive
-//   segments of one run, so the warp's query loads are contiguous. At one
-//   row a thread it skips the run arithmetic and is a plain binary search.
-// - binary (the first port's, the yardstick): one thread per query runs a
-//   lower-bound binary search over the keys in global memory, ~16
-//   dependent loads.
+// Design (`searchsorted_gallop`): one thread walks one segment over a run
+// of consecutive rows, starting from its previous answer: it doubles its
+// step from there until it passes the query (forward, or backward for a
+// smaller query), then binary-searches the bracket. A kernel map's next row
+// is a key or two on, so a query costs two or three dependent loads of one
+// cache line, instead of the ~16 of a binary search over all keys.
+// Consecutive threads take consecutive segments of one run, so the warp's
+// query loads are contiguous. At one row a thread it skips the run
+// arithmetic and is a plain binary search.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -57,32 +55,6 @@ __device__ __forceinline__ int lower_bound(const int64_t* kb, int lo, int hi,
     }
   }
   return lo;
-}
-
-__global__ void searchsorted_kernel(const int64_t* __restrict__ keys,
-                                    const int64_t* __restrict__ queries,
-                                    int32_t* __restrict__ out,
-                                    int64_t n_keys, int64_t n_queries,
-                                    int64_t total, int with_miss) {
-  const int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  const int64_t* k = keys + (i / n_queries) * n_keys;
-  const int64_t q = queries[i];
-  int64_t lo = 0, hi = n_keys;
-  while (lo < hi) {
-    const int64_t mid = (lo + hi) >> 1;
-    if (k[mid] < q) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
-  }
-  if (with_miss) {
-    const bool hit = lo < n_keys && k[lo] == q && q != kSentinel;
-    out[i] = (int32_t)(hit ? lo : n_keys);
-  } else {
-    out[i] = (int32_t)lo;
-  }
 }
 
 // lane = ((b * runs) + run) * S + s: rows [run * per_run, ...) of segment s.
@@ -141,25 +113,11 @@ __global__ void __launch_bounds__(kThreads)
 
 }  // namespace
 
-// keys [B, N] ascending per sample; queries [B, Q]; out [B, Q] int32 in
-// [0, N]. With with_miss, a query that is absent or is the padding value
-// returns N. Returns the cudaError_t of the launch. The binary-search
-// kernel.
-extern "C" int fcaf3d_searchsorted(const int64_t* keys, const int64_t* queries,
-                                   int32_t* out, int64_t batch, int64_t n_keys,
-                                   int64_t n_queries, int with_miss,
-                                   void* stream) {
-  const int64_t total = batch * n_queries;
-  if (total == 0) return 0;
-  const int64_t blocks = (total + kThreads - 1) / kThreads;
-  searchsorted_kernel<<<(unsigned)blocks, kThreads, 0,
-                        (cudaStream_t)stream>>>(keys, queries, out, n_keys,
-                                                n_queries, total, with_miss);
-  return (int)cudaGetLastError();
-}
-
-// The same function by the gallop kernel, for queries [B, M, S]: `per_run`
-// consecutive rows of one segment a thread, kThreads threads a CTA.
+// keys [B, N] ascending per sample; queries [B, M, S]; out [B, M, S] int32
+// in [0, N]. With with_miss, a query that is absent or is the padding value
+// returns N. `per_run` consecutive rows of one segment a thread, kThreads
+// threads a CTA. Returns the cudaError_t of the launch, or
+// cudaErrorInvalidValue for shapes beyond the kernel's int32 indexing.
 extern "C" int fcaf3d_searchsorted_gallop(const int64_t* keys,
                                           const int64_t* queries, int32_t* out,
                                           int64_t batch, int64_t n_keys,

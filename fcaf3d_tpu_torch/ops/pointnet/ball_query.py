@@ -15,12 +15,10 @@ rounded one operation at a time: the two forms can disagree on a point
 within an ulp of r^2.
 
 On a CUDA tensor the query is kernel K6 (`csrc/ball_query.cu`); on a CPU
-tensor it is the plain PyTorch version, `ball_query_plain`. K6 runs the
+tensor it is the plain PyTorch version, `ball_query_plain`. K6 is the
 tiled kernel: a CTA of BQ_WARPS warps owns BQ_WARPS centres, one a warp
 (the CTAs are `ball_query_plan`), and stages the cloud in shared memory
-once for all of them, BQ_TILE_POINTS points a tile. The first kernel, one
-warp a centre reading the cloud from global memory, runs only through
-`_variant="warp"`.
+once for all of them, BQ_TILE_POINTS points a tile.
 """
 from __future__ import annotations
 
@@ -36,7 +34,6 @@ from ... import _native
 # csrc/ball_query.cu)
 BQ_WARPS = 4
 BQ_TILE_POINTS = 2048
-BQ_VARIANTS = ("tiled", "warp")
 
 
 class BallQueryPlan(NamedTuple):
@@ -86,7 +83,7 @@ def ball_query_plain(centers: torch.Tensor, points: torch.Tensor,
     return torch.where(first >= n, 0, idx).int()
 
 
-def _ball_query_cuda(centers, points, radius, nsample, valid, variant=None):
+def _ball_query_cuda(centers, points, radius, nsample, valid):
     lib = _native.load()
     dev = points.device
     if dev.type != "cuda" or centers.device != dev or (
@@ -109,37 +106,28 @@ def _ball_query_cuda(centers, points, radius, nsample, valid, variant=None):
             valid is not None and not valid.is_contiguous()):
         raise ValueError("K6 takes contiguous centres, points and valid mask")
     m = centers.shape[1]
-    variant = variant or "tiled"
-    if variant not in BQ_VARIANTS:
-        raise ValueError(f"K6 variant must be one of {BQ_VARIANTS}, got "
-                         f"{variant!r}")
     out = points.new_empty((b, m, nsample), dtype=torch.int32)
-    args = (centers.data_ptr(), points.data_ptr(),
-            None if valid is None else valid.data_ptr(), out.data_ptr(), b, m,
-            n, nsample, squared_radius(radius))
-    entry = lib.fcaf3d_ball_query if variant == "warp" \
-        else lib.fcaf3d_ball_query_tiled
-    err = entry(*args, _native.stream_ptr(dev))
-    _native.count_launch("ball_query", variant, points.dtype)
-    _native.check(err, f"ball_query ({variant})")
+    err = lib.fcaf3d_ball_query_tiled(
+        centers.data_ptr(), points.data_ptr(),
+        None if valid is None else valid.data_ptr(), out.data_ptr(), b, m, n,
+        nsample, squared_radius(radius), _native.stream_ptr(dev))
+    _native.count_launch("ball_query", "tiled", points.dtype)
+    _native.check(err, "ball_query (tiled)")
     return out
 
 
 def ball_query(centers: torch.Tensor, points: torch.Tensor, radius: float,
-               nsample: int, valid: Optional[torch.Tensor] = None, *,
-               _variant: Optional[str] = None) -> torch.Tensor:
+               nsample: int, valid: Optional[torch.Tensor] = None
+               ) -> torch.Tensor:
     """Fixed-radius neighbours.
 
     Args:
         centers: [B, M, 3] f32; points: [B, N, 3] f32.
         valid: optional [B, N] bool; invalid points are never returned.
-        _variant: "warp" forces the first kernel on the card (a yardstick;
-            the path never asks for it).
 
     Returns:
         [B, M, nsample] int32.
     """
     if points.device.type == "cpu":
         return ball_query_plain(centers, points, radius, nsample, valid)
-    return _ball_query_cuda(centers, points, radius, nsample, valid,
-                            _variant)
+    return _ball_query_cuda(centers, points, radius, nsample, valid)

@@ -21,9 +21,9 @@ the cloud's size alone:
   step (each CTA waits on its own mbarrier for the candidates' st.async
   bytes). Clouds of up to SMALL_POINTS points take one CTA (cs = 1, __syncthreads);
   larger ones CLUSTER_SIZE.
-- "shared" / "global", the earlier single-CTA kernel, whose running minima
-  live in shared memory or in a global scratch row: only clouds beyond the
-  cluster's register capacity (`cs * MAX_CTA_POINTS`).
+- "shared" / "global", the single-CTA kernel, whose running minima live in
+  shared memory or in a global scratch row (`single_plan`): only clouds
+  beyond the cluster's register capacity (`cs * MAX_CTA_POINTS`).
 """
 from __future__ import annotations
 
@@ -183,7 +183,6 @@ def _fps_cuda(points, num_samples, valid, plan):
 
 def furthest_point_sample(points: torch.Tensor, num_samples: int,
                           valid: Optional[torch.Tensor] = None, *,
-                          _variant: Optional[str] = None,
                           _plan: Optional[FpsPlan] = None) -> torch.Tensor:
     """Iterative farthest-point sampling.
 
@@ -191,18 +190,15 @@ def furthest_point_sample(points: torch.Tensor, num_samples: int,
         points: [B, N, 3] f32.
         num_samples: S, the number of indices per cloud.
         valid: optional [B, N] bool; invalid points are never selected.
-        _variant: "single" forces the single-CTA kernel on the card (a
-            yardstick; the path never asks for it).
-        _plan: forces a launch plan on the card (the cluster-size sweep and
-            the serial floor of `chip_smoke.py`).
+        _plan: forces a launch plan on the card (the cluster-size sweep,
+            the serial floor and `single_plan(n)` of `chip_smoke.py`; the
+            path never passes it).
 
     Returns:
         [B, S] int32, starting at the first valid index.
     """
     if points.device.type == "cpu":
         return furthest_point_sample_plain(points, num_samples, valid)
-    b, n = points.shape[:2]
     if _plan is None:
-        _plan = (single_plan(n) if _variant == "single"
-                 else fps_plan(b, n, num_samples))
+        _plan = fps_plan(points.shape[0], points.shape[1], num_samples)
     return _fps_cuda(points, num_samples, valid, _plan)

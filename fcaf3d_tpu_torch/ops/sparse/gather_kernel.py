@@ -8,8 +8,7 @@
 - `fused_gather_max`: out[b, m] = max_k feats[b, idx[b, m, k]] per channel,
   a miss being -inf and an all-miss row finfo.min. Kernel K3
   (`csrc/gather_max.cu`): a thread a vector of channels of one output row,
-  16 bytes where C fills them, else 8, 4 or 2 (`k3_plan`); the first
-  kernel (a thread a channel) only through `_variant="scalar"`.
+  16 bytes where C fills them, else 8, 4 or 2 (`k3_plan`).
 - `fused_gather_dw`: dW[k] = sum_{b,m} feats[b, idx[b, m, k]]^T dout[b, m]
   in f32, a miss adding zero: the weight gradient of `fused_gather_gemm`.
   Kernel K4: bf16 on the tensor cores (`csrc/gather_dw_tc.cu`), f32 on the
@@ -22,11 +21,10 @@ shared-memory ring, ldmatrix, mma.sync m16n8k16 with f32 accumulators) and
 into its M for K4) for both; K2 in f32 (whose gates hold the card to the
 CPU), and in bf16 at shapes the tensor-core kernels do not take, runs float
 FMAs on the CUDA cores: "simt_narrow" (C < 16, a thread an output row) or
-"simt_tiled" (C >= 16, register-tiled, cp.async ring), with the
-arithmetic of the first SIMT kernel "simt" (`csrc/gather_gemm.cu`), so
-equal to it; only `_variant=` reaches that one. K4 off the tensor cores
-is "simt" (`csrc/gather_dw.cu`). Tiles and slices are functions of the shapes only
-(`k2_tiles`, `k4_tiles`, `dw_slices`).
+"simt_tiled" (C >= 16, register-tiled, cp.async ring), both rounding as
+one fmaf chain a summation chunk (`csrc/gather_gemm_simt.cu`). K4 off the
+tensor cores is "simt" (`csrc/gather_dw.cu`). Tiles and slices are
+functions of the shapes only (`k2_tiles`, `k4_tiles`, `dw_slices`).
 
 The K2 and K4 wrappers record their dense-equivalent FLOPs,
 2 * B * M * K * C * E, with `utils.flops.record_flops` on both paths.
@@ -52,7 +50,7 @@ from ...utils.flops import record_flops
 _ACTS = {None: 0, "relu": 1, "elu": 2}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 N_CHUNKS = 3  # offset chunks summed in order (the JAX fallback's n_chunks)
-K2_VARIANTS = ("simt_narrow", "simt_tiled", "tc", "tc_folded", "simt")
+K2_VARIANTS = ("simt_narrow", "simt_tiled", "tc", "tc_folded")
 K4_VARIANTS = ("simt", "tc", "tc_folded")
 _TC_VARIANT_IDS = {"tc": 1, "tc_folded": 2}
 _SIMT_VARIANT_IDS = {"simt_narrow": 1, "simt_tiled": 2}
@@ -219,7 +217,7 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 
 def _fused_gather_gemm_cuda(feats, idx, weight, scale, shift, act, vmask, add,
-                            has_epi, variant=None):
+                            has_epi):
     _check_no_grad("K2", feats, weight, scale, shift, add)
     lib = _native.load()
     dev = feats.device
@@ -251,28 +249,17 @@ def _fused_gather_gemm_cuda(feats, idx, weight, scale, shift, act, vmask, add,
     operands = (feats, idx, weight, scale, shift, vmask, add)
     if not all(t is None or t.is_contiguous() for t in operands):
         raise ValueError("K2 takes contiguous tensors")
-    variant = variant or k2_variant(c, e, k, feats.dtype)
-    if variant not in K2_VARIANTS:
-        raise ValueError(f"K2 variant must be one of {K2_VARIANTS}, got "
-                         f"{variant!r}")
-    if variant == "simt_narrow" and c >= NARROW_MAX_C:
-        raise ValueError(f"K2 simt_narrow takes C < {NARROW_MAX_C}, got {c}")
+    variant = k2_variant(c, e, k, feats.dtype)
     out = feats.new_empty((b, m, e))
     (_, k1), (_, k2), _ = chunk_bounds(k)
+    tile_m, tile_n, n_split = k2_tiles(variant, b, m, e, k)
+    part = (feats.new_empty((n_split, b, m, e), dtype=torch.float32)
+            if n_split > 1 else None)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    if variant == "simt":
-        err = lib.fcaf3d_gather_gemm(
-            feats.data_ptr(), idx.data_ptr(), weight.data_ptr(), ptr(scale),
-            ptr(shift), ptr(add), ptr(vmask), out.data_ptr(), b, n, m, k, c,
-            e, k1, k2, _DTYPES[feats.dtype], _ACTS[act],
-            _native.stream_ptr(dev))
-    elif variant in _SIMT_VARIANT_IDS:
-        tile_m, tile_n, n_split = k2_tiles(variant, b, m, e, k)
-        part = (feats.new_empty((n_split, b, m, e), dtype=torch.float32)
-                if n_split > 1 else None)
+    if variant in _SIMT_VARIANT_IDS:
         err = lib.fcaf3d_gather_gemm_simt(
             feats.data_ptr(), idx.data_ptr(), weight.data_ptr(), ptr(scale),
             ptr(shift), ptr(add), ptr(vmask), out.data_ptr(), ptr(part), b,
@@ -280,9 +267,6 @@ def _fused_gather_gemm_cuda(feats, idx, weight, scale, shift, act, vmask, add,
             _SIMT_VARIANT_IDS[variant], tile_m, tile_n, n_split,
             _native.stream_ptr(dev))
     else:
-        tile_m, tile_n, n_split = k2_tiles(variant, b, m, e, k)
-        part = (feats.new_empty((n_split, b, m, e), dtype=torch.float32)
-                if n_split > 1 else None)
         feats, weight = _aligned(feats), _aligned(weight)
         err = lib.fcaf3d_gather_gemm_tc(
             feats.data_ptr(), idx.data_ptr(), weight.data_ptr(), ptr(scale),
@@ -295,7 +279,7 @@ def _fused_gather_gemm_cuda(feats, idx, weight, scale, shift, act, vmask, add,
 
 
 def fused_gather_gemm(feats, idx, weight, scale=None, shift=None, act=None,
-                      vmask=None, add=None, *, _variant=None):
+                      vmask=None, add=None):
     """out[b, m] = sum_k feats[b, idx[b, m, k]] @ weight[k]; a miss row
     (idx == N) contributes zero.
 
@@ -308,9 +292,7 @@ def fused_gather_gemm(feats, idx, weight, scale=None, shift=None, act=None,
         add: optional [B, M, E] residual added after the affine, before act.
 
     Raises ValueError when act/vmask/add come without scale (the TPU kernel
-    silently dropped them). `_variant` forces a kernel variant on a CUDA
-    tensor (a yardstick of the measurements, "simt" the first SIMT
-    kernel; the path never passes it).
+    silently dropped them).
     """
     has_epi = _check_epilogue(scale, shift, act, vmask, add)
     b, _, c = feats.shape
@@ -320,10 +302,10 @@ def fused_gather_gemm(feats, idx, weight, scale=None, shift=None, act=None,
         return fused_gather_gemm_plain(feats, idx, weight, scale, shift, act,
                                        vmask, add)
     return _fused_gather_gemm_cuda(feats, idx, weight, scale, shift, act,
-                                   vmask, add, has_epi, _variant)
+                                   vmask, add, has_epi)
 
 
-K3_VARIANTS = ("vec16", "vec8", "vec4", "vec2", "scalar")
+K3_VARIANTS = ("vec16", "vec8", "vec4", "vec2")
 
 
 class K3Plan(NamedTuple):
@@ -353,7 +335,7 @@ def fused_gather_max_plain(feats: torch.Tensor, idx: torch.Tensor):
     return g.reshape(b, m, k, c).amax(dim=2)
 
 
-def _fused_gather_max_cuda(feats, idx, variant=None):
+def _fused_gather_max_cuda(feats, idx):
     _check_no_grad("K3", feats)
     lib = _native.load()
     dev = feats.device
@@ -370,42 +352,27 @@ def _fused_gather_max_cuda(feats, idx, variant=None):
     b, n, c = feats.shape
     m, k = idx.shape[1:]
     out = feats.new_empty((b, m, c))
-    lowest = torch.finfo(feats.dtype).min
-    if variant == "scalar":
-        err = lib.fcaf3d_gather_max(
-            feats.data_ptr(), idx.data_ptr(), out.data_ptr(), b, n, m, k, c,
-            _DTYPES[feats.dtype], lowest, _native.stream_ptr(dev))
-    elif variant is None:
-        plan = k3_plan(c, k, feats.dtype)
-        variant = plan.variant
-        feats, idx = _aligned(feats), _aligned(idx)
-        err = lib.fcaf3d_gather_max_vec(
-            feats.data_ptr(), idx.data_ptr(), out.data_ptr(), b, n, m, k, c,
-            _DTYPES[feats.dtype], plan.vector_bytes, plan.map_vector, lowest,
-            _native.stream_ptr(dev))
-    else:
-        raise ValueError(f"K3 variant must be None (the vector kernel) or "
-                         f"'scalar', got {variant!r}")
-    _native.count_launch("gather_max", variant, feats.dtype)
-    _native.check(err, f"gather_max ({variant})")
+    plan = k3_plan(c, k, feats.dtype)
+    feats, idx = _aligned(feats), _aligned(idx)
+    err = lib.fcaf3d_gather_max_vec(
+        feats.data_ptr(), idx.data_ptr(), out.data_ptr(), b, n, m, k, c,
+        _DTYPES[feats.dtype], plan.vector_bytes, plan.map_vector,
+        torch.finfo(feats.dtype).min, _native.stream_ptr(dev))
+    _native.count_launch("gather_max", plan.variant, feats.dtype)
+    _native.check(err, f"gather_max ({plan.variant})")
     return out
 
 
-def fused_gather_max(feats: torch.Tensor, idx: torch.Tensor, *,
-                     _variant: Optional[str] = None) -> torch.Tensor:
+def fused_gather_max(feats: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """out[b, m] = max_k feats[b, idx[b, m, k]] per channel; a miss
     (idx == N) is -inf and an all-miss row returns finfo.min (callers mask).
 
     Args:
         feats: [B, N, C]; idx: [B, M, K] int32 in [0, N].
-
-    `_variant="scalar"` runs the first kernel, a thread a channel, on a
-    CUDA tensor (a yardstick of the measurements; the path never passes
-    it).
     """
     if feats.device.type == "cpu":
         return fused_gather_max_plain(feats, idx)
-    return _fused_gather_max_cuda(feats, idx, _variant)
+    return _fused_gather_max_cuda(feats, idx)
 
 
 def fused_gather_dw_plain(feats: torch.Tensor, idx: torch.Tensor,
@@ -438,7 +405,7 @@ def dw_slices(b: int, m: int, k: int, c: int, e: int, variant: str = "simt"):
     return per, max(1, -(-rows // per))
 
 
-def _fused_gather_dw_cuda(feats, idx, dout, variant=None):
+def _fused_gather_dw_cuda(feats, idx, dout):
     lib = _native.load()
     dev = feats.device
     if dev.type != "cuda" or not _same_device(dev, idx, dout):
@@ -459,10 +426,7 @@ def _fused_gather_dw_cuda(feats, idx, dout, variant=None):
     b, n, c = feats.shape
     m, k = idx.shape[1:]
     e = dout.shape[2]
-    variant = variant or k4_variant(c, e, k, feats.dtype)
-    if variant not in K4_VARIANTS:
-        raise ValueError(f"K4 variant must be one of {K4_VARIANTS}, got "
-                         f"{variant!r}")
+    variant = k4_variant(c, e, k, feats.dtype)
     per, n_slices = dw_slices(b, m, k, c, e, variant)
     out = torch.empty((k, c, e), dtype=torch.float32, device=dev)
     part = (torch.empty((n_slices, k, c, e), dtype=torch.float32, device=dev)
@@ -486,7 +450,7 @@ def _fused_gather_dw_cuda(feats, idx, dout, variant=None):
 
 
 def fused_gather_dw(feats: torch.Tensor, idx: torch.Tensor,
-                    dout: torch.Tensor, *, _variant=None) -> torch.Tensor:
+                    dout: torch.Tensor) -> torch.Tensor:
     """dW[k] = sum_{b,m} feats[b, idx[b, m, k]]^T (outer) dout[b, m]; a miss
     (idx == N) adds zero. The weight gradient of `fused_gather_gemm`.
 
@@ -494,13 +458,10 @@ def fused_gather_dw(feats: torch.Tensor, idx: torch.Tensor,
         feats: [B, N, C]; idx: [B, M, K] int32 in [0, N]; dout: [B, M, E].
     Returns:
         dW [K, C, E] float32.
-
-    `_variant` forces a kernel variant on a CUDA tensor (a yardstick of the
-    measurements; the path never passes it).
     """
     b, _, c = feats.shape
     m, k = idx.shape[1:]
     record_flops(2.0 * b * m * k * c * dout.shape[-1])
     if feats.device.type == "cpu":
         return fused_gather_dw_plain(feats, idx, dout)
-    return _fused_gather_dw_cuda(feats, idx, dout, _variant)
+    return _fused_gather_dw_cuda(feats, idx, dout)

@@ -7,13 +7,10 @@ that is absent, or is the SENTINEL, returns N). Queries come in "sm"
 layout only names the shape.
 
 On a CUDA tensor the search is kernel K1 (`csrc/search.cu`); on a CPU tensor
-it is the plain PyTorch version, `searchsorted_segments_plain`. K1's
-variants: "gallop" (the path's: a thread walks one segment of the queries
-over consecutive rows, each search starting from its previous answer) and
-"binary" (the first kernel, a thread's binary search over the keys in
-global memory), reachable only through `_variant=`, as the yardstick of the
-measurements. `k1_gallop_plan` sets the gallop launch from the shapes
-alone.
+it is the plain PyTorch version, `searchsorted_segments_plain`. K1 is the
+gallop kernel: a thread walks one segment of the queries over consecutive
+rows, each search starting from its previous answer. `k1_gallop_plan` sets
+its rows a thread from the shapes alone.
 """
 from __future__ import annotations
 
@@ -23,7 +20,6 @@ from ... import _native
 from ..._native import SMS
 from .tensor import SENTINEL
 
-K1_VARIANTS = ("gallop", "binary")
 K1_THREADS = 256  # a CTA of the gallop kernel (kThreads there)
 K1_RESIDENT = SMS * 2048  # threads the card holds at once
 
@@ -49,7 +45,7 @@ def searchsorted_segments_plain(keys: torch.Tensor, queries: torch.Tensor,
     return idx.int().reshape(queries.shape)
 
 
-def _searchsorted_cuda(keys, queries, with_miss, variant=None, plan=None):
+def _searchsorted_cuda(keys, queries, with_miss, plan=None):
     lib = _native.load()
     if keys.device.type != "cuda" or queries.device != keys.device:
         raise ValueError("K1 needs keys and queries on one CUDA device, got "
@@ -62,31 +58,24 @@ def _searchsorted_cuda(keys, queries, with_miss, variant=None, plan=None):
                          f"queries {tuple(queries.shape)}")
     if not (keys.is_contiguous() and queries.is_contiguous()):
         raise ValueError("K1 takes contiguous keys and queries")
-    variant = variant or "gallop"
-    if variant not in K1_VARIANTS:
-        raise ValueError(f"K1 variant must be one of {K1_VARIANTS}, got "
-                         f"{variant!r}")
     b, n = keys.shape
     q = queries.numel() // max(b, 1)
     # segments: the last axis of [B, M, S] queries; else one segment
     s = queries.shape[-1] if queries.dim() == 3 else 1
+    m = q // max(s, 1)
     out = queries.new_empty(queries.shape, dtype=torch.int32)
-    args = (keys.data_ptr(), queries.data_ptr(), out.data_ptr(), b, n)
-    stream = _native.stream_ptr(keys.device)
-    if variant == "gallop":
-        per_run = plan or k1_gallop_plan(b, q // max(s, 1), s)
-        err = lib.fcaf3d_searchsorted_gallop(
-            *args, q // max(s, 1), s, per_run, int(with_miss), stream)
-    else:
-        err = lib.fcaf3d_searchsorted(*args, q, int(with_miss), stream)
-    _native.count_launch("searchsorted", variant, keys.dtype)
-    _native.check(err, f"searchsorted ({variant})")
+    err = lib.fcaf3d_searchsorted_gallop(
+        keys.data_ptr(), queries.data_ptr(), out.data_ptr(), b, n, m, s,
+        plan or k1_gallop_plan(b, m, s), int(with_miss),
+        _native.stream_ptr(keys.device))
+    _native.count_launch("searchsorted", "gallop", keys.dtype)
+    _native.check(err, "searchsorted (gallop)")
     return out
 
 
 def searchsorted_segments(keys: torch.Tensor, queries: torch.Tensor,
                           with_miss: bool = False, layout: str = "sm", *,
-                          _variant=None, _plan=None):
+                          _plan=None):
     """Per-sample searchsorted(side='left') of segmented query arrays.
 
     Args:
@@ -97,12 +86,12 @@ def searchsorted_segments(keys: torch.Tensor, queries: torch.Tensor,
     Returns:
         int32 in [0, N], same shape as `queries`.
 
-    `_variant` (one of K1_VARIANTS) and `_plan` (the gallop kernel's rows a
-    thread) force the kernel and its launch on a CUDA tensor (the yardstick
-    and the edge clouds of the measurements; the path never passes them).
+    `_plan` forces the gallop kernel's rows a thread on a CUDA tensor (so
+    that checks reach a run of several rows on small edge clouds; the path
+    never passes it).
     """
     if layout not in ("sm", "ms"):
         raise ValueError(f"layout must be 'sm' or 'ms', got {layout!r}")
     if keys.device.type == "cpu":
         return searchsorted_segments_plain(keys, queries, with_miss)
-    return _searchsorted_cuda(keys, queries, with_miss, _variant, _plan)
+    return _searchsorted_cuda(keys, queries, with_miss, _plan)

@@ -227,7 +227,7 @@ def test_k6_plan_matches_the_kernel_source():
     BQ_TILE_POINTS is kTilePoints, and a CTA's two stages (and mbarriers)
     need more than the default 48 KB of shared memory, which the launch
     grants once per instance and device, and fit an SM with room for
-    several CTAs; `_native` binds both K6 entries. A mismatch would show on
+    several CTAs; `_native` binds the one K6 entry. A mismatch would show on
     the card only as a refused launch or a wrong result."""
     assert WARPS == tbq.BQ_WARPS and TILE == tbq.BQ_TILE_POINTS
     entry = SOURCE[SOURCE.index('extern "C" int fcaf3d_ball_query_tiled('):]
@@ -245,7 +245,7 @@ def test_k6_plan_matches_the_kernel_source():
     assert SOURCE.count("cudaFuncSetAttribute(") == 1
     bound = re.findall(r"lib\.(fcaf3d_ball_query\w*)\.argtypes",
                        Path(_native.__file__).read_text())
-    assert sorted(bound) == ["fcaf3d_ball_query", "fcaf3d_ball_query_tiled"]
+    assert bound == ["fcaf3d_ball_query_tiled"]
 
 
 @pytest.mark.parametrize("b,m,n", [(1, 2048, 20000), (1, 1024, 2048),
@@ -272,9 +272,8 @@ def test_k6_plan_covers_every_centre_once(b, m, n):
                                               (2, 129, 512, True)])
 def test_k6_wrapper_launches_the_plan(monkeypatch, b, m, n, with_valid):
     """On a CUDA tensor the wrapper hands `fcaf3d_ball_query_tiled` the
-    tensors, the shapes and the f32 r^2, counts each launch by variant, and
-    reaches the first kernel, which takes the same arguments, only through
-    `_variant="warp"`."""
+    tensors, the shapes and the f32 r^2, the same on every call, counts each
+    launch as "tiled", and takes no keyword that picks another kernel."""
     lib = _Recorder()
     monkeypatch.setattr(_native, "load", lambda: lib)
     monkeypatch.setattr(_native, "stream_ptr", lambda dev: 0)
@@ -284,21 +283,20 @@ def test_k6_wrapper_launches_the_plan(monkeypatch, b, m, n, with_valid):
     valid = _cuda_looking(torch.ones(b, n, dtype=torch.bool)) \
         if with_valid else None
     r2 = tbq.squared_radius(0.2)
-    outs = [tbq.ball_query(cent, pts, 0.2, 64, valid, **kw)
-            for kw in ({}, {}, {"_variant": "warp"})]
+    outs = [tbq.ball_query(cent, pts, 0.2, 64, valid) for _ in range(2)]
     assert all(o.shape == (b, m, 64) and o.dtype == torch.int32 for o in outs)
-    (n1, a1), (n2, a2), (n3, a3) = lib.calls
-    assert n1 == n2 == "fcaf3d_ball_query_tiled" and n3 == "fcaf3d_ball_query"
+    (n1, a1), (n2, a2) = lib.calls
+    assert n1 == n2 == "fcaf3d_ball_query_tiled"
     assert a1[:2] == (cent.data_ptr(), pts.data_ptr())
     assert a1[2] == (valid.data_ptr() if with_valid else None)
-    assert a1[3] == outs[0].data_ptr()
-    assert a1[4:] == (b, m, n, 64, r2, 0) == a2[4:] == a3[4:]
+    assert (a1[3], a2[3]) == (outs[0].data_ptr(), outs[1].data_ptr())
+    assert a1[4:] == (b, m, n, 64, r2, 0) == a2[4:]
     assert _native.VARIANT_LAUNCHES == {
-        ("ball_query", "tiled", "float32"): 2,
-        ("ball_query", "warp", "float32"): 1}
-    assert _native.LAUNCHES["ball_query"] == 3
-    with pytest.raises(ValueError, match="variant"):
-        tbq.ball_query(cent, pts, 0.2, 64, _variant="grid")
+        ("ball_query", "tiled", "float32"): 2}
+    assert _native.LAUNCHES["ball_query"] == 2
+    with pytest.raises(TypeError, match="_variant"):
+        tbq.ball_query(cent, pts, 0.2, 64, _variant="warp")
+    assert len(lib.calls) == 2
     _native.reset_launches()
 
 

@@ -262,9 +262,9 @@ def test_k3_vector_plan_covers_every_channel_once(dtype):
 def test_k3_wrapper_hands_the_kernel_its_plan(monkeypatch, c, k, dtype):
     """On a CUDA tensor the wrapper hands `fcaf3d_gather_max_vec` the shapes,
     the dtype code, `k3_plan`'s vector bytes and map vector and finfo.min,
-    counts the launch by variant, and reaches the first kernel only through
-    `_variant="scalar"`; the C entry takes exactly the plan's vector widths,
-    and `_native` binds both entries."""
+    counts the launch by variant, and takes no keyword that picks another
+    kernel; the C entry takes exactly the plan's vector widths, and
+    `_native` binds that one K3 entry."""
     lib = _Recorder()
     monkeypatch.setattr(_native, "load", lambda: lib)
     monkeypatch.setattr(_native, "stream_ptr", lambda dev: 0)
@@ -274,29 +274,27 @@ def test_k3_wrapper_hands_the_kernel_its_plan(monkeypatch, c, k, dtype):
     idx = _cuda_looking(torch.full((b, m, k), n, dtype=torch.int32))
     out = tg.fused_gather_max(feats, idx)
     assert out.shape == (b, m, c) and out.dtype == dtype
-    tg.fused_gather_max(feats, idx, _variant="scalar")
-    (name, args), (old_name, old_args) = lib.calls
+    ((name, args),) = lib.calls
     plan = tg.k3_plan(c, k, dtype)
     code, lowest = int(dtype == torch.bfloat16), torch.finfo(dtype).min
-    assert name == "fcaf3d_gather_max_vec" and old_name == "fcaf3d_gather_max"
+    assert name == "fcaf3d_gather_max_vec"
     assert args[3:] == (b, n, m, k, c, code, plan.vector_bytes,
                         plan.map_vector, lowest, 0)
-    assert old_args[3:] == (b, n, m, k, c, code, lowest, 0)
     dname = str(dtype).replace("torch.", "")
-    assert _native.VARIANT_LAUNCHES == {("gather_max", plan.variant, dname): 1,
-                                        ("gather_max", "scalar", dname): 1}
-    with pytest.raises(ValueError, match="variant"):
-        tg.fused_gather_max(feats, idx, _variant="vec16")
+    assert _native.VARIANT_LAUNCHES == {("gather_max", plan.variant, dname): 1}
+    with pytest.raises(TypeError, match="_variant"):
+        tg.fused_gather_max(feats, idx, _variant="scalar")
+    assert len(lib.calls) == 1
     _native.reset_launches()
     src = _gather_max_source()
     entry = src[src.index('extern "C" int fcaf3d_gather_max_vec('):]
     widths = re.search(r"\(vector_bytes != 16 && vector_bytes != 8 && "
                        r"vector_bytes != 4 &&\s*vector_bytes != 2\)", entry)
     assert widths and tuple(f"vec{w}" for w in (16, 8, 4, 2)) \
-        == tg.K3_VARIANTS[:-1]
+        == tg.K3_VARIANTS
     bound = re.findall(r"lib\.(fcaf3d_gather_max\w*)\.argtypes",
                        open(_native.__file__).read())
-    assert sorted(bound) == ["fcaf3d_gather_max", "fcaf3d_gather_max_vec"]
+    assert bound == ["fcaf3d_gather_max_vec"]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -1,12 +1,12 @@
-"""K1's kernels on the CPU: a numpy replay of the gallop kernel (the path's:
-each thread walks one segment over a run of rows, every search after its
-first starting from the previous answer) against the port's plain version
+"""K1 on the CPU: a numpy replay of the gallop kernel (each thread walks
+one segment over a run of rows, every search after its first starting
+from the previous answer) against the port's plain version
 and the JAX package's Pallas kernel in interpret mode, on the edge cases
 `chip_smoke.py` runs on the card; the launch plan against `csrc/search.cu`;
 and the wrapper's launches and refusals.
 
-The CUDA kernels themselves run only on a GPU: `chip_smoke.py` holds them
-against their plain version there.
+The CUDA kernel itself runs only on a GPU: `chip_smoke.py` holds it
+against its plain version there.
 """
 import os
 import re
@@ -194,9 +194,9 @@ def test_k1_plans_match_the_kernel_source():
     """The wrapper's constants and bindings are the kernels': K1_THREADS is
     kThreads, the gallop entry launches its kernel with kThreads threads a
     CTA, the entry's key limit is the one `test_gallop_plan_covers_every_
-    query_once` holds the path to, and `_native` binds exactly the K1 entries
-    the source defines, one a variant. A mismatch would show on the card
-    only as a refused launch or a wrong result."""
+    query_once` holds the path to, and `_native` binds exactly the K1 entry
+    the source defines. A mismatch would show on the card only as a refused
+    launch or a wrong result."""
     src = _search_source()
     assert _constant(src, "kThreads") == ts.K1_THREADS
     gallop = src[src.index('extern "C" int fcaf3d_searchsorted_gallop('):]
@@ -204,9 +204,7 @@ def test_k1_plans_match_the_kernel_source():
                      gallop)
     assert "n_keys > kMax / 2" in gallop  # below 2^30 keys a sample
     entries = re.findall(r'extern "C" int (fcaf3d_searchsorted\w*)\(', src)
-    assert sorted(entries) == ["fcaf3d_searchsorted",
-                               "fcaf3d_searchsorted_gallop"]
-    assert len(entries) == len(ts.K1_VARIANTS)
+    assert entries == ["fcaf3d_searchsorted_gallop"]
     bound = re.findall(r"lib\.(fcaf3d_searchsorted\w*)\.argtypes",
                        open(_native.__file__).read())
     assert sorted(bound) == sorted(entries)
@@ -248,9 +246,8 @@ def test_gallop_plan_covers_every_query_once(b, m, s, n):
                                      (1, 1, 1, 1)])
 def test_k1_wrapper_launches_the_plan(monkeypatch, b, n, m, s):
     """On a CUDA tensor the wrapper hands `fcaf3d_searchsorted_gallop` the
-    shapes [B, M, S] and the gallop plan (or `_plan=`), counts the launch as
-    "gallop", and reaches the binary-search kernel only through
-    `_variant=`."""
+    shapes [B, M, S] and the gallop plan (or `_plan=`) and counts each launch
+    as "gallop"; it takes no keyword that picks another kernel."""
     lib = _Recorder()
     monkeypatch.setattr(_native, "load", lambda: lib)
     monkeypatch.setattr(_native, "stream_ptr", lambda dev: 0)
@@ -260,18 +257,15 @@ def test_k1_wrapper_launches_the_plan(monkeypatch, b, n, m, s):
     qs = _cuda_looking(torch.zeros(b, m, s, dtype=torch.int64))
     ts.searchsorted_segments(keys, qs, with_miss=True, layout="ms")
     ts.searchsorted_segments(keys, qs, layout="ms", _plan=7)
-    ts.searchsorted_segments(keys, qs, layout="ms", _variant="binary")
     names = [c[0] for c in lib.calls]
-    assert names == ["fcaf3d_searchsorted_gallop"] * 2 + [
-        "fcaf3d_searchsorted"]
+    assert names == ["fcaf3d_searchsorted_gallop"] * 2
     assert lib.calls[0][1][3:] == (b, n, m, s, ts.k1_gallop_plan(b, m, s),
                                    1, 0)
     assert lib.calls[1][1][3:] == (b, n, m, s, 7, 0, 0)
-    assert lib.calls[2][1][3:] == (b, n, m * s, 0, 0)
-    assert _native.VARIANT_LAUNCHES == {("searchsorted", "gallop", "int64"): 2,
-                                        ("searchsorted", "binary", "int64"): 1}
-    with pytest.raises(ValueError, match="variant"):
-        ts.searchsorted_segments(keys, qs, _variant="linear")
+    assert _native.VARIANT_LAUNCHES == {("searchsorted", "gallop", "int64"): 2}
+    with pytest.raises(TypeError, match="_variant"):
+        ts.searchsorted_segments(keys, qs, layout="ms", _variant="binary")
+    assert len(lib.calls) == 2
     _native.reset_launches()
 
 

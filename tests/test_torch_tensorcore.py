@@ -1,13 +1,15 @@
 """What surrounds the kernels of K2 and K4 (the kernels run only on a GPU,
 where `chip_smoke.py` holds them against their plain versions): the variant
 rules, the tile and slice choices and what the wrapper hands the kernel,
-`chip_smoke`'s work counter that its bounds rest on, and the build's source
-hash.
+`chip_smoke`'s work counter that its bounds rest on, the build's source
+hash and the library's bindings.
 """
 import ast
+import ctypes
 import os
 import re
 import shutil
+import types
 
 import numpy as np
 import pytest
@@ -28,11 +30,12 @@ DFEATS_SHAPES = ((64, 64, 27), (128, 64, 27))
 def test_k2_variant_rules(c, e, k):
     """bf16 goes to the tensor cores (folded below 16 channels), f32 to the
     CUDA cores (narrow below 16 channels, else tiled), at every K2 shape of
-    the path and both dFeats products; never to the first SIMT kernel."""
-    want = "tc_folded" if c < 16 else "tc"
-    assert tg.k2_variant(c, e, k, torch.bfloat16) == want
-    want = "simt_narrow" if c < 16 else "simt_tiled"
-    assert tg.k2_variant(c, e, k, torch.float32) == want
+    the path and both dFeats products: each one of K2_VARIANTS."""
+    bf16 = tg.k2_variant(c, e, k, torch.bfloat16)
+    f32 = tg.k2_variant(c, e, k, torch.float32)
+    assert bf16 == ("tc_folded" if c < 16 else "tc")
+    assert f32 == ("simt_narrow" if c < 16 else "simt_tiled")
+    assert {bf16, f32} <= set(tg.K2_VARIANTS)
 
 
 @pytest.mark.parametrize("shape", sorted({s for s, _ in chip_smoke.K4_SHAPES}))
@@ -41,6 +44,7 @@ def test_k4_variant_rules(shape):
     want = "tc_folded" if c < 16 else "tc"
     assert tg.k4_variant(c, e, k, torch.bfloat16) == want
     assert tg.k4_variant(c, e, k, torch.float32) == "simt"
+    assert {want, "simt"} <= set(tg.K4_VARIANTS)
 
 
 @pytest.mark.parametrize("pick", [tg.k2_variant, tg.k4_variant])
@@ -259,6 +263,37 @@ def test_build_hashes_every_source_and_header(tmp_path):
     assert "notes.txt" not in _native.hashed_files(str(csrc))
 
 
+class _BindingStub:
+    """A kernel library whose every attribute is a fresh namespace, so
+    `_native._bind` records what it sets on each entry it names."""
+
+    def __init__(self):
+        self.entries = {}
+
+    def __getattr__(self, name):
+        return self.entries.setdefault(name, types.SimpleNamespace())
+
+
+def test_bindings_are_exactly_the_c_entries():
+    """`_native._bind` binds every `extern "C" int fcaf3d_*` entry that
+    `csrc/*.cu` defines and nothing else, each with a return type and one
+    argument type a parameter of its C signature: a deleted kernel leaves
+    no stale binding, and a new entry cannot go unbound."""
+    params = {}
+    for name in _native.sources():
+        with open(os.path.join(_native.CSRC_DIR, name)) as f:
+            src = f.read()
+        for m in re.finditer(r'extern "C" int (fcaf3d_\w+)\(([^)]*)\)', src):
+            assert m.group(1) not in params, m.group(1)
+            params[m.group(1)] = len(m.group(2).split(","))
+    stub = _BindingStub()
+    _native._bind(stub)
+    assert sorted(stub.entries) == sorted(params)
+    for name, entry in stub.entries.items():
+        assert entry.restype is ctypes.c_int, name
+        assert len(entry.argtypes) == params[name], name
+
+
 def test_variant_counts_reset_with_the_launches():
     _native.count_launch("gather_gemm", "tc", torch.bfloat16)
     _native.count_launch("gather_gemm", "tc", torch.bfloat16)
@@ -372,10 +407,10 @@ class _FakeSimtLibrary:
 def test_k2_simt_kernels_receive_the_plain_chunks(monkeypatch, c, e, k, b, m):
     """What the f32 wrapper hands `fcaf3d_gather_gemm_simt`: the chunk
     boundaries are `chunk_bounds(K)`'s (the plain version's summation
-    chunks, where `gather_gemm.cu` closes them), the variant and tile are
+    chunks, where the kernels close them), the variant and tile are
     `k2_variant` / `k2_tiles`, the split gets its [3, B, M, E] f32
-    partials; each launch is counted by variant. `_variant="simt"` reaches
-    the first SIMT kernel with the same boundaries."""
+    partials; the launch is counted by variant, and the wrapper takes no
+    keyword that picks another kernel."""
     from tests.test_torch_kernels import _cuda_looking
 
     lib = _FakeSimtLibrary()
@@ -388,8 +423,9 @@ def test_k2_simt_kernels_receive_the_plain_chunks(monkeypatch, c, e, k, b, m):
     w = _cuda_looking(torch.zeros(k, c, e))
     with torch.no_grad():
         tg.fused_gather_gemm(feats, idx, w)
-        tg.fused_gather_gemm(feats, idx, w, _variant="simt")
-    (name, args), (old_name, old_args) = lib.calls
+        with pytest.raises(TypeError, match="_variant"):
+            tg.fused_gather_gemm(feats, idx, w, _variant="simt")
+    ((name, args),) = lib.calls
     (_, k1), (_, k2), (_, last) = tg.chunk_bounds(k)
     assert last == k
     variant = tg.k2_variant(c, e, k, torch.float32)
@@ -399,8 +435,6 @@ def test_k2_simt_kernels_receive_the_plain_chunks(monkeypatch, c, e, k, b, m):
     assert args[17:23] == (0, 0, {"simt_narrow": 1, "simt_tiled": 2}[variant],
                            tile_m, tile_n, split)
     assert (args[8] is None) == (split == 1)
-    assert old_name == "fcaf3d_gather_gemm" and old_args[14:16] == (k1, k2)
-    assert _native.VARIANT_LAUNCHES == {
-        ("gather_gemm", variant, "float32"): 1,
-        ("gather_gemm", "simt", "float32"): 1}
+    assert variant in tg.K2_VARIANTS
+    assert _native.VARIANT_LAUNCHES == {("gather_gemm", variant, "float32"): 1}
     _native.reset_launches()
