@@ -15,7 +15,7 @@ from ..ops.sparse.conv import (
     build_kernel_map,
     build_kernel_map_self,
     conv_plan,
-    kernel_offsets,
+    offsets_table,
 )
 from ..ops.sparse.tensor import SparseTensor
 from .blocks import (
@@ -91,7 +91,8 @@ class MEResNet3D(nn.Module):
             plan_s2 = conv_plan(x, 3, 2, self.budgets[2 + i])
             out_coords, out_keys, _, drop = plan_s2
             plan_ds = (out_coords, out_keys, build_kernel_map(
-                x.keys, out_coords, kernel_offsets(1, x.stride)), drop)
+                x.keys, out_coords,
+                offsets_table(1, x.stride, out_coords.device)), drop)
             plan_s1 = (out_coords, out_keys, build_kernel_map_self(
                 out_keys, out_coords, x.stride * 2), drop)
             x = getattr(self, f"layer{i + 1}_0")(x, (plan_s2, plan_s1, plan_ds))

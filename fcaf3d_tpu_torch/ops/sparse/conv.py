@@ -28,6 +28,7 @@ from .gather_kernel import (
     fused_gather_gemm,
     fused_gather_max,
 )
+from .tables import const_table
 from .tensor import (
     SENTINEL,
     SparseTensor,
@@ -51,11 +52,22 @@ def kernel_offsets(kernel_size: int, stride_units: int) -> np.ndarray:
     return offs * stride_units
 
 
+def offsets_table(kernel_size: int, stride_units: int,
+                  device: torch.device) -> torch.Tensor:
+    """`kernel_offsets` as an int32 [K, 3] tensor on `device`, made once
+    (`const_table`)."""
+    return const_table(kernel_offsets, kernel_size, stride_units,
+                       device=device, dtype=torch.int32)
+
+
 def build_kernel_map(in_keys: torch.Tensor, out_coords: torch.Tensor,
-                     offsets: np.ndarray) -> torch.Tensor:
+                     offsets) -> torch.Tensor:
     """Neighbour index table [B, M, K] int32; value N (= in capacity) means
     miss. One hit-verified search per (row, offset): the JAX package's
-    z-difference counting streams are a TPU device and give the same table."""
+    z-difference counting streams are a TPU device and give the same table.
+
+    `offsets`: [K, 3] int32, an `offsets_table` on `out_coords`' device
+    (no copy) or a host array (copied to the device on each call)."""
     offs = torch.as_tensor(offsets, dtype=torch.int32, device=out_coords.device)
     q = encode_coords(out_coords[:, :, None, :] + offs)  # [B, M, K]
     return lookup(in_keys, q, segments=True)
@@ -64,14 +76,15 @@ def build_kernel_map(in_keys: torch.Tensor, out_coords: torch.Tensor,
 def build_kernel_map_self(keys: torch.Tensor, coords: torch.Tensor,
                           stride: int) -> torch.Tensor:
     """k3 s1 submanifold kernel map on the map's own coordinates."""
-    return build_kernel_map(keys, coords, kernel_offsets(3, stride))
+    return build_kernel_map(keys, coords,
+                            offsets_table(3, stride, coords.device))
 
 
 def conv_plan(st: SparseTensor, kernel_size: int, stride: int = 1,
               out_budget: Optional[int] = None):
     """A convolution's (out_coords, out_keys, idx, dropped), shareable by
     every conv on the same coordinate map."""
-    offs = kernel_offsets(kernel_size, st.stride)
+    offs = offsets_table(kernel_size, st.stride, st.coords.device)
     if stride == 1:
         out_coords, out_keys, dropped = st.coords, st.keys, st.dropped
     else:
@@ -246,7 +259,8 @@ def sparse_max_pool(st: SparseTensor, kernel_size: int, stride: int,
     budget = out_budget if out_budget is not None else st.capacity
     out_coords, out_keys, dropped = downsample_coords(st, stride, budget)
     idx = build_kernel_map(st.keys, out_coords,
-                           kernel_offsets(kernel_size, st.stride))
+                           offsets_table(kernel_size, st.stride,
+                                         out_coords.device))
     parent_row = None
     if torch.is_grad_enabled() and st.feats.requires_grad:
         # inverse map for the backward: each input row's one parent output
@@ -303,7 +317,7 @@ def gen_child_idx(parent_idx: torch.Tensor) -> torch.Tensor:
     """Expand a parent k3 self map [B, P, 27] (P = miss) to the k3 map of
     its parent-major child map [B, 8P, 27] (8P = miss)."""
     b, p, _ = parent_idx.shape
-    route = torch.as_tensor(gen_route_tables(), device=parent_idx.device)
+    route = const_table(gen_route_tables, device=parent_idx.device)
     j = parent_idx[:, :, route // 8].reshape(b, p, 8, 27)
     cb = (route % 8).reshape(8, 27).int()
     child = torch.where(j >= p, 8 * p, j * 8 + cb)
@@ -317,7 +331,8 @@ def gen_conv_plan(parent: SparseTensor, child: SparseTensor):
         raise ValueError("gen_conv_plan needs the parent-major child map "
                          "of `parent`")
     parent_idx = build_kernel_map(parent.keys, parent.coords,
-                                  kernel_offsets(3, parent.stride))
+                                  offsets_table(3, parent.stride,
+                                                parent.coords.device))
     return child.coords, child.keys, gen_child_idx(parent_idx), child.dropped
 
 
@@ -421,9 +436,7 @@ def interpolate_at(st: SparseTensor, positions: torch.Tensor) -> torch.Tensor:
                                  device=positions.device)
     base = torch.floor(pos)
     frac = pos - base
-    corners = torch.as_tensor(
-        list(itertools.product((0, 1), repeat=3)), dtype=torch.int32,
-        device=positions.device)  # [8, 3], z fastest
+    corners = offsets_table(2, 1, positions.device)  # [8, 3], z fastest
     cc = base.int()[:, :, None, :] * s + corners * s  # [B, Q, 8, 3]
     idx = lookup(st.keys, encode_coords(cc), segments=True)  # [B, Q, 8]
     f3 = frac[:, :, None, :]

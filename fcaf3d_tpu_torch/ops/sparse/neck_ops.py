@@ -14,11 +14,12 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .conv import gather_gemm, kernel_offsets
+from .conv import gather_gemm, offsets_table
+from .tables import const_table
 from .tensor import (
-    EXTENT,
     SENTINEL,
     SparseTensor,
+    _extent,
     compact_positions,
     decode_coords,
     encode_coords,
@@ -48,8 +49,8 @@ def child_prune_scores(parent_scores: torch.Tensor,
     """Interpolated prune score [B, 8P] of every generated child,
     parent-major (row = p*8 + o), from coarse scores [B, P, 1] and the
     parent self kernel map [B, P, 27] (absent neighbours add zero)."""
-    w = torch.as_tensor(trilinear_slot_weights(), device=parent_scores.device)
-    w = w.reshape(27, 1, 8).to(parent_scores.dtype)
+    w = const_table(trilinear_slot_weights, device=parent_scores.device,
+                    dtype=parent_scores.dtype).reshape(27, 1, 8)
     out = gather_gemm(parent_scores, parent_kmap, w)  # [B, P, 8]
     b, p, _ = out.shape
     return out.reshape(b, 8 * p)
@@ -110,17 +111,14 @@ def sort_tensor(st: SparseTensor) -> SparseTensor:
 def gen_children(parent: SparseTensor, weight: torch.Tensor):
     """Generative-transpose (k2 s2) children, parent-major: returns
     (coords [B, 8P, 3], keys [B, 8P], feats [B, 8P, E])."""
-    offs = torch.as_tensor(kernel_offsets(2, parent.stride // 2),
-                           device=parent.coords.device)
+    offs = offsets_table(2, parent.stride // 2, parent.coords.device)
     b, p = parent.coords.shape[:2]
     coords = (parent.coords[:, :, None, :] + offs).reshape(b, p * 8, 3)
     feats = torch.einsum("bnc,kcd->bnkd", parent.feats, weight)
     feats = feats.reshape(b, p * 8, -1)
     pvalid = torch.repeat_interleave(parent.valid, 8, dim=1)
     keys = torch.where(pvalid, encode_coords(coords), SENTINEL)
-    coords = torch.where(pvalid[..., None], coords,
-                         torch.tensor(EXTENT, dtype=torch.int32,
-                                      device=coords.device))
+    coords = torch.where(pvalid[..., None], coords, _extent(coords))
     feats = torch.where(pvalid[..., None], feats, 0.0)
     return coords, keys, feats
 

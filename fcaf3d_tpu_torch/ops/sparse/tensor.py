@@ -17,6 +17,8 @@ from typing import Optional
 
 import torch
 
+from .tables import const_table
+
 # bit budget: x:11, y:11, z:10 -> exactly 32 bits
 X_BITS, Y_BITS, Z_BITS = 11, 11, 10
 # x is capped one short so the all-ones SENTINEL can never be a valid key
@@ -61,7 +63,9 @@ class SparseTensor:
 
 
 def _extent(like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(EXTENT, dtype=torch.int32, device=like.device)
+    """EXTENT as an int32 [3] tensor on `like`'s device (`const_table`)."""
+    return const_table(torch.tensor, EXTENT, device=like.device,
+                       dtype=torch.int32)
 
 
 def encode_coords(coords: torch.Tensor) -> torch.Tensor:

@@ -33,9 +33,12 @@ voxel (one entry a level). The counters `norm_budget_rows` / `norm_rows`
 (`ops/sparse/masked_norm.py`, kernel K7 on the card) are the rows each
 norm call was launched over and the valid rows its kernels touched,
 summed over the calls in the span open at each (`backbone`, `neck_head`):
-how far K7's skipping of the padding engages. The autograd engine runs
-the backward on a thread of its own; its kernels fall inside the caller's
-`backward` span by time.
+how far K7's skipping of the padding engages. The counter
+`const_table_builds` (`ops/sparse/tables.py`) is the constant tables the
+sparse ops made in the span (`voxelize`, `backbone`, `neck_head`): the
+distinct tables on a device's first forward, 0 after. The autograd engine
+runs the backward on a thread of its own; its kernels fall inside the
+caller's `backward` span by time.
 
 `profiled(n, path)` runs a block with its first `n` items under
 `torch.profiler` and tracing on, and writes their Chrome trace to `path`

@@ -170,14 +170,20 @@ def test_counters_read_the_budgets_rows_at_drain(built, case):
         tracing.disable()
         hook.remove()
     spans = tracing.drain()
+    # the constant tables each span of the sparse ops made (0 once warm:
+    # tests/test_torch_const_tables.py holds the counts)
+    builds = {s.name: s.counters.pop("const_table_builds") for s in spans
+              if "const_table_builds" in s.counters}
     counters = {s.name: s.counters for s in spans if s.counters}
     if case.endswith("train"):  # CPU leaves: the plain loop, none fused
         assert counters.pop("optimizer") == {
             "adamw_leaves": len(list(model.parameters())),
             "adamw_fused_leaves": 0}
     if case.startswith("votenet"):
-        assert counters == {}
+        assert counters == {} and builds == {}
         return
+    assert set(builds) == {"voxelize", "backbone", "neck_head"}
+    assert all(isinstance(n, int) and n >= 0 for n in builds.values())
     cfg = model.cfg
     with torch.no_grad():
         st = voxelize(torch.as_tensor(batch["points"]),
